@@ -1,0 +1,58 @@
+"""One-call library API over the codec registry:
+
+    import fl_rl_compression_mpi_tpu_torch as flrl
+    comp = flrl.compress(data, method="fl")        # container struct
+    out = flrl.decompress(comp, method="fl")
+    flrl.compress_file("in.bin", "out.fl")         # container on disk
+    flrl.decompress_file("out.fl", "restored.bin")
+
+Containers are byte-identical to the JAX package's and to the reference
+binary's (pinned by ``tests/golden/reference/``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from fl_rl_compression_mpi_tpu import container
+from fl_rl_compression_mpi_tpu.fileio import load_file, save_file
+
+from .models.registry import CODECS, resolve
+
+
+def methods() -> dict[str, str]:
+    """Available method names → description."""
+    return {name: c.description for name, c in CODECS.items()}
+
+
+def _as_u8(data) -> np.ndarray:
+    # np.asarray(b"...", np.uint8) treats bytes as a scalar and raises;
+    # frombuffer is the zero-copy view for bytes-like inputs
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, np.uint8)
+    return np.asarray(data, np.uint8)
+
+
+def compress(data, method: str = "fl", **opts):
+    """Bytes → ``FLCompressed``.  ``opts`` pass through to the codec
+    (``frame_length``; ``device`` for ``fl``)."""
+    return resolve(method).compress(_as_u8(data), **opts)
+
+
+def decompress(comp, method: str = "fl", **opts) -> np.ndarray:
+    """``FLCompressed`` → decoded bytes (u8 array)."""
+    return resolve(method).decompress(comp, **opts)
+
+
+def compress_file(input_path: str, output_path: str,
+                  method: str = "fl", **opts) -> None:
+    """File → container file."""
+    container.save_fl(output_path,
+                      resolve(method).compress(load_file(input_path), **opts))
+
+
+def decompress_file(input_path: str, output_path: str,
+                    method: str = "fl", **opts) -> None:
+    """Container file → file."""
+    comp = container.load_fl(input_path)
+    save_file(output_path, resolve(method).decompress(comp, **opts))

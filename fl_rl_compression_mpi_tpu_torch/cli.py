@@ -1,0 +1,145 @@
+"""Command-line interface of the PyTorch package.
+
+The same surface as ``python -m fl_rl_compression_mpi_tpu``:
+``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``
+and ``--verify``.  Methods: ``fl`` (one CUDA device) and ``fl-cpu`` (host).
+The JAX package's other methods and flags parse, and then fail with exit
+code 2 and ``[ERROR] <x>: not yet ported to the PyTorch package``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+from fl_rl_compression_mpi_tpu import container
+from fl_rl_compression_mpi_tpu.fileio import load_file, save_file
+from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
+
+from .models.registry import resolve
+from .utils.timers import set_stage_timers, timed
+
+_PORTED = ("fl", "fl-cpu")
+_NOT_PORTED = ("fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist", "fl-mpi",
+               "fl-nccl", "fl-shmem")
+_NOT_PORTED_FLAGS = ("devices", "stream_chunk_mb", "coordinator",
+                     "num_processes", "process_id", "profile")
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fl_rl_compression_mpi_tpu_torch",
+        description="FL lossless compression on a CUDA device (PyTorch)",
+        epilog="example: python -m fl_rl_compression_mpi_tpu_torch c fl "
+               "in.bin out.fl")
+    p.add_argument("operation", choices=("c", "d"),
+                   help="c = compress, d = decompress")
+    p.add_argument("method", choices=_PORTED + _NOT_PORTED)
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--frame-length", type=int, default=FRAME_LENGTH,
+                   help="FL frame length in bytes (default 128; a positive "
+                        "multiple of 8)")
+    p.add_argument("--timers", action="store_true",
+                   help="print [TIMER] phase lines")
+    p.add_argument("--verify", action="store_true",
+                   help="after compressing, decompress the output and "
+                        "byte-compare against the input")
+    # parsed only to be refused: not ported yet
+    p.add_argument("--devices", type=int, default=None)
+    p.add_argument("--stream-chunk-mb", type=int, default=None)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile", default=None)
+    return p
+
+
+def _not_ported(args) -> str | None:
+    for flag in _NOT_PORTED_FLAGS:
+        if getattr(args, flag) is not None:
+            return "--" + flag.replace("_", "-")
+    if args.method in _NOT_PORTED:
+        return args.method
+    return None
+
+
+def _compress(args, codec, data: np.ndarray) -> int:
+    with timed("compression", nbytes=data.size, enabled=args.timers):
+        comp = codec.compress(data, frame_length=args.frame_length)
+    with timed("saving output", enabled=args.timers):
+        container.save_fl(args.output, comp)
+    if args.timers:
+        size = comp.bits.size + comp.values.size + 24
+        print(f"[INFO] compressed {data.size} -> {size} bytes "
+              f"(ratio {size / data.size if data.size else 0.0:.4f})",
+              file=sys.stderr)
+    if args.verify:
+        with timed("verification", nbytes=data.size, enabled=args.timers):
+            out = codec.decompress(container.load_fl(args.output),
+                                   frame_length=args.frame_length)
+        if not np.array_equal(out, data):
+            print("[ERROR] verification failed: round-trip mismatch",
+                  file=sys.stderr)
+            return 1
+        print("[INFO] verification OK", file=sys.stderr)
+    return 0
+
+
+def _decompress(args, codec) -> None:
+    with timed("loading compressed input", enabled=args.timers):
+        comp = container.load_fl(args.input)
+    with timed("decompression", nbytes=int(comp.input_size),
+               enabled=args.timers):
+        out = codec.decompress(comp, frame_length=args.frame_length)
+    with timed("saving output", nbytes=out.size, enabled=args.timers):
+        save_file(args.output, out)
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    # set unconditionally: in-process callers must not inherit a previous
+    # run's switch
+    set_stage_timers(args.timers)
+    missing = _not_ported(args)
+    if missing is not None:
+        print(f"[ERROR] {missing}: not yet ported to the PyTorch package",
+              file=sys.stderr)
+        return 2
+    if args.frame_length <= 0 or args.frame_length % 8:
+        print("[ERROR] --frame-length must be a positive multiple of 8",
+              file=sys.stderr)
+        return 2
+    codec = resolve(args.method)
+    if args.timers:
+        import torch
+
+        from .ops import fl_dense_cuda
+        name = (torch.cuda.get_device_name() if torch.cuda.is_available()
+                else "none")
+        print(f"[INFO] cuda devices={torch.cuda.device_count()} "
+              f"device0={name}", file=sys.stderr)
+        before = dict(fl_dense_cuda.LAUNCHES)
+    try:
+        if args.operation == "c":
+            with timed("loading input", enabled=args.timers) as t:
+                data = load_file(args.input)
+                t.add_transfer_size(data.size)
+            rc = _compress(args, codec, data)
+        else:
+            _decompress(args, codec)
+            rc = 0
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    if args.timers:
+        ran = {k: v - before[k] for k, v in fl_dense_cuda.LAUNCHES.items()}
+        print(f"[INFO] kernel launches {json.dumps(ran)}", file=sys.stderr)
+    return rc
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

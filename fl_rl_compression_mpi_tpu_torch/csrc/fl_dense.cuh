@@ -1,0 +1,76 @@
+// Dense FL codec kernels for Hopper (sm_90a): shared constants, frame
+// geometry and the plain C interface that ops/_build.py loads with ctypes.
+//
+// Every launcher runs on the stream it is given, allocates nothing, and
+// returns cudaGetLastError() (0 on success) as an int.  Pointers and the
+// stream are passed as void*, sizes as int64_t.
+#pragma once
+
+#include <cstdint>
+
+#define FLRL_API extern "C" __attribute__((visibility("default")))
+
+namespace flrl {
+
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Frame kernels: one warp per frame, 8 warps per block.
+constexpr int kWarpsPerBlock = 8;
+constexpr int kFrameThreads = kWarpsPerBlock * kWarp;
+// Grid cap for the grid-stride frame loops (a 1 GiB chunk at L = 8 has
+// 2^27 frames; a capped grid walks them instead of launching 2^24 blocks).
+constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
+
+// Pack staging: a warp stages 256 input bytes (8 per lane) in shared
+// memory.  256 values at width b are exactly 32·b payload bytes, so a
+// segment's output is byte-aligned for every width.
+constexpr int kSegValues = kWarp * 8;
+
+// Two-level exclusive scan: a tile of 512 threads × 8 frames.
+constexpr int kScanThreads = 512;
+constexpr int kScanItems = 8;
+constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanItems;
+
+// Number of real bytes in frame f of an n-byte stream cut into L-byte frames.
+__host__ __device__ inline int64_t frame_count(int64_t f, int64_t n,
+                                               int64_t L) {
+  const int64_t rest = n - f * L;
+  return rest < L ? rest : L;
+}
+
+// Payload bytes of a frame of `count` values at width b: ceil(count·b/8).
+__host__ __device__ inline int64_t frame_bytes(int b, int64_t count) {
+  return (count * b + 7) / 8;
+}
+
+}  // namespace flrl
+
+// Per-frame width max(1, bitlen(max byte)) into bits[F].  fb_expect != 0
+// sets *flag to 1 when any frame's width differs from it (uniform mode).
+FLRL_API int flrl_frame_widths(const void* data, int64_t n,
+                               int64_t frame_length, int fb_expect,
+                               void* bits, void* flag, int device,
+                               void* stream);
+
+// offs[0..F] = exclusive scan of ceil(count_f·bits[f]/8); offs[F] is the
+// payload size.  `carries` is scratch of flrl_scan_carries_size(F) int64s.
+FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
+                                int64_t frame_length, void* offs,
+                                void* carries, int device, void* stream);
+FLRL_API int64_t flrl_scan_carries_size(int64_t frames);
+
+// Pack n bytes into the container payload.  General mode: widths `bits`
+// and offsets `offs` (fb = 0).  Uniform mode: fb in 1..8, bits and offs
+// null, frame f at the static offset f·L·fb/8.
+FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,
+                       const void* bits, const void* offs, int fb,
+                       void* values, int device, void* stream);
+
+// Inverse of flrl_pack: payload `values` (values_size bytes) → n bytes.
+FLRL_API int flrl_unpack(const void* values, int64_t values_size, int64_t n,
+                         int64_t frame_length, const void* bits,
+                         const void* offs, int fb, void* out, int device,
+                         void* stream);
+
+FLRL_API const char* flrl_cuda_error_string(int code);

@@ -1,0 +1,50 @@
+"""Codec registry of the PyTorch package: method name → implementation.
+
+``fl`` runs the dense kernels on a CUDA device (``ops/fl_torch.py``).
+``fl-cpu`` is the JAX package's own host codec (native C++/OpenMP, NumPy
+fallback), imported as it is: it involves no JAX.  The other methods of
+the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fl_rl_compression_mpi_tpu.container import FLCompressed
+from fl_rl_compression_mpi_tpu.models.registry import CODECS as _JAX_CODECS
+from fl_rl_compression_mpi_tpu.models.registry import Codec
+
+
+def default_device() -> torch.device:
+    """The device ``fl`` runs on when none is given: the current CUDA
+    device.  There is no CPU run of ``fl`` unless a caller asks for one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _fl(data, frame_length=128, device=None, **_):
+    from ..ops import fl_torch
+    bits, values = fl_torch.encode(data, frame_length,
+                                   device=device or default_device())
+    return FLCompressed(bits, values, data.size)
+
+
+def _fl_d(comp, frame_length=128, device=None, **_):
+    from ..ops import fl_torch
+    return fl_torch.decode(comp.input_size, comp.bits, comp.values,
+                           frame_length, device=device or default_device())
+
+
+_FL_CPU = _JAX_CODECS["fl-cpu"]
+
+CODECS: dict[str, Codec] = {c.name: c for c in [
+    Codec("fl", "fl", "FL on one CUDA device (hand-written Hopper kernels)",
+          _fl, _fl_d),
+    Codec("fl-cpu", "fl", _FL_CPU.description, _FL_CPU.compress,
+          _FL_CPU.decompress),
+]}
+
+
+def resolve(name: str) -> Codec:
+    return CODECS[name]

@@ -1,0 +1,115 @@
+"""Phase timers + throughput reporting.
+
+Same ``[TIMER] <name>: <ms> ms (<rate>)`` lines and the same
+``Timer``/``timed``/``stage``/``set_stage_timers`` API as
+``fl_rl_compression_mpi_tpu/utils/timers.py``.  A device stage passes the
+tensors it produced in ``result``; the timer then synchronises the CUDA
+device before it stops, so the stage's time is the device's time and not
+the enqueue's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable
+
+import torch
+
+_UNITS = [("GB/s", 1e9), ("MB/s", 1e6), ("KB/s", 1e3), ("B/s", 1.0)]
+
+
+def _format_rate(bytes_: int, seconds: float) -> str:
+    if seconds <= 0:
+        return "n/a"
+    rate = bytes_ / seconds
+    for unit, scale in _UNITS:
+        if rate >= scale:
+            return f"{rate / scale:.2f} {unit}"
+    return f"{rate:.2f} B/s"
+
+
+class Timer:
+    """Start/stop phase timer printing ``[TIMER] <name>: <ms> ms``, with a
+    ``[Rank N]`` prefix when ``rank`` >= 0."""
+
+    def __init__(self, name: str, rank: int = -1, enabled: bool = True,
+                 printer: Callable[[str], None] = print):
+        self.name = name
+        self.rank = rank
+        self.enabled = enabled
+        self.printer = printer
+        self._t0 = 0.0
+        self.elapsed_s = 0.0
+        self.transfer_bytes = 0
+
+    def start(self) -> "Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self, *wait_for) -> float:
+        """Stop; when any ``wait_for`` tensor lives on a CUDA device, that
+        device is synchronised first so the phase measures finished work."""
+        for dev in {x.device for x in wait_for
+                    if isinstance(x, torch.Tensor) and x.is_cuda}:
+            torch.cuda.synchronize(dev)
+        self.elapsed_s = time.perf_counter() - self._t0
+        return self.elapsed_s
+
+    def add_transfer_size(self, nbytes: int) -> None:
+        """Accumulate bytes for throughput reporting."""
+        self.transfer_bytes += int(nbytes)
+
+    def print_result(self) -> None:
+        if not self.enabled:
+            return
+        prefix = f"[Rank {self.rank}] " if self.rank >= 0 else ""
+        line = f"{prefix}[TIMER] {self.name}: {self.elapsed_s * 1e3:.3f} ms"
+        if self.transfer_bytes:
+            line += f" ({_format_rate(self.transfer_bytes, self.elapsed_s)})"
+        self.printer(line)
+
+
+@contextlib.contextmanager
+def timed(name: str, nbytes: int = 0, enabled: bool = True, rank: int = -1,
+          result=None):
+    """``with timed("compression", nbytes=n): ...`` — prints on exit.
+    Pass ``result=[tensor, ...]`` (a list filled inside the block) to
+    wait for device work before stopping the clock."""
+    t = Timer(name, rank=rank, enabled=enabled)
+    if nbytes:
+        t.add_transfer_size(nbytes)
+    t.start()
+    try:
+        yield t
+    finally:
+        t.stop(*(result or ()))
+        t.print_result()
+
+
+# Stage timers: per-stage [TIMER] lines inside the codec (copy in, kernels,
+# copy out).  A module-level switch, so the codec pays one bool check when
+# they are off.
+_STAGE = {"enabled": False, "rank": -1}
+
+
+def set_stage_timers(enabled: bool, rank: int = -1) -> None:
+    """Turn the per-stage ``[TIMER]`` lines inside the codec on or off."""
+    _STAGE["enabled"] = bool(enabled)
+    _STAGE["rank"] = int(rank)
+
+
+def stage_timers_enabled() -> bool:
+    return _STAGE["enabled"]
+
+
+@contextlib.contextmanager
+def stage(name: str, nbytes: int = 0, result=None):
+    """Codec-internal stage timer: a no-op (no synchronise, no print)
+    unless :func:`set_stage_timers` turned it on."""
+    if not _STAGE["enabled"]:
+        yield None
+        return
+    with timed(name, nbytes=nbytes, rank=_STAGE["rank"], enabled=True,
+               result=result) as t:
+        yield t

@@ -1,0 +1,134 @@
+"""CLI and library API of the PyTorch package (on the CPU: the registry's
+device default is patched, since ``fl`` runs only on a CUDA device)."""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import fl_rl_compression_mpi_tpu_torch as flrl
+from fl_rl_compression_mpi_tpu_torch.cli import main
+from fl_rl_compression_mpi_tpu_torch.models import registry
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference")
+GOLDEN_BINS = sorted(glob.glob(os.path.join(GOLDEN, "case_*.bin")))
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setattr(registry, "default_device",
+                        lambda: torch.device("cpu"))
+
+
+@pytest.mark.parametrize("src", GOLDEN_BINS,
+                         ids=[os.path.basename(p) for p in GOLDEN_BINS])
+def test_goldens_roundtrip_through_cli(src, tmp_path, on_cpu, capsys):
+    comp = str(tmp_path / "o.fl")
+    back = str(tmp_path / "o.bin")
+    assert main(["c", "fl", src, comp, "--verify"]) == 0
+    assert "verification OK" in capsys.readouterr().err
+    with open(comp, "rb") as a, open(src[:-4] + ".fl", "rb") as b:
+        assert a.read() == b.read()
+    assert main(["d", "fl", src[:-4] + ".fl", back]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8),
+                                  np.fromfile(src, np.uint8))
+
+
+@pytest.fixture
+def blob(tmp_path):
+    data = np.random.default_rng(0).integers(0, 32, 128 * 300 + 55, np.uint8)
+    p = str(tmp_path / "in.bin")
+    data.tofile(p)
+    return p, data
+
+
+@pytest.mark.parametrize("method", ["fl", "fl-cpu"])
+@pytest.mark.parametrize("L", [64, 128])
+def test_roundtrip_methods_and_frame_lengths(method, L, blob, tmp_path,
+                                             on_cpu):
+    src, data = blob
+    comp, back = str(tmp_path / "o.fl"), str(tmp_path / "o.bin")
+    assert main(["c", method, src, comp, "--frame-length", str(L),
+                 "--verify"]) == 0
+    # every FL method reads every other's container
+    other = "fl-cpu" if method == "fl" else "fl"
+    assert main(["d", other, comp, back, "--frame-length", str(L)]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+
+
+@pytest.mark.parametrize("method", ["fl-dist", "fl-ici", "fl-mpi",
+                                    "fl-nccl", "fl-shmem", "rl", "rl-cpu",
+                                    "rl-dist"])
+def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys):
+    src, _ = blob
+    assert main(["c", method, src, str(tmp_path / "x")]) == 2
+    assert (f"[ERROR] {method}: not yet ported to the PyTorch package"
+            in capsys.readouterr().err)
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--devices", "2"), ("--stream-chunk-mb", "64"),
+    ("--coordinator", "localhost:1234"), ("--num-processes", "2"),
+    ("--process-id", "0"), ("--profile", "trace")])
+def test_flags_not_ported_exit_2(flag, value, blob, tmp_path, capsys):
+    src, _ = blob
+    assert main(["c", "fl", src, str(tmp_path / "x"), flag, value]) == 2
+    assert (f"[ERROR] {flag}: not yet ported to the PyTorch package"
+            in capsys.readouterr().err)
+
+
+def test_no_cuda_device_is_an_error(blob, tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, _ = blob
+    assert main(["c", "fl", src, str(tmp_path / "x")]) == 1
+    assert "[ERROR] no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.default_device()
+
+
+def test_bad_frame_length_and_missing_input(blob, tmp_path, on_cpu):
+    src, _ = blob
+    assert main(["c", "fl", src, str(tmp_path / "x"),
+                 "--frame-length", "100"]) == 2
+    assert main(["c", "fl", str(tmp_path / "nope.bin"),
+                 str(tmp_path / "x")]) == 1
+
+
+def test_timers_print_stage_lines_and_launches(blob, tmp_path, on_cpu,
+                                               capsys):
+    src, _ = blob
+    comp = str(tmp_path / "o.fl")
+    assert main(["c", "fl", src, comp, "--timers"]) == 0
+    cap = capsys.readouterr()
+    for line in ("[TIMER] loading input", "[TIMER] Copy input data to device",
+                 "[TIMER] Compression:", "[TIMER] Copy results to CPU:",
+                 "[TIMER] compression:"):
+        assert line in cap.out
+    assert "[INFO] kernel launches" in cap.err
+    assert main(["d", "fl", comp, str(tmp_path / "o.bin"), "--timers"]) == 0
+    assert "[TIMER] Decompression:" in capsys.readouterr().out
+    # the switch must not leak into runs without --timers
+    assert main(["c", "fl", src, comp]) == 0
+    assert "[TIMER]" not in capsys.readouterr().out
+
+
+def test_library_api(tmp_path, on_cpu):
+    data = np.random.default_rng(9).integers(0, 32, 128 * 64 + 9, np.uint8)
+    assert set(flrl.methods()) == {"fl", "fl-cpu"}
+    for method in ("fl", "fl-cpu"):
+        comp = flrl.compress(data.tobytes(), method=method)
+        np.testing.assert_array_equal(flrl.decompress(comp, method=method),
+                                      data)
+        src, dst, back = (str(tmp_path / f"{method}.{s}")
+                          for s in ("bin", "fl", "out"))
+        data.tofile(src)
+        flrl.compress_file(src, dst, method=method)
+        flrl.decompress_file(dst, back, method=method)
+        np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+    # an explicit device overrides the default
+    comp = flrl.compress(data, method="fl", device="cpu", frame_length=64)
+    np.testing.assert_array_equal(
+        flrl.decompress(comp, method="fl", device="cpu", frame_length=64),
+        data)

@@ -1,0 +1,111 @@
+"""Plain PyTorch versions of the dense kernels (what a CPU tensor runs)
+against the NumPy golden; ``test_torch_fl_dense_pallas.py`` holds them
+against the TPU's Pallas kernels.  Tolerance: byte equality throughout."""
+
+import numpy as np
+import pytest
+import torch
+
+from fuzz_battery import battery
+from fl_rl_compression_mpi_tpu.ops import fl_dense_pallas, fl_numpy
+from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
+
+FRAME_LENGTHS = (8, 64, 128, 256, 1024)
+
+
+def _width_cases():
+    g = np.random.default_rng(7)
+    out = []
+    for b in range(1, 9):
+        d = g.integers(0, 1 << b, 3000 + 13 * b).astype(np.uint8)
+        d[::61] = (1 << b) - 1          # pins the width of most frames
+        out.append((f"w{b}", d))
+    return out
+
+
+CASES = ([(f"battery{i}", d) for i, d in enumerate(battery())]
+         + _width_cases())
+
+
+def _roundtrip(data: np.ndarray, L: int):
+    x = torch.from_numpy(data)
+    n = data.size
+    bits, flag = k.frame_widths(x, L)
+    offs = k.frame_offsets(bits, n, L)
+    values = k.pack(x, L, bits=bits, offs=offs)
+    out = k.unpack(values, n, L, bits=bits, offs=offs)
+    return bits, flag, offs, values, out
+
+
+@pytest.mark.parametrize("L", FRAME_LENGTHS)
+@pytest.mark.parametrize("name,data", CASES, ids=[c[0] for c in CASES])
+def test_plain_versions_match_numpy_golden(name, data, L):
+    before = dict(k.LAUNCHES)
+    bits, flag, offs, values, out = _roundtrip(data, L)
+    bg, vg = fl_numpy.encode(data, L)
+    np.testing.assert_array_equal(bits.numpy(), bg)
+    assert int(flag) == 0
+    assert int(offs[-1]) == vg.size
+    np.testing.assert_array_equal(values.numpy(), vg)
+    np.testing.assert_array_equal(out.numpy(), data)
+    if data.size and bool((bits == bits[0]).all()):
+        fb = int(bits[0])
+        x = torch.from_numpy(data)
+        assert int(k.frame_widths(x, L, fb_expect=fb)[1]) == 0
+        vu = k.pack(x, L, fb=fb)
+        np.testing.assert_array_equal(vu.numpy(), vg)
+        np.testing.assert_array_equal(
+            k.unpack(vu, data.size, L, fb=fb).numpy(), data)
+    # CPU tensors run the plain versions: no kernel launch is counted
+    assert k.LAUNCHES == before
+
+
+def test_widths_flag_fires_on_mixed_stream():
+    g = np.random.default_rng(3)
+    data = g.integers(0, 16, 4096, np.uint8)
+    data[128 * 5] = 200                  # one frame of width 8
+    _, flag = k.frame_widths(torch.from_numpy(data), 128, fb_expect=4)
+    assert int(flag) == 1
+
+
+def test_host_probe_uniform_b_matches_tpu_probe():
+    """The copy agrees with the TPU probe wherever the TPU had masks; the
+    TPU's mask-availability clause is gone."""
+    g = np.random.default_rng(5)
+    R = 8
+    tile = R * 512
+    cases = [np.zeros(tile, np.uint8),
+             g.integers(0, 16, tile).astype(np.uint8),
+             (g.integers(0, 4, tile) + 4).astype(np.uint8),
+             g.integers(0, 256, tile).astype(np.uint8),
+             np.concatenate([g.integers(0, 2, tile // 2),
+                             g.integers(0, 64, tile // 2)]).astype(np.uint8),
+             np.zeros(tile - 1, np.uint8)]
+    cases[1][::129] = 15
+    for d in cases:
+        tpu = fl_dense_pallas.host_probe_uniform_b(d, R)
+        port = k.host_probe_uniform_b(d, 128, R)
+        if tpu is not None:
+            assert port == tpu
+        fmax = d[: d.size // 128 * 128].reshape(-1, 128).max(1)
+        widths = np.maximum(1, np.ceil(np.log2(fmax.astype(float) + 1)))
+        uniform = d.size >= tile and (widths == widths[0]).all()
+        assert (port is not None) == bool(uniform)
+
+
+def test_wrappers_reject_bad_arguments():
+    x = torch.zeros(100, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        k.frame_widths(x, 12)
+    with pytest.raises(ValueError):
+        k.frame_widths(x.to(torch.int32), 8)
+    with pytest.raises(ValueError):
+        k.frame_widths(x, 8, fb_expect=9)
+    bits, _ = k.frame_widths(x, 8)
+    offs = k.frame_offsets(bits, 100, 8)
+    with pytest.raises(ValueError):
+        k.pack(x, 8, bits=bits)                       # no offs
+    with pytest.raises(ValueError):
+        k.pack(x, 8, bits=bits, offs=offs, fb=1)      # both modes
+    with pytest.raises(ValueError):
+        k.unpack(x, 100, 8, bits=bits[:-1], offs=offs)

@@ -1,0 +1,73 @@
+"""The PyTorch package and chip_smoke.py never import JAX: the machine with
+the GPU has none."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROGRAM = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import importlib, pkgutil
+import numpy as np
+import fl_rl_compression_mpi_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+import chip_smoke
+from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
+data = np.random.default_rng(0).integers(0, 32, 50_000, np.uint8)
+bits, values = fl_torch.encode(data, device="cpu")
+assert np.array_equal(fl_torch.decode(data.size, bits, values,
+                                      device="cpu"), data)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_port_never_imports_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    """Without CUDA the smoke exits nonzero and prints no result."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, torch\n"
+         "torch.cuda.is_available = lambda: False\n"
+         "sys.argv = ['chip_smoke.py']\n"
+         "import chip_smoke\n"
+         "sys.exit(chip_smoke.main())\n"],
+        cwd=REPO, env=_clean_env(), capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    """Alone in a directory, the smoke cannot import the package."""
+    script = tmp_path / "chip_smoke.py"
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        script.write_text(f.read())
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
