@@ -7,19 +7,27 @@ Phases, each printing a line and failing the run on any error:
 
 1. device   — needs a CUDA device; prints nvidia-smi's name and power limit.
 2. build    — builds the kernels from csrc/ with nvcc (ops/_build.py).
-3. kernels  — every kernel against its plain PyTorch version on the card,
-              byte for byte: widths 1..8, per-frame random widths, tails
-              n mod 128 in {0, 1, 77, 127}, L in {128, 64, 1024}, a 64 MiB
-              mixed stream, general and uniform mode, the widths flag; then
-              both versions timed at the main path's shapes (CUDA events).
+3. kernels  — every FL kernel against its plain PyTorch version on the
+              card, byte for byte: widths 1..8, per-frame random widths,
+              tails n mod 128 in {0, 1, 77, 127}, L in {128, 64, 1024}, a
+              64 MiB mixed stream, general and uniform mode, the widths flag;
+              then both versions timed at the main path's shapes (CUDA
+              events).  Then every RL kernel the same way: few runs, runs of
+              300, dense bytes (R = n), one long zero run, runs of 254, 255,
+              256 and 510, constant tiles between varying regions, tails
+              n mod 4096 in {0, 1, 77, 4095}, a 64 MiB mixed stream, chunk
+              carries (mid-piece, at a cap boundary, on a new value), zero
+              counts; timed on the 512 MiB rl_mixed stream.
 4. goldens  — the CLI's `c fl` reproduces every tests/golden/reference
-              container; `d fl` of every container equals the fl-cpu decode.
+              container; `d fl` of every container equals the fl-cpu decode;
+              `c rl` reproduces tests/golden/input.rl and `d rl` restores it.
 5. main     — the CLI's `c fl --verify` and `d fl` on two 512 MiB streams
-              (mixed widths; uniform width 4): restored bytes equal the
-              input, containers equal the native fl-cpu encoder's, and every
-              kernel was launched.
-6. chunks   — the API on 1 GiB + 4,173 bytes, across the 1 GiB chunk cap,
-              against fl-cpu.
+              (mixed widths; uniform width 4), then `c rl --verify` and
+              `d rl` on the 512 MiB rl_mixed stream: restored bytes equal the
+              input, containers equal the native fl-cpu / rl-cpu encoder's,
+              and every kernel of each path was launched in its run.
+6. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
+              chunk cap, against fl-cpu and rl-cpu.
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -40,11 +48,12 @@ import torch
 
 from fl_rl_compression_mpi_tpu_torch import cli
 from fl_rl_compression_mpi_tpu_torch import compress, decompress
-from fl_rl_compression_mpi_tpu_torch import load_fl
+from fl_rl_compression_mpi_tpu_torch import load_fl, load_rl
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
+from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference")
@@ -61,7 +70,17 @@ REPLACES = {
     "fl_unpack": f"{PALLAS}:1074",
     "fl_unpack_uniform": f"{PALLAS}:1488",
 }
-MAX_ERR = {name: 0 for name in REPLACES}
+RL_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/rl.cu"
+RL_PALLAS = "fl_rl_compression_mpi_tpu/ops/rl_pallas.py"
+RL_REPLACES = {
+    "rl_flags": f"{RL_PALLAS}:302",
+    "rl_scan": f"{RL_PALLAS}:302",
+    "rl_compact": f"{RL_PALLAS}:302",
+    "rl_counts": f"{RL_PALLAS}:302",
+    "rl_offsets": f"{RL_PALLAS}:579",
+    "rl_expand": f"{RL_PALLAS}:579",
+}
+MAX_ERR = {name: 0 for name in (*REPLACES, *RL_REPLACES)}
 
 
 def say(msg: str) -> None:
@@ -299,6 +318,221 @@ def phase_chunks(rng) -> None:
         f"round trip exact; encode {t1 - t0:.3f} s, decode {t2 - t1:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# RL
+# ---------------------------------------------------------------------------
+
+def runs_stream(rng, n: int, lo: int, hi: int, vmax: int) -> np.ndarray:
+    """n bytes of runs of random length lo..hi over values 0..vmax-1,
+    neighbouring runs of different values."""
+    count = (n // lo + 1 if lo == hi
+             else 2 * n // (lo + hi) * 11 // 10 + 1024)
+    steps = rng.integers(1, vmax, count) if vmax > 1 else np.zeros(count)
+    values = (np.cumsum(steps) % vmax).astype(np.uint8)
+    return np.repeat(values, rng.integers(lo, hi + 1, count))[:n].copy()
+
+
+def rl_mixed_stream(rng, part: int | None = None) -> np.ndarray:
+    """Four parts (128 MiB each by default): image-like runs of 1..8 over
+    0..15; cap-straddling runs of 200..900; random bytes (each a run: the
+    worst case); zeros (a long constant region inside a non-constant
+    file)."""
+    part = 128 * MIB if part is None else part
+    return np.concatenate([runs_stream(rng, part, 1, 8, 16),
+                           runs_stream(rng, part, 200, 900, 256),
+                           rng.integers(0, 256, part, np.uint8),
+                           np.zeros(part, np.uint8)])
+
+
+def check_rl_encode(x: torch.Tensor, prev: int = -1, d0: int = 0) -> dict:
+    """The four encode kernels on one chunk, each against its plain
+    version on the kernel's own inputs; returns their outputs."""
+    n = x.numel()
+    summ = rk.piece_tiles(x, prev)
+    compare("rl_flags", summ, rk.piece_tiles_ref(x, prev))
+    tstart, offs = rk.piece_offsets(summ, n, d0)
+    want_t, want_o = rk.piece_offsets_ref(summ, n, d0)
+    compare("rl_scan", tstart, want_t)
+    compare("rl_scan", offs, want_o)
+    values, starts8 = rk.compact(x, prev, tstart, offs)
+    want_v, want_s = rk.compact_ref(x, prev, tstart, offs)
+    compare("rl_compact", values, want_v)
+    compare("rl_compact", starts8, want_s)
+    counts = rk.piece_counts(starts8, n)
+    compare("rl_counts", counts, rk.piece_counts_ref(starts8, n))
+    return {"summ": summ, "tstart": tstart, "offs": offs, "values": values,
+            "starts8": starts8, "counts": counts}
+
+
+def check_rl_decode(counts: torch.Tensor, values: torch.Tensor):
+    offs = rk.run_offsets(counts)
+    compare("rl_offsets", offs, rk.run_offsets_ref(counts))
+    n = int(offs[-1])
+    out = rk.expand(counts, values, offs, n)
+    compare("rl_expand", out, rk.expand_ref(counts, values, offs, n))
+    return offs, out
+
+
+def check_rl(data: np.ndarray) -> None:
+    """A whole stream through the RL kernels: each against its plain
+    version, the round trip, and the container against rl-cpu's."""
+    x = torch.from_numpy(data).cuda()
+    enc = check_rl_encode(x)
+    _, out = check_rl_decode(enc["counts"], enc["values"])
+    compare("rl_expand", out, x)
+    ref = CODECS["rl-cpu"].compress(data)
+    if not (np.array_equal(enc["counts"].cpu().numpy(), ref.counts)
+            and np.array_equal(enc["values"].cpu().numpy(), ref.values)):
+        raise AssertionError("RL kernel container differs from rl-cpu")
+
+
+def phase_rl_kernels(rng) -> int:
+    tile = rk.TILE
+    alt = np.arange(4096, dtype=np.uint8) % 2
+    cases = [
+        rng.integers(0, 4, MIB + 77, np.uint8),
+        np.repeat(rng.integers(0, 8, 4000, np.uint8), 300),
+        runs_stream(rng, 4 * MIB, 1, 1, 256),
+        np.zeros(16 * MIB, np.uint8),
+        *(np.repeat(alt, length) for length in (254, 255, 256, 510)),
+        np.concatenate([rng.integers(0, 9, 700, np.uint8),
+                        np.full(3 * tile, 42, np.uint8),
+                        rng.integers(0, 9, 900, np.uint8),
+                        np.full(2 * tile + 77, 42, np.uint8),
+                        np.full(tile, 43, np.uint8)]),
+        *(runs_stream(rng, 4 * MIB + tail, 1, 8, 16)
+          for tail in (0, 1, 77, 4095)),
+        rl_mixed_stream(rng, 16 * MIB),
+    ]
+    for data in cases:
+        check_rl(data)
+    # chunk carries: byte 0 continues a run of 5 mid-piece, at a cap
+    # boundary, and starts a new value
+    data = np.concatenate([np.full(600, 5, np.uint8),
+                           runs_stream(rng, 3 * MIB, 1, 600, 256)])
+    x = torch.from_numpy(data).cuda()
+    for prev, d0 in ((5, 100), (5, 255), (5, 510), (6, 40)):
+        check_rl_encode(x, prev, d0)
+    # zero counts (a corrupt but loadable container) take no output
+    counts = rng.integers(0, 256, 4 * MIB).astype(np.uint8)
+    counts[::3] = 0
+    counts[-1] = 0
+    values = rng.integers(0, 256, counts.size, np.uint8)
+    _, out = check_rl_decode(torch.from_numpy(counts).cuda(),
+                             torch.from_numpy(values).cuda())
+    if not np.array_equal(out.cpu().numpy(), np.repeat(values, counts)):
+        raise AssertionError("zero-count decode differs from np.repeat")
+    return len(cases) + 2
+
+
+def time_rl_kernels(data: np.ndarray) -> dict:
+    """Kernel and plain times on one 512 MiB chunk, each compared once
+    more at that shape."""
+    x = torch.from_numpy(data).cuda()
+    n = x.numel()
+    e = check_rl_encode(x)
+    offs, _ = check_rl_decode(e["counts"], e["values"])
+    summ, tstart, eoffs = e["summ"], e["tstart"], e["offs"]
+    starts8, counts, values = e["starts8"], e["counts"], e["values"]
+    timings = {
+        "rl_flags": (cuda_ms(lambda: rk.piece_tiles(x)),
+                     cuda_ms(lambda: rk.piece_tiles_ref(x))),
+        "rl_scan": (cuda_ms(lambda: rk.piece_offsets(summ, n)),
+                    cuda_ms(lambda: rk.piece_offsets_ref(summ, n))),
+        "rl_compact": (
+            cuda_ms(lambda: rk.compact(x, -1, tstart, eoffs)),
+            cuda_ms(lambda: rk.compact_ref(x, -1, tstart, eoffs))),
+        "rl_counts": (cuda_ms(lambda: rk.piece_counts(starts8, n)),
+                      cuda_ms(lambda: rk.piece_counts_ref(starts8, n))),
+        "rl_offsets": (cuda_ms(lambda: rk.run_offsets(counts)),
+                       cuda_ms(lambda: rk.run_offsets_ref(counts))),
+        "rl_expand": (
+            cuda_ms(lambda: rk.expand(counts, values, offs, n)),
+            cuda_ms(lambda: rk.expand_ref(counts, values, offs, n))),
+    }
+    say(f"[kernels] rl_mixed: {n} bytes, {counts.numel()} pieces")
+    del x, e, offs, summ, tstart, eoffs, starts8, counts, values
+    torch.cuda.empty_cache()
+    return timings
+
+
+def phase_rl_goldens(tmp: str) -> None:
+    src = os.path.join(REPO, "tests", "golden", "input.bin")
+    want = src[:-4] + ".rl"
+    out, back = os.path.join(tmp, "g.rl"), os.path.join(tmp, "g.bin")
+    run_cli("c", "rl", src, out)
+    if not same_file(out, want):
+        raise AssertionError("c rl input.bin differs from input.rl")
+    run_cli("d", "rl", want, back)
+    if not same_file(back, src):
+        raise AssertionError("d rl input.rl did not restore input.bin")
+    out = os.path.join(tmp, "m.rl")
+    proc = subprocess.run(
+        [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch", "c", "rl",
+         src, out, "--verify"], cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0 or not same_file(out, want):
+        raise AssertionError(f"python -m ... c rl failed: {proc.stderr}")
+    say("[goldens] c rl reproduces input.rl, d rl restores input.bin, "
+        "python -m entry OK")
+
+
+def phase_rl_main(tmp: str, data: np.ndarray) -> dict:
+    """The rl path through the CLI; returns its kernels' launch counts."""
+    src = os.path.join(tmp, "rl_mixed.bin")
+    comp_path = os.path.join(tmp, "rl_mixed.rl")
+    back = os.path.join(tmp, "rl_mixed.out")
+    data.tofile(src)
+    k.reset_launches()
+    rk.reset_launches()
+    t0 = time.perf_counter()
+    run_cli("c", "rl", src, comp_path, "--verify", "--timers")
+    t1 = time.perf_counter()
+    run_cli("d", "rl", comp_path, back, "--timers")
+    t2 = time.perf_counter()
+    launches = dict(rk.LAUNCHES)
+    if not same_file(back, src):
+        raise AssertionError("rl_mixed: d rl did not restore the input")
+    comp = load_rl(comp_path)
+    ref = CODECS["rl-cpu"].compress(data)
+    if not (np.array_equal(comp.counts, ref.counts)
+            and np.array_equal(comp.values, ref.values)):
+        raise AssertionError("rl_mixed: container differs from rl-cpu")
+    say(f"[main] rl_mixed: {data.size} bytes -> "
+        f"{os.path.getsize(comp_path)} bytes; c rl --verify "
+        f"{t1 - t0:.3f} s, d rl {t2 - t1:.3f} s (wall, host clock)")
+    say(f"[main] rl kernel launches {json.dumps(launches)}")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"rl kernels not launched on the main path: "
+                             f"{missing}")
+    return launches
+
+
+def phase_rl_chunks(rng) -> None:
+    """1 GiB + 4,173 bytes; a run of 700 crosses the 1 GiB chunk boundary
+    mid-piece (its pieces start 300 and 45 bytes before it)."""
+    cap = fl_torch.MAX_DEVICE_CHUNK
+    data = runs_stream(rng, cap + 4096 + 77, 1, 8, 16)
+    data[cap - 300:cap + 400] = 200
+    t0 = time.perf_counter()
+    comp = compress(data, method="rl")
+    t1 = time.perf_counter()
+    back = decompress(comp, method="rl")
+    t2 = time.perf_counter()
+    rl_cpu = CODECS["rl-cpu"]
+    ref = rl_cpu.compress(data)
+    if not (np.array_equal(comp.counts, ref.counts)
+            and np.array_equal(comp.values, ref.values)):
+        raise AssertionError("rl chunk walk: container differs from rl-cpu")
+    if not (np.array_equal(back, data)
+            and np.array_equal(decompress(ref, method="rl"), data)):
+        raise AssertionError("rl chunk walk: decode did not restore the "
+                             "input")
+    say(f"[chunks] rl: {data.size} bytes in 2 chunks: container equals "
+        f"rl-cpu, round trip exact; encode {t1 - t0:.3f} s, decode "
+        f"{t2 - t1:.3f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -339,22 +573,43 @@ def main() -> int:
     mixed = mixed_main_stream(rng)
     uniform4 = uniform_stream(rng, 512 * MIB, 128, 4)
     timings = time_kernels(mixed, uniform4)
+
+    t0 = time.perf_counter()
+    cases = phase_rl_kernels(rng)
+    say(f"[kernels] {cases} RL inputs: kernels equal their plain versions "
+        f"byte for byte")
+    rl_mixed = rl_mixed_stream(rng)
+    timings.update(time_rl_kernels(rl_mixed))
     for name, (ms, plain) in timings.items():
         say(f"[kernels] {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain "
             f"(512 MiB stream, median of 5)")
+    say(f"[kernels] max |err| {json.dumps(MAX_ERR)}")
+    t_rl = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_goldens(tmp)
         launches = phase_main(tmp, {"mixed": mixed, "uniform4": uniform4})
-    del mixed, uniform4
+        del mixed, uniform4
+        t0 = time.perf_counter()
+        phase_rl_goldens(tmp)
+        launches.update(phase_rl_main(tmp, rl_mixed))
+        del rl_mixed
+        t_rl += time.perf_counter() - t0
     phase_chunks(rng)
+    t0 = time.perf_counter()
+    phase_rl_chunks(rng)
+    t_rl += time.perf_counter() - t0
+    say(f"[done] RL phases took {t_rl:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
+    kernels = [{"name": name, "route": "cuda",
+                "source": SOURCE if name in REPLACES else RL_SOURCE,
+                "replaces": {**REPLACES, **RL_REPLACES}[name],
+                "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": timings[name][0],
-                "plain_ms": timings[name][1]} for name in REPLACES]
+                "plain_ms": timings[name][1]}
+               for name in (*REPLACES, *RL_REPLACES)]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
-"""FL lossless compression on an NVIDIA GPU: the PyTorch + CUDA port of
-``fl_rl_compression_mpi_tpu``.
+"""FL and RL lossless compression on an NVIDIA GPU: the PyTorch + CUDA
+port of ``fl_rl_compression_mpi_tpu``.
 
-The ``fl`` method runs hand-written Hopper kernels (``csrc/fl_dense.cu``,
-built with ``nvcc`` at first use by ``ops/_build.py``) behind the same
+The ``fl`` and ``rl`` methods run hand-written Hopper kernels
+(``csrc/fl_dense.cu``, ``csrc/rl.cu``, built with ``nvcc`` at first use by
+``ops/_build.py``) behind the same
 container format, CLI and library API as the JAX package, which stays the
 reference.  Framework-free host modules (container, file I/O, native
 codec, NumPy golden) are imported from the JAX package, not copied; this

@@ -3,11 +3,11 @@
     import fl_rl_compression_mpi_tpu_torch as flrl
     comp = flrl.compress(data, method="fl")        # container struct
     out = flrl.decompress(comp, method="fl")
-    flrl.compress_file("in.bin", "out.fl")         # container on disk
-    flrl.decompress_file("out.fl", "restored.bin")
+    flrl.compress_file("in.bin", "out.rl", method="rl")   # container on disk
+    flrl.decompress_file("out.rl", "restored.bin", method="rl")
 
 Containers are byte-identical to the JAX package's and to the reference
-binary's (pinned by ``tests/golden/reference/``).
+binary's (pinned by ``tests/golden/reference/`` and ``tests/golden/``).
 """
 
 from __future__ import annotations
@@ -33,26 +33,37 @@ def _as_u8(data) -> np.ndarray:
     return np.asarray(data, np.uint8)
 
 
+def load_container(family: str, path: str):
+    """The container file at ``path`` of a codec family (``fl``/``rl``)."""
+    return (container.load_rl if family == "rl" else container.load_fl)(path)
+
+
+def save_container(family: str, path: str, comp) -> None:
+    (container.save_rl if family == "rl" else container.save_fl)(path, comp)
+
+
 def compress(data, method: str = "fl", **opts):
-    """Bytes → ``FLCompressed``.  ``opts`` pass through to the codec
-    (``frame_length``; ``device`` for ``fl``)."""
+    """Bytes → ``FLCompressed`` / ``RLCompressed``.  ``opts`` pass through
+    to the codec (``frame_length`` for FL; ``device`` for ``fl``, ``rl``)."""
     return resolve(method).compress(_as_u8(data), **opts)
 
 
 def decompress(comp, method: str = "fl", **opts) -> np.ndarray:
-    """``FLCompressed`` → decoded bytes (u8 array)."""
+    """Container struct → decoded bytes (u8 array)."""
     return resolve(method).decompress(comp, **opts)
 
 
 def compress_file(input_path: str, output_path: str,
                   method: str = "fl", **opts) -> None:
     """File → container file."""
-    container.save_fl(output_path,
-                      resolve(method).compress(load_file(input_path), **opts))
+    codec = resolve(method)
+    save_container(codec.family, output_path,
+                   codec.compress(load_file(input_path), **opts))
 
 
 def decompress_file(input_path: str, output_path: str,
                     method: str = "fl", **opts) -> None:
     """Container file → file."""
-    comp = container.load_fl(input_path)
-    save_file(output_path, resolve(method).decompress(comp, **opts))
+    codec = resolve(method)
+    comp = load_container(codec.family, input_path)
+    save_file(output_path, codec.decompress(comp, **opts))

@@ -2,9 +2,11 @@
 
 The same surface as ``python -m fl_rl_compression_mpi_tpu``:
 ``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``
-and ``--verify``.  Methods: ``fl`` (one CUDA device) and ``fl-cpu`` (host).
-The JAX package's other methods and flags parse, and then fail with exit
-code 2 and ``[ERROR] <x>: not yet ported to the PyTorch package``.
+and ``--verify``.  Methods: ``fl`` and ``rl`` (one CUDA device), ``fl-cpu``
+and ``rl-cpu`` (host).  RL methods accept ``--frame-length`` and ignore it,
+as the JAX CLI does.  The JAX package's other methods and flags parse, and
+then fail with exit code 2 and ``[ERROR] <x>: not yet ported to the
+PyTorch package``.
 """
 
 from __future__ import annotations
@@ -15,16 +17,16 @@ import sys
 
 import numpy as np
 
-from fl_rl_compression_mpi_tpu import container
 from fl_rl_compression_mpi_tpu.fileio import load_file, save_file
 from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
 
+from .api import load_container, save_container
 from .models.registry import resolve
 from .utils.timers import set_stage_timers, timed
 
-_PORTED = ("fl", "fl-cpu")
-_NOT_PORTED = ("fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist", "fl-mpi",
-               "fl-nccl", "fl-shmem")
+_PORTED = ("fl", "fl-cpu", "rl", "rl-cpu")
+_NOT_PORTED = ("fl-dist", "fl-ici", "rl-dist", "fl-mpi", "fl-nccl",
+               "fl-shmem")
 _NOT_PORTED_FLAGS = ("devices", "stream_chunk_mb", "coordinator",
                      "num_processes", "process_id", "profile")
 
@@ -32,7 +34,8 @@ _NOT_PORTED_FLAGS = ("devices", "stream_chunk_mb", "coordinator",
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fl_rl_compression_mpi_tpu_torch",
-        description="FL lossless compression on a CUDA device (PyTorch)",
+        description="FL/RL lossless compression on a CUDA device "
+                    "(PyTorch)",
         epilog="example: python -m fl_rl_compression_mpi_tpu_torch c fl "
                "in.bin out.fl")
     p.add_argument("operation", choices=("c", "d"),
@@ -42,7 +45,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("output")
     p.add_argument("--frame-length", type=int, default=FRAME_LENGTH,
                    help="FL frame length in bytes (default 128; a positive "
-                        "multiple of 8)")
+                        "multiple of 8; ignored by RL)")
     p.add_argument("--timers", action="store_true",
                    help="print [TIMER] phase lines")
     p.add_argument("--verify", action="store_true",
@@ -71,15 +74,17 @@ def _compress(args, codec, data: np.ndarray) -> int:
     with timed("compression", nbytes=data.size, enabled=args.timers):
         comp = codec.compress(data, frame_length=args.frame_length)
     with timed("saving output", enabled=args.timers):
-        container.save_fl(args.output, comp)
+        save_container(codec.family, args.output, comp)
     if args.timers:
-        size = comp.bits.size + comp.values.size + 24
+        size = comp.values.size + 24 + (comp.counts.size
+                                        if codec.family == "rl"
+                                        else comp.bits.size)
         print(f"[INFO] compressed {data.size} -> {size} bytes "
               f"(ratio {size / data.size if data.size else 0.0:.4f})",
               file=sys.stderr)
     if args.verify:
         with timed("verification", nbytes=data.size, enabled=args.timers):
-            out = codec.decompress(container.load_fl(args.output),
+            out = codec.decompress(load_container(codec.family, args.output),
                                    frame_length=args.frame_length)
         if not np.array_equal(out, data):
             print("[ERROR] verification failed: round-trip mismatch",
@@ -91,12 +96,17 @@ def _compress(args, codec, data: np.ndarray) -> int:
 
 def _decompress(args, codec) -> None:
     with timed("loading compressed input", enabled=args.timers):
-        comp = container.load_fl(args.input)
+        comp = load_container(codec.family, args.input)
     with timed("decompression", nbytes=int(comp.input_size),
                enabled=args.timers):
         out = codec.decompress(comp, frame_length=args.frame_length)
     with timed("saving output", nbytes=out.size, enabled=args.timers):
         save_file(args.output, out)
+
+
+def _launch_counts() -> dict:
+    from .ops import fl_dense_cuda, rl_cuda
+    return {**fl_dense_cuda.LAUNCHES, **rl_cuda.LAUNCHES}
 
 
 def main(argv=None) -> int:
@@ -117,12 +127,11 @@ def main(argv=None) -> int:
     if args.timers:
         import torch
 
-        from .ops import fl_dense_cuda
         name = (torch.cuda.get_device_name() if torch.cuda.is_available()
                 else "none")
         print(f"[INFO] cuda devices={torch.cuda.device_count()} "
               f"device0={name}", file=sys.stderr)
-        before = dict(fl_dense_cuda.LAUNCHES)
+        before = _launch_counts()
     try:
         if args.operation == "c":
             with timed("loading input", enabled=args.timers) as t:
@@ -136,7 +145,7 @@ def main(argv=None) -> int:
         print(f"[ERROR] {e}", file=sys.stderr)
         return 1
     if args.timers:
-        ran = {k: v - before[k] for k, v in fl_dense_cuda.LAUNCHES.items()}
+        ran = {k: v - before[k] for k, v in _launch_counts().items()}
         print(f"[INFO] kernel launches {json.dumps(ran)}", file=sys.stderr)
     return rc
 

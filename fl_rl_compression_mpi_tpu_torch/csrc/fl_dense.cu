@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 
 #include "fl_dense.cuh"
+#include "scan.cuh"
 
 namespace flrl {
 namespace {
@@ -83,40 +84,9 @@ frame_widths_kernel(const uint8_t* __restrict__ data, int64_t n, int64_t L,
 // blocks run in no order, so placement is a two-level scan: each block scans
 // a tile of 4096 frames and writes its total (scan_tiles), one block scans
 // the tile totals (scan_carries), and every frame adds its tile's carry
-// (add_carries).  Reads F width bytes, writes 8·F offset bytes twice: small
-// beside the payload passes.
+// (add_carries); the shared pieces live in scan.cuh.  Reads F width bytes,
+// writes 8·F offset bytes twice: small beside the payload passes.
 // --------------------------------------------------------------------------
-__device__ __forceinline__ int64_t warp_inclusive_scan(int64_t x, int lane) {
-#pragma unroll
-  for (int d = 1; d < kWarp; d <<= 1) {
-    const int64_t y = __shfl_up_sync(kFullMask, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
-// Exclusive scan of one value per thread across a block of kScanThreads;
-// *total receives the block's sum.  Safe to call repeatedly in a loop.
-__device__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
-  constexpr int kWarps = kScanThreads / kWarp;
-  __shared__ int64_t warp_sums[kWarps];
-  const int lane = threadIdx.x % kWarp;
-  const int w = threadIdx.x / kWarp;
-  const int64_t inc = warp_inclusive_scan(v, lane);
-  if (lane == kWarp - 1) warp_sums[w] = inc;
-  __syncthreads();
-  if (w == 0) {
-    int64_t s = lane < kWarps ? warp_sums[lane] : 0;
-    s = warp_inclusive_scan(s, lane);
-    if (lane < kWarps) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int64_t prefix = w > 0 ? warp_sums[w - 1] : 0;
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();
-  return prefix + inc - v;
-}
-
 __global__ void __launch_bounds__(kScanThreads)
 scan_tiles_kernel(const uint8_t* __restrict__ bits, int64_t n, int64_t L,
                   int64_t frames, int64_t* __restrict__ offs,
@@ -139,40 +109,6 @@ scan_tiles_kernel(const uint8_t* __restrict__ bits, int64_t n, int64_t L,
     pre += x[i];
   }
   if (threadIdx.x == 0) carries[blockIdx.x] = total;
-}
-
-// One block: carries[t] <- exclusive scan of the tile totals; *end <- sum.
-__global__ void __launch_bounds__(kScanThreads)
-scan_carries_kernel(int64_t* __restrict__ carries, int64_t tiles,
-                    int64_t* __restrict__ end) {
-  int64_t running = 0;
-  for (int64_t base = 0; base < tiles; base += kScanTile) {
-    const int64_t t0 = base + int64_t(threadIdx.x) * kScanItems;
-    int64_t x[kScanItems];
-    int64_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      x[i] = t0 + i < tiles ? carries[t0 + i] : 0;
-      sum += x[i];
-    }
-    int64_t total;
-    int64_t pre = running + block_exclusive_scan(sum, &total);
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      if (t0 + i < tiles) carries[t0 + i] = pre;
-      pre += x[i];
-    }
-    running += total;
-  }
-  if (threadIdx.x == 0) *end = running;
-}
-
-__global__ void add_carries_kernel(int64_t* __restrict__ offs, int64_t frames,
-                                   const int64_t* __restrict__ carries) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t f = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       f < frames; f += stride)
-    offs[f] += carries[f / kScanTile];
 }
 
 // --------------------------------------------------------------------------

@@ -8,12 +8,13 @@
 
 #include <cstdint>
 
+#include "scan.cuh"
+
+#ifndef FLRL_API
 #define FLRL_API extern "C" __attribute__((visibility("default")))
+#endif
 
 namespace flrl {
-
-constexpr int kWarp = 32;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // Frame kernels: one warp per frame, 8 warps per block.
 constexpr int kWarpsPerBlock = 8;
@@ -26,11 +27,6 @@ constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
 // memory.  256 values at width b are exactly 32·b payload bytes, so a
 // segment's output is byte-aligned for every width.
 constexpr int kSegValues = kWarp * 8;
-
-// Two-level exclusive scan: a tile of 512 threads × 8 frames.
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 8;
-constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanItems;
 
 // Number of real bytes in frame f of an n-byte stream cut into L-byte frames.
 __host__ __device__ inline int64_t frame_count(int64_t f, int64_t n,

@@ -1,23 +1,25 @@
 """Codec registry of the PyTorch package: method name → implementation.
 
-``fl`` runs the dense kernels on a CUDA device (``ops/fl_torch.py``).
-``fl-cpu`` is the JAX package's own host codec (native C++/OpenMP, NumPy
-fallback), imported as it is: it involves no JAX.  The other methods of
-the JAX package are not ported yet.
+``fl`` runs the dense kernels on a CUDA device (``ops/fl_torch.py``),
+``rl`` the RL kernels (``ops/rl_torch.py``).  ``fl-cpu`` and ``rl-cpu`` are
+the JAX package's own host codecs (native C++/OpenMP, NumPy fallback),
+imported as they are: they involve no JAX.  The other methods of the JAX
+package are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fl_rl_compression_mpi_tpu.container import FLCompressed
+from fl_rl_compression_mpi_tpu.container import FLCompressed, RLCompressed
 from fl_rl_compression_mpi_tpu.models.registry import CODECS as _JAX_CODECS
 from fl_rl_compression_mpi_tpu.models.registry import Codec
 
 
 def default_device() -> torch.device:
-    """The device ``fl`` runs on when none is given: the current CUDA
-    device.  There is no CPU run of ``fl`` unless a caller asks for one."""
+    """The device ``fl`` and ``rl`` run on when none is given: the current
+    CUDA device.  There is no CPU run of either unless a caller asks for
+    one."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     return torch.device("cuda", torch.cuda.current_device())
@@ -36,13 +38,30 @@ def _fl_d(comp, frame_length=128, device=None, **_):
                            frame_length, device=device or default_device())
 
 
+def _rl(data, device=None, **_):
+    from ..ops import rl_torch
+    counts, values = rl_torch.encode(data, device=device or default_device())
+    return RLCompressed(counts, values, data.size)
+
+
+def _rl_d(comp, device=None, **_):
+    from ..ops import rl_torch
+    return rl_torch.decode(comp.counts, comp.values,
+                           device=device or default_device())
+
+
 _FL_CPU = _JAX_CODECS["fl-cpu"]
+_RL_CPU = _JAX_CODECS["rl-cpu"]
 
 CODECS: dict[str, Codec] = {c.name: c for c in [
     Codec("fl", "fl", "FL on one CUDA device (hand-written Hopper kernels)",
           _fl, _fl_d),
     Codec("fl-cpu", "fl", _FL_CPU.description, _FL_CPU.compress,
           _FL_CPU.decompress),
+    Codec("rl", "rl", "RL on one CUDA device (hand-written Hopper kernels)",
+          _rl, _rl_d),
+    Codec("rl-cpu", "rl", _RL_CPU.description, _RL_CPU.compress,
+          _RL_CPU.decompress),
 ]}
 
 

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface (``csrc/fl_dense.cuh``), so ``nvcc``
+The sources have a plain C interface (``csrc/fl_dense.cuh``,
+``csrc/rl.cuh``), so ``nvcc``
 compiles them straight into a shared library in seconds, and ``ctypes``
 loads it.  No PyTorch headers are involved.  The library lands in
 ``_build/libflrl_cuda_<srchash>.so`` beside the package, keyed by a hash of
@@ -40,6 +41,12 @@ _SIGNATURES = {
     "flrl_pack": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P, _INT, _P]),
     "flrl_unpack": (_INT, [_P, _I64, _I64, _I64, _P, _P, _INT, _P, _INT,
                            _P]),
+    "flrl_rl_piece_tiles": (_INT, [_P, _I64, _INT, _P, _INT, _P]),
+    "flrl_rl_piece_offsets": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P]),
+    "flrl_rl_compact": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _INT, _P]),
+    "flrl_rl_counts": (_INT, [_P, _I64, _I64, _P, _INT, _P]),
+    "flrl_rl_run_offsets": (_INT, [_P, _I64, _P, _INT, _P]),
+    "flrl_rl_expand": (_INT, [_P, _P, _I64, _P, _I64, _P, _INT, _P]),
     "flrl_cuda_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -1,0 +1,202 @@
+"""RL codec on one device: the host dispatch around the RL kernels.
+
+Counterpart of ``fl_rl_compression_mpi_tpu/ops/rl_jax.py`` (its host
+API).  One dispatch chain serves every input size:
+
+* encode — constant stream → closed-form container on the host; else a
+  walk over chunks of at most ``fl_torch.MAX_DEVICE_CHUNK`` bytes, each
+  copied to the device, encoded by the kernels with the carry of the
+  chunk before it (its last byte and how far into a natural run it
+  ended), and copied back (exactly R counts and R values).  A chunk's
+  last count runs to the chunk's end; the host closes it with the next
+  piece start, in whichever later chunk it falls, or with the stream's
+  end;
+* decode — empty container → empty output; canonical constant container
+  (one value, every count but the last 255) → ``np.full``; else a walk
+  over chunks split at run boundaries, each with output ≤ 1 GiB (a chunk
+  takes at least one run), each chunk's output copied from the device
+  straight into its slice of the output.  The output length is the sum
+  of the counts, as in ``rl_jax.decode``; the container's ``input_size``
+  is not consulted.
+
+The codec has no weights: its state is the container.  Encode and decode
+read and write the same ``RLCompressed`` fields and file bytes as the JAX
+package (``fl_rl_compression_mpi_tpu.container``), so containers cross
+between the two packages as they are, with no conversion.
+
+``device`` is explicit: a CUDA device runs the kernels, the CPU runs their
+plain PyTorch versions (the tests use it).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fl_rl_compression_mpi_tpu.utils import constant_byte_probe
+
+from ..utils.timers import stage
+from . import fl_torch
+from . import rl_cuda as kern
+from .fl_torch import _to_device
+
+RUN_CAP = kern.RUN_CAP
+
+
+def _constant_container(c: int, n: int):
+    """ceil(n/255) runs of 255 (the last holds the rest) of the byte c."""
+    runs = -(-n // RUN_CAP)
+    counts = np.full(runs, RUN_CAP, np.uint8)
+    counts[-1] = n - RUN_CAP * (runs - 1)
+    return counts, np.full(runs, c, np.uint8)
+
+
+def _piece_head(chunk: np.ndarray, prev: int, d0: int) -> int:
+    """Bytes of ``chunk`` before its first piece start (its size or more
+    if none starts in it), given the carry: they extend the piece left
+    open by the chunks before.  At most 254, so only a prefix is read."""
+    if prev < 0 or int(chunk[0]) != prev or d0 % RUN_CAP == 0:
+        return 0
+    cap = RUN_CAP - d0 % RUN_CAP
+    differ = np.flatnonzero(chunk[:cap] != prev)
+    return int(differ[0]) if differ.size else cap
+
+
+def encode(data, *, device: str | torch.device):
+    """u8 bytes → ``(counts u8[R], values u8[R])``, byte-identical to
+    ``rl_numpy.encode`` and to the JAX package's ``rl`` and ``rl-cpu``."""
+    data = np.asarray(data, np.uint8).reshape(-1)
+    n = data.size
+    if n == 0:
+        return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
+    c = constant_byte_probe(data)
+    if c is not None:
+        with stage("Compression", n):
+            return _constant_container(c, n)
+    device = torch.device(device)
+    cap = fl_torch.MAX_DEVICE_CHUNK
+    parts = []
+    prev, d0 = -1, 0
+    open_len = 0          # bytes so far of the last piece of parts[-1]
+    for off in range(0, n, cap):
+        chunk = data[off:off + cap]
+        open_len += min(_piece_head(chunk, prev, d0), chunk.size)
+        counts, values, run_start = _encode_chunk(chunk, prev, d0, device)
+        if counts.size:
+            if parts:
+                parts[-1][0][-1] = open_len
+            parts.append((counts, values))
+            open_len = int(counts[-1])
+        prev, d0 = int(chunk[-1]), chunk.size - run_start
+    parts[-1][0][-1] = open_len
+    if len(parts) == 1:
+        return parts[0]
+    return (np.concatenate([c for c, _ in parts]),
+            np.concatenate([v for _, v in parts]))
+
+
+def _encode_chunk(chunk: np.ndarray, prev: int, d0: int,
+                  device: torch.device):
+    """One chunk through the kernels: its counts (the last measured to
+    the chunk's end), its values, and the start of the natural run its
+    last byte belongs to, relative to the chunk (≤ 0 when the run began
+    in an earlier chunk)."""
+    n = chunk.size
+    h2d = []
+    with stage("Copy input data to device", n, result=h2d):
+        x = _to_device(chunk, device)
+        h2d.append(x)
+    krn = []
+    with stage("Compression", n, result=krn):
+        summ = kern.piece_tiles(x, prev)
+        tstart, offs = kern.piece_offsets(summ, n, d0)
+        values_d, starts8 = kern.compact(x, prev, tstart, offs)
+        counts_d = kern.piece_counts(starts8, n)
+        krn += [counts_d, values_d]
+    with stage("Copy results to CPU") as t:
+        run_start = int(tstart[-1])
+        counts = counts_d.cpu().numpy()
+        values = values_d.cpu().numpy()
+        if t:
+            t.add_transfer_size(counts.size + values.size)
+    return counts, values, run_start
+
+
+def _block_ends(counts: np.ndarray) -> np.ndarray:
+    """Output offset after each block of 4096 runs (the last is the
+    output size): 8 bytes per 4096 runs, not per run."""
+    B = kern.TILE
+    full = counts.size // B * B
+    sums = counts[:full].reshape(-1, B).sum(1, dtype=np.int64)
+    if full < counts.size:
+        sums = np.append(sums, counts[full:].sum(dtype=np.int64))
+    return np.cumsum(sums)
+
+
+def _run_chunks(counts: np.ndarray, block_end: np.ndarray, cap: int):
+    """``(r0, r1, o0, o1)`` per decode chunk: runs r0..r1 write output
+    bytes o0..o1, o1 - o0 ≤ cap unless one run alone is longer.  The
+    block ends find each split; only the block it falls in is summed run
+    by run."""
+    r = counts.size
+    B = kern.TILE
+    r0 = o0 = 0
+    while r0 < r:
+        limit = o0 + cap
+        b = int(np.searchsorted(block_end, limit, side="right"))
+        if b == block_end.size:
+            yield r0, r, o0, int(block_end[-1])
+            return
+        lo, base = b * B, int(block_end[b - 1]) if b else 0
+        if lo < r0:
+            lo, base = r0, o0
+        ends = base + np.cumsum(counts[lo:min(lo + B, r)], dtype=np.int64)
+        k = int(np.searchsorted(ends, limit, side="right"))
+        r1, o1 = lo + k, int(ends[k - 1]) if k else base
+        if r1 == r0:                       # one run longer than cap
+            r1, o1 = r0 + 1, o0 + int(counts[r0])
+        yield r0, r1, o0, o1
+        r0, o0 = r1, o1
+
+
+def decode(counts, values, *, device: str | torch.device) -> np.ndarray:
+    """Container → u8[Σ counts].  Rejects counts and values of different
+    lengths before any device work."""
+    counts = np.asarray(counts, np.uint8).reshape(-1)
+    values = np.asarray(values, np.uint8).reshape(-1)
+    if counts.size != values.size:
+        raise ValueError("rl decode: corrupt container (counts/values size "
+                         f"mismatch: {counts.size} != {values.size})")
+    if counts.size == 0:
+        return np.zeros(0, np.uint8)
+    block_end = _block_ends(counts)
+    n = int(block_end[-1])
+    c = constant_byte_probe(values)
+    if c is not None and bool((counts[:-1] == RUN_CAP).all()):
+        with stage("Decompression", n):
+            return np.full(n, c, np.uint8)
+    device = torch.device(device)
+    out = np.empty(n, np.uint8)
+    for r0, r1, o0, o1 in _run_chunks(counts, block_end,
+                                      fl_torch.MAX_DEVICE_CHUNK):
+        _decode_chunk(out[o0:o1], counts[r0:r1], values[r0:r1], device)
+    return out
+
+
+def _decode_chunk(out: np.ndarray, counts: np.ndarray, values: np.ndarray,
+                  device: torch.device) -> None:
+    """Decode one chunk's runs into ``out`` (its bytes of the output),
+    copying from the device straight into it."""
+    n = out.size
+    h2d = []
+    with stage("Copy input to device", 2 * counts.size, result=h2d):
+        c = _to_device(counts, device)
+        v = _to_device(values, device)
+        h2d += [c, v]
+    krn = []
+    with stage("Decompression", n, result=krn):
+        offs = kern.run_offsets(c)
+        out_d = kern.expand(c, v, offs, n)
+        krn.append(out_d)
+    with stage("Copy results to CPU", n):
+        torch.from_numpy(out).copy_(out_d)

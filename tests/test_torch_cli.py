@@ -9,10 +9,14 @@ import pytest
 import torch
 
 import fl_rl_compression_mpi_tpu_torch as flrl
+from fl_rl_compression_mpi_tpu import container
+from fl_rl_compression_mpi_tpu.cli import main as jax_main
+from fl_rl_compression_mpi_tpu.ops import rl_numpy
 from fl_rl_compression_mpi_tpu_torch.cli import main
 from fl_rl_compression_mpi_tpu_torch.models import registry
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference")
+GOLDEN_RL = os.path.join(os.path.dirname(__file__), "golden", "input")
 GOLDEN_BINS = sorted(glob.glob(os.path.join(GOLDEN, "case_*.bin")))
 
 
@@ -59,8 +63,7 @@ def test_roundtrip_methods_and_frame_lengths(method, L, blob, tmp_path,
 
 
 @pytest.mark.parametrize("method", ["fl-dist", "fl-ici", "fl-mpi",
-                                    "fl-nccl", "fl-shmem", "rl", "rl-cpu",
-                                    "rl-dist"])
+                                    "fl-nccl", "fl-shmem", "rl-dist"])
 def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys):
     src, _ = blob
     assert main(["c", method, src, str(tmp_path / "x")]) == 2
@@ -116,7 +119,7 @@ def test_timers_print_stage_lines_and_launches(blob, tmp_path, on_cpu,
 
 def test_library_api(tmp_path, on_cpu):
     data = np.random.default_rng(9).integers(0, 32, 128 * 64 + 9, np.uint8)
-    assert set(flrl.methods()) == {"fl", "fl-cpu"}
+    assert set(flrl.methods()) == {"fl", "fl-cpu", "rl", "rl-cpu"}
     for method in ("fl", "fl-cpu"):
         comp = flrl.compress(data.tobytes(), method=method)
         np.testing.assert_array_equal(flrl.decompress(comp, method=method),
@@ -132,3 +135,75 @@ def test_library_api(tmp_path, on_cpu):
     np.testing.assert_array_equal(
         flrl.decompress(comp, method="fl", device="cpu", frame_length=64),
         data)
+
+
+def _same_file(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("method", ["rl", "rl-cpu"])
+def test_rl_golden_through_cli(method, tmp_path, on_cpu, capsys):
+    comp, back = str(tmp_path / "o.rl"), str(tmp_path / "o.bin")
+    assert main(["c", method, GOLDEN_RL + ".bin", comp, "--verify"]) == 0
+    assert "verification OK" in capsys.readouterr().err
+    assert _same_file(comp, GOLDEN_RL + ".rl")
+    assert main(["d", method, GOLDEN_RL + ".rl", back]) == 0
+    assert _same_file(back, GOLDEN_RL + ".bin")
+
+
+@pytest.mark.parametrize("method", ["rl", "rl-cpu"])
+def test_rl_roundtrip_ignores_frame_length(method, blob, tmp_path, on_cpu):
+    src, data = blob
+    comp, back = str(tmp_path / "o.rl"), str(tmp_path / "o.bin")
+    assert main(["c", method, src, comp, "--frame-length", "64",
+                 "--verify"]) == 0
+    other = "rl-cpu" if method == "rl" else "rl"
+    assert main(["d", other, comp, back, "--frame-length", "64"]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+    ref = container.RLCompressed(*rl_numpy.encode(data), data.size)
+    container.save_rl(str(tmp_path / "ref.rl"), ref)
+    assert _same_file(comp, str(tmp_path / "ref.rl"))
+
+
+def test_rl_containers_cross_with_the_jax_cli(blob, tmp_path, on_cpu):
+    src, data = blob
+    ours, theirs = str(tmp_path / "torch.rl"), str(tmp_path / "jax.rl")
+    assert main(["c", "rl", src, ours]) == 0
+    assert jax_main(["c", "rl", src, theirs]) == 0
+    assert _same_file(ours, theirs)
+    back = str(tmp_path / "b1.bin")
+    assert jax_main(["d", "rl-cpu", ours, back]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+    back = str(tmp_path / "b2.bin")
+    assert main(["d", "rl", theirs, back]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+
+
+def test_rl_timers_print_stages_and_rl_launches(blob, tmp_path, on_cpu,
+                                                capsys):
+    src, _ = blob
+    comp = str(tmp_path / "o.rl")
+    assert main(["c", "rl", src, comp, "--timers"]) == 0
+    cap = capsys.readouterr()
+    for line in ("[TIMER] Copy input data to device", "[TIMER] Compression:",
+                 "[TIMER] Copy results to CPU:"):
+        assert line in cap.out
+    assert "[INFO] compressed" in cap.err and '"rl_expand"' in cap.err
+    assert main(["d", "rl", comp, str(tmp_path / "o.bin"), "--timers"]) == 0
+    assert "[TIMER] Decompression:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("method", ["rl", "rl-cpu"])
+def test_api_files_use_the_rl_container(method, tmp_path, on_cpu):
+    """compress_file/decompress_file pick the container by the codec's
+    family: an RL method writes and reads RL containers."""
+    data = np.random.default_rng(4).integers(0, 3, 9000, np.uint8)
+    src, dst, back = (str(tmp_path / s) for s in ("in.bin", "o.rl", "o.out"))
+    data.tofile(src)
+    flrl.compress_file(src, dst, method=method)
+    comp = container.load_rl(dst)
+    np.testing.assert_array_equal(comp.counts, rl_numpy.encode(data)[0])
+    assert comp.input_size == data.size
+    flrl.decompress_file(dst, back, method=method)
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)

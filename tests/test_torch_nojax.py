@@ -17,11 +17,14 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 import chip_smoke
-from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
+from fl_rl_compression_mpi_tpu_torch.ops import fl_torch, rl_torch
 data = np.random.default_rng(0).integers(0, 32, 50_000, np.uint8)
 bits, values = fl_torch.encode(data, device="cpu")
 assert np.array_equal(fl_torch.decode(data.size, bits, values,
                                       device="cpu"), data)
+data = np.repeat(data % 4, 9)
+counts, values = rl_torch.encode(data, device="cpu")
+assert np.array_equal(rl_torch.decode(counts, values, device="cpu"), data)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
