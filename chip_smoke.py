@@ -18,6 +18,12 @@ Phases, each printing a line and failing the run on any error:
               n mod 4096 in {0, 1, 77, 4095}, a 64 MiB mixed stream, chunk
               carries (mid-piece, at a cap boundary, on a new value), zero
               counts; timed on the 512 MiB rl_mixed stream.
+              Then the FL field kernels (base and pack-2 mode) the same way:
+              widths 1..8, random widths, tails n mod L in {0, 1, 77, L-1},
+              L in {8, 24, 64, 128, 512, 1024}, pack-2 at tile_r 16 and 2048
+              on width <= 4 streams, a 64 MiB stream; each container from the
+              native host fold equal to fl-cpu's; timed on the 512 MiB mixed
+              (base) and uniform4 (base and pack-2) streams.
 4. goldens  — the CLI's `c fl` reproduces every tests/golden/reference
               container; `d fl` of every container equals the fl-cpu decode;
               `c rl` reproduces tests/golden/input.rl and `d rl` restores it.
@@ -26,8 +32,19 @@ Phases, each printing a line and failing the run on any error:
               `d rl` on the 512 MiB rl_mixed stream: restored bytes equal the
               input, containers equal the native fl-cpu / rl-cpu encoder's,
               and every kernel of each path was launched in its run.
-6. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
-              chunk cap, against fl-cpu and rl-cpu.
+6. fields   — the FL field route (FLRL_NO_DENSE=1): the goldens through the
+              CLI, then `c fl --verify` and `d fl` on the two 512 MiB streams
+              (mixed: a pack-2 miss, then the base kernels; uniform4: a
+              pack-2 hit), an L = 1024 run on 64 MiB (no pack-2 layout:
+              the base kernels only), and an L = 64 run on 64 MiB through
+              `python -m` in a subprocess: containers equal
+              fl-cpu's and the dense route's, every field kernel launched on
+              this route and no dense kernel (and the reverse on the dense
+              route's run).  The host fold must be the native one.
+7. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
+              chunk cap, against fl-cpu and rl-cpu; the field route's fl on
+              512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
+              a miss).
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -35,6 +52,7 @@ The next-to-last line of stdout is {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -51,7 +69,9 @@ from fl_rl_compression_mpi_tpu_torch import compress, decompress
 from fl_rl_compression_mpi_tpu_torch import load_fl, load_rl
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
+from fl_rl_compression_mpi_tpu_torch.ops import fields
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
+from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
 from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
 
@@ -80,7 +100,19 @@ RL_REPLACES = {
     "rl_offsets": f"{RL_PALLAS}:579",
     "rl_expand": f"{RL_PALLAS}:579",
 }
-MAX_ERR = {name: 0 for name in (*REPLACES, *RL_REPLACES)}
+FIELDS_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/fl_fields.cu"
+FIELDS_PALLAS = "fl_rl_compression_mpi_tpu/ops/fl_pallas.py"
+FIELDS_REPLACES = {
+    "fl_fields_encode": f"{FIELDS_PALLAS}:190",
+    "fl_fields_encode_p2": f"{FIELDS_PALLAS}:358",
+    "fl_fields_decode": f"{FIELDS_PALLAS}:237",
+    "fl_fields_decode_p2": f"{FIELDS_PALLAS}:399",
+}
+SOURCES = {**{name: SOURCE for name in REPLACES},
+           **{name: FIELDS_SOURCE for name in FIELDS_REPLACES},
+           **{name: RL_SOURCE for name in RL_REPLACES}}
+ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES}
+MAX_ERR = {name: 0 for name in ALL_REPLACES}
 
 
 def say(msg: str) -> None:
@@ -88,13 +120,16 @@ def say(msg: str) -> None:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """Kernel output vs plain output: same shape, every element equal."""
+    """Kernel output vs plain output: same shape, every element equal
+    (int32 tensors are u32 bit-views and compare as u32)."""
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
     err = 0
     if got.numel():
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        mask = 0xFFFFFFFF if got.dtype == torch.int32 else -1
+        err = int(((got.to(torch.int64) & mask)
+                   - (want.to(torch.int64) & mask)).abs().max())
     MAX_ERR[name] = max(MAX_ERR[name], err)
     if err:
         bad = int((got != want).nonzero()[0, 0])
@@ -110,9 +145,10 @@ def frames_of_widths(rng, widths: np.ndarray, L: int) -> np.ndarray:
     return data.reshape(-1)
 
 
-def random_width_stream(rng, n: int, L: int) -> np.ndarray:
+def random_width_stream(rng, n: int, L: int, top: int = 8) -> np.ndarray:
+    """Frames of random widths 1..top."""
     frames = -(-n // L)
-    return frames_of_widths(rng, rng.integers(1, 9, frames), L)[:n]
+    return frames_of_widths(rng, rng.integers(1, top + 1, frames), L)[:n]
 
 
 def uniform_stream(rng, n: int, L: int, b: int) -> np.ndarray:
@@ -223,6 +259,105 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     return timings
 
 
+# ---------------------------------------------------------------------------
+# FL field route
+# ---------------------------------------------------------------------------
+
+def staged_words(data: np.ndarray, unit: int) -> torch.Tensor:
+    """``data`` on the card, zero-padded to a multiple of ``unit`` bytes,
+    as int32 words (the field encoders carry no tail mask)."""
+    n = data.size
+    x = torch.from_numpy(data).cuda()
+    buf = torch.zeros(-(-n // unit) * unit, dtype=torch.uint8,
+                      device=x.device)
+    buf[:n] = x
+    return buf.view(torch.int32)
+
+
+def check_fields(data: np.ndarray, L: int, tile_r: int = 0):
+    """The field kernels of one mode against their plain versions on one
+    stream, the round trip, and the container the native host fold makes
+    of the kernel's fields against fl-cpu's.  Returns the kernels' outputs
+    (words, bits, fields)."""
+    n = data.size
+    frames = -(-n // L)
+    wpf = L // 4
+    enc = "fl_fields_encode_p2" if tile_r else "fl_fields_encode"
+    dec = "fl_fields_decode_p2" if tile_r else "fl_fields_decode"
+    words = staged_words(data, tile_r * 512 if tile_r else L)
+    bits, out = fk.encode_fields(words, L, tile_r)
+    want_bits, want_out = fk.encode_fields_ref(words, L, tile_r)
+    compare(enc, bits, want_bits)
+    compare(enc, out, want_out)
+    back = fk.decode_fields(out, bits, L, tile_r)
+    compare(dec, back, fk.decode_fields_ref(out, bits, L, tile_r))
+    compare(dec, back.view(torch.uint8)[:n], words.view(torch.uint8)[:n])
+    bits_h = bits[:frames].cpu().numpy()
+    if tile_r:
+        if int(bits_h.max()) > 4:
+            raise AssertionError("pack-2 case with a width above 4")
+        need = fk.packed_words(frames * wpf, tile_r)
+        values = fields.fold_p2(out[:need].cpu().numpy().view(np.uint32),
+                                bits_h, n, L, tile_r)
+    else:
+        values = fields.fold(out[:frames * wpf].cpu().numpy().view(np.uint32),
+                             bits_h, n, L)
+    ref = CODECS["fl-cpu"].compress(data, frame_length=L)
+    if not (np.array_equal(bits_h, ref.bits)
+            and np.array_equal(values, ref.values)):
+        raise AssertionError(f"field kernels + host fold differ from fl-cpu "
+                             f"(L={L}, tile_r={tile_r})")
+    return words, bits, out
+
+
+def phase_field_kernels(rng) -> int:
+    cases = 0
+    for L in (8, 24, 64, 128, 512, 1024):
+        tails = (0, 1, 77 % L, L - 1)
+        for b in range(1, 9):
+            check_fields(uniform_stream(rng, MIB + tails[b % 4], L, b), L)
+            cases += 1
+        for tail in tails:
+            check_fields(random_width_stream(rng, 2 * MIB + tail, L), L)
+            cases += 1
+        if 128 % (L // 4):
+            continue
+        for tile_r in (16, fl_torch.PACK_TILE_R):
+            for tail in (tails[2], tails[3]):
+                check_fields(random_width_stream(rng, 3 * MIB + tail, L, 4),
+                             L, tile_r)
+            check_fields(uniform_stream(rng, MIB + tails[1], L, 4), L, tile_r)
+            cases += 3
+    check_fields(random_width_stream(rng, 64 * MIB, 128), 128)
+    return cases + 1
+
+
+def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
+    """Field kernel and plain times on the 512 MiB streams, after one more
+    comparison at that shape: base mode on mixed, pack-2 on uniform4."""
+    L, tr = 128, fl_torch.PACK_TILE_R
+    timings = {}
+    words, bits, out = check_fields(mixed, L)
+    timings["fl_fields_encode"] = (
+        cuda_ms(lambda: fk.encode_fields(words, L)),
+        cuda_ms(lambda: fk.encode_fields_ref(words, L)))
+    timings["fl_fields_decode"] = (
+        cuda_ms(lambda: fk.decode_fields(out, bits, L)),
+        cuda_ms(lambda: fk.decode_fields_ref(out, bits, L)))
+    del words, bits, out
+    check_fields(uniform4, L)
+    words, bits, out = check_fields(uniform4, L, tr)
+    timings["fl_fields_encode_p2"] = (
+        cuda_ms(lambda: fk.encode_fields(words, L, tr)),
+        cuda_ms(lambda: fk.encode_fields_ref(words, L, tr)))
+    timings["fl_fields_decode_p2"] = (
+        cuda_ms(lambda: fk.decode_fields(out, bits, L, tr)),
+        cuda_ms(lambda: fk.decode_fields_ref(out, bits, L, tr)))
+    del words, bits, out
+    torch.cuda.empty_cache()
+    return timings
+
+
 def run_cli(*argv: str) -> None:
     rc = cli.main(list(argv))
     if rc != 0:
@@ -233,33 +368,81 @@ def same_file(a: str, b: str) -> bool:
     return np.array_equal(np.fromfile(a, np.uint8), np.fromfile(b, np.uint8))
 
 
-def phase_goldens(tmp: str) -> None:
+@contextlib.contextmanager
+def field_route():
+    """The FL field route, as an operator selects it: FLRL_NO_DENSE=1, read
+    by fl_torch at each call and inherited by subprocesses."""
+    saved = os.environ.get("FLRL_NO_DENSE")
+    os.environ["FLRL_NO_DENSE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("FLRL_NO_DENSE", None)
+        else:
+            os.environ["FLRL_NO_DENSE"] = saved
+
+
+def reset_fl_launches() -> None:
+    k.reset_launches()
+    fk.reset_launches()
+
+
+def check_route(launches: dict, route: str, where: str) -> None:
+    """On the dense route only dense FL kernels ran, on the field route
+    only field kernels."""
+    dense = {n: launches[n] for n in REPLACES}
+    field = {n: launches[n] for n in FIELDS_REPLACES}
+    ran, idle = (field, dense) if route == "fields" else (dense, field)
+    if not any(ran.values()) or any(idle.values()):
+        raise AssertionError(f"{where}: the {route} route launched "
+                             f"{json.dumps(launches)}")
+
+
+def subprocess_launches(argv: list) -> dict:
+    """Run the CLI as a user does, ``python -m`` with ``--timers``, and
+    return the launch counts it reports."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch", *argv,
+         "--timers"], cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m ... {' '.join(argv)} failed: "
+                             f"{proc.stderr}")
+    tag = "[INFO] kernel launches "
+    for line in proc.stderr.splitlines():
+        if line.startswith(tag):
+            return json.loads(line[len(tag):])
+    raise AssertionError(f"python -m ... {' '.join(argv)}: no launch counts")
+
+
+def phase_goldens(tmp: str, route: str) -> None:
     fl_cpu = CODECS["fl-cpu"]
     bins = sorted(glob.glob(os.path.join(GOLDEN, "case_*.bin")))
     for src in bins:
         out = os.path.join(tmp, "g.fl")
         run_cli("c", "fl", src, out)
         if not same_file(out, src[:-4] + ".fl"):
-            raise AssertionError(f"c fl {os.path.basename(src)} differs "
-                                 "from the reference container")
+            raise AssertionError(f"{route}: c fl {os.path.basename(src)} "
+                                 "differs from the reference container")
     fls = sorted(glob.glob(os.path.join(GOLDEN, "*.fl")))
     for comp_path in fls:
         out = os.path.join(tmp, "g.bin")
         run_cli("d", "fl", comp_path, out)
         want = fl_cpu.decompress(load_fl(comp_path))
         if not np.array_equal(np.fromfile(out, np.uint8), want):
-            raise AssertionError(f"d fl {os.path.basename(comp_path)} "
-                                 "differs from the fl-cpu decode")
-    # the module entry point, as a user runs it
+            raise AssertionError(f"{route}: d fl {os.path.basename(comp_path)}"
+                                 " differs from the fl-cpu decode")
+    # the module entry point, as a user runs it (it inherits the route's
+    # environment variables)
     src = bins[-1]
     out = os.path.join(tmp, "m.fl")
-    proc = subprocess.run(
-        [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch", "c", "fl",
-         src, out, "--verify"], cwd=REPO, capture_output=True, text=True)
-    if proc.returncode != 0 or not same_file(out, src[:-4] + ".fl"):
-        raise AssertionError(f"python -m ... c fl failed: {proc.stderr}")
-    say(f"[goldens] {len(bins)} reference containers reproduced, "
-        f"{len(fls)} decoded like fl-cpu, python -m entry OK")
+    launches = subprocess_launches(["c", "fl", src, out, "--verify"])
+    if not same_file(out, src[:-4] + ".fl"):
+        raise AssertionError(f"{route}: python -m ... c fl differs from the "
+                             "reference container")
+    check_route(launches, route, f"python -m ... c fl {os.path.basename(src)}")
+    say(f"[goldens] {route} route: {len(bins)} reference containers "
+        f"reproduced, {len(fls)} decoded like fl-cpu, python -m entry OK")
 
 
 def phase_main(tmp: str, streams: dict) -> dict:
@@ -269,7 +452,7 @@ def phase_main(tmp: str, streams: dict) -> dict:
     for name, data in streams.items():
         paths[name] = os.path.join(tmp, f"{name}.bin")
         data.tofile(paths[name])
-    k.reset_launches()
+    reset_fl_launches()
     for name in streams:
         src = paths[name]
         comp_path = os.path.join(tmp, f"{name}.fl")
@@ -281,6 +464,7 @@ def phase_main(tmp: str, streams: dict) -> dict:
         t2 = time.perf_counter()
         streams[name] = (streams[name], t1 - t0, t2 - t1, comp_path, back)
     launches = dict(k.LAUNCHES)
+    check_route({**launches, **fk.LAUNCHES}, "dense", "main")
     for name, (data, tc, td, comp_path, back) in streams.items():
         if not same_file(back, paths[name]):
             raise AssertionError(f"{name}: d fl did not restore the input")
@@ -298,6 +482,142 @@ def phase_main(tmp: str, streams: dict) -> dict:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
     return launches
+
+
+def phase_fields_main(tmp: str, streams: dict) -> dict:
+    """The field route through the CLI on the main phase's files, whose
+    dense-route containers it must reproduce; returns the field kernels'
+    launch counts."""
+    fl_cpu = CODECS["fl-cpu"]
+    walls = {}
+    with field_route():
+        reset_fl_launches()
+        for name in streams:
+            src = os.path.join(tmp, f"{name}.bin")
+            t0 = time.perf_counter()
+            run_cli("c", "fl", src, os.path.join(tmp, f"{name}.f.fl"),
+                    "--verify", "--timers")
+            t1 = time.perf_counter()
+            run_cli("d", "fl", os.path.join(tmp, f"{name}.f.fl"),
+                    os.path.join(tmp, f"{name}.f.out"), "--timers")
+            walls[name] = (t1 - t0, time.perf_counter() - t1)
+        launches = {**k.LAUNCHES, **fk.LAUNCHES}
+    check_route(launches, "fields", "fields main")
+    for name, (tc, td) in walls.items():
+        src = os.path.join(tmp, f"{name}.bin")
+        comp_path = os.path.join(tmp, f"{name}.f.fl")
+        if not same_file(os.path.join(tmp, f"{name}.f.out"), src):
+            raise AssertionError(f"{name}: field route d fl did not restore "
+                                 "the input")
+        if not same_file(comp_path, os.path.join(tmp, f"{name}.fl")):
+            raise AssertionError(f"{name}: field route container differs "
+                                 "from the dense route's")
+        comp, ref = load_fl(comp_path), fl_cpu.compress(np.fromfile(src,
+                                                                    np.uint8))
+        if not (np.array_equal(comp.bits, ref.bits)
+                and np.array_equal(comp.values, ref.values)):
+            raise AssertionError(f"{name}: field route container differs "
+                                 "from fl-cpu")
+        say(f"[fields] {name}: c fl --verify {tc:.3f} s, d fl {td:.3f} s "
+            f"(wall, host clock); container equals fl-cpu's and the dense "
+            f"route's")
+    say(f"[fields] kernel launches {json.dumps(launches)}")
+    missing = [n for n in FIELDS_REPLACES if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"field kernels not launched on the field "
+                             f"route: {missing}")
+    return {n: launches[n] for n in FIELDS_REPLACES}
+
+
+def phase_fields_variants(tmp: str, rng) -> None:
+    """An L = 1024 run on a 64 MiB width <= 4 stream (no pack-2 layout at
+    256 words a frame: the base kernels only), and an L = 64 run on a 64 MiB
+    width <= 4 stream through ``python -m`` (pack-2 at 16 words a frame);
+    both against fl-cpu and the dense route."""
+    fl_cpu = CODECS["fl-cpu"]
+    cases = (("L1024", random_width_stream(rng, 64 * MIB + 77, 1024, 4), 1024),
+             ("L64", random_width_stream(rng, 64 * MIB + 77, 64, 4), 64))
+    for name, data, L in cases:
+        src = os.path.join(tmp, f"{name}.bin")
+        comp_path = os.path.join(tmp, f"{name}.fl")
+        back = os.path.join(tmp, f"{name}.out")
+        data.tofile(src)
+        argv_c = ["c", "fl", src, comp_path, "--verify", "--frame-length",
+                  str(L)]
+        argv_d = ["d", "fl", comp_path, back, "--frame-length", str(L)]
+        if name == "L1024":
+            with field_route():
+                reset_fl_launches()
+                run_cli(*argv_c)
+                run_cli(*argv_d)
+                launches = {**k.LAUNCHES, **fk.LAUNCHES}
+            if (launches["fl_fields_encode_p2"] or launches["fl_fields_decode_p2"]
+                    or not launches["fl_fields_encode"]
+                    or not launches["fl_fields_decode"]):
+                raise AssertionError(f"L = 1024 launched "
+                                     f"{json.dumps(launches)}")
+        else:
+            with field_route():
+                launches = subprocess_launches(argv_c)
+                for key, v in subprocess_launches(argv_d).items():
+                    launches[key] += v
+            if not (launches["fl_fields_encode_p2"]
+                    and launches["fl_fields_decode_p2"]):
+                raise AssertionError(f"L = 64 width <= 4 stream did not take "
+                                     f"pack-2: {json.dumps(launches)}")
+        check_route(launches, "fields", name)
+        if not same_file(back, src):
+            raise AssertionError(f"{name}: d fl did not restore the input")
+        comp = load_fl(comp_path)
+        ref = fl_cpu.compress(data, frame_length=L)
+        dense = compress(data, method="fl", frame_length=L)
+        if not all(np.array_equal(a, b) for a, b in (
+                (comp.bits, ref.bits), (comp.values, ref.values),
+                (dense.bits, ref.bits), (dense.values, ref.values))):
+            raise AssertionError(f"{name}: field route container differs "
+                                 "from fl-cpu's or the dense route's")
+        say(f"[fields] {name} (L = {L}, {data.size} bytes): container equals "
+            f"fl-cpu's and the dense route's, round trip exact; launches "
+            f"{json.dumps({n: launches[n] for n in FIELDS_REPLACES})}")
+
+
+def phase_fields_chunks(rng) -> None:
+    """The API's field route across a 256 MiB cap: a width <= 4 chunk (a
+    pack-2 hit), a mixed one (a miss), and a 4,173-byte tail."""
+    cap = 256 * MIB
+    data = np.concatenate([random_width_stream(rng, cap, 128, 4),
+                           random_width_stream(rng, cap, 128),
+                           random_width_stream(rng, 4096 + 77, 128, 4)])
+    saved = fl_torch.MAX_DEVICE_CHUNK
+    fl_torch.MAX_DEVICE_CHUNK = cap
+    try:
+        with field_route():
+            reset_fl_launches()
+            t0 = time.perf_counter()
+            comp = compress(data, method="fl")
+            t1 = time.perf_counter()
+            back = decompress(comp, method="fl")
+            t2 = time.perf_counter()
+            launches = {**k.LAUNCHES, **fk.LAUNCHES}
+    finally:
+        fl_torch.MAX_DEVICE_CHUNK = saved
+    check_route(launches, "fields", "field chunk walk")
+    want = {"fl_fields_encode_p2": 3, "fl_fields_encode": 1,
+            "fl_fields_decode_p2": 2, "fl_fields_decode": 1}
+    if {n: launches[n] for n in want} != want:
+        raise AssertionError(f"field chunk walk launched "
+                             f"{json.dumps(launches)}, expected {want}")
+    ref = CODECS["fl-cpu"].compress(data)
+    if not (np.array_equal(comp.bits, ref.bits)
+            and np.array_equal(comp.values, ref.values)):
+        raise AssertionError("field chunk walk: container differs from "
+                             "fl-cpu")
+    if not np.array_equal(back, data):
+        raise AssertionError("field chunk walk: decode did not restore the "
+                             "input")
+    say(f"[chunks] fields: {data.size} bytes in 3 chunks (pack-2 hit, miss, "
+        f"hit): container equals fl-cpu, round trip exact; encode "
+        f"{t1 - t0:.3f} s, decode {t2 - t1:.3f} s")
 
 
 def phase_chunks(rng) -> None:
@@ -554,6 +874,13 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line:
             say(f"[build] {line.strip()}")
+    fold = fields.host_fold_kind()
+    say(f"[build] host fold: {fold}")
+    if fold != "native":
+        raise AssertionError(
+            "the native host fold (csrc/flrlio.cpp, built with g++ at first "
+            "use) is not available; the NumPy fold of a 512 MiB stream would "
+            "take minutes")
 
     rng = np.random.default_rng(SEED)
     cases = 0
@@ -575,6 +902,13 @@ def main() -> int:
     timings = time_kernels(mixed, uniform4)
 
     t0 = time.perf_counter()
+    cases = phase_field_kernels(rng)
+    say(f"[kernels] {cases} field inputs: kernels equal their plain versions "
+        f"byte for byte, host-folded containers equal fl-cpu's")
+    timings.update(time_field_kernels(mixed, uniform4))
+    t_fields = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     cases = phase_rl_kernels(rng)
     say(f"[kernels] {cases} RL inputs: kernels equal their plain versions "
         f"byte for byte")
@@ -587,8 +921,14 @@ def main() -> int:
     t_rl = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        phase_goldens(tmp)
+        phase_goldens(tmp, "dense")
         launches = phase_main(tmp, {"mixed": mixed, "uniform4": uniform4})
+        t0 = time.perf_counter()
+        with field_route():
+            phase_goldens(tmp, "fields")
+        launches.update(phase_fields_main(tmp, ("mixed", "uniform4")))
+        phase_fields_variants(tmp, rng)
+        t_fields += time.perf_counter() - t0
         del mixed, uniform4
         t0 = time.perf_counter()
         phase_rl_goldens(tmp)
@@ -597,19 +937,21 @@ def main() -> int:
         t_rl += time.perf_counter() - t0
     phase_chunks(rng)
     t0 = time.perf_counter()
+    phase_fields_chunks(rng)
+    t_fields += time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_rl_chunks(rng)
     t_rl += time.perf_counter() - t0
-    say(f"[done] RL phases took {t_rl:.1f} s")
+    say(f"[done] field route phases took {t_fields:.1f} s, RL phases "
+        f"{t_rl:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    kernels = [{"name": name, "route": "cuda",
-                "source": SOURCE if name in REPLACES else RL_SOURCE,
-                "replaces": {**REPLACES, **RL_REPLACES}[name],
-                "launches": launches[name],
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": ALL_REPLACES[name], "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": timings[name][0],
                 "plain_ms": timings[name][1]}
-               for name in (*REPLACES, *RL_REPLACES)]
+               for name in ALL_REPLACES]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -105,8 +105,9 @@ def _decompress(args, codec) -> None:
 
 
 def _launch_counts() -> dict:
-    from .ops import fl_dense_cuda, rl_cuda
-    return {**fl_dense_cuda.LAUNCHES, **rl_cuda.LAUNCHES}
+    from .ops import fl_dense_cuda, fl_fields_cuda, rl_cuda
+    return {**fl_dense_cuda.LAUNCHES, **fl_fields_cuda.LAUNCHES,
+            **rl_cuda.LAUNCHES}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,50 @@
+// FL field-form kernels for Hopper (sm_90a): the pack-2 layout and the plain
+// C interface that ops/_build.py loads with ctypes.
+//
+// Field form (fl_rl_compression_mpi_tpu/ops/fl_jax.py:20-25): the input is
+// little-endian u32 words, wpf = L/4 words a frame.  Word q of a frame of
+// width b becomes the 4·b-bit field e0 | e1<<b | e2<<2b | e3<<3b of its four
+// bytes; the host folds a frame's fields into its payload bytes.
+//
+// Launchers run on the stream they are given, allocate nothing, and return
+// cudaGetLastError() (0 on success) as an int.
+#pragma once
+
+#include <cstdint>
+
+#include "fl_dense.cuh"
+
+namespace flrl {
+
+// Pack-2 layout (ops/fl_pallas.py:291-296, csrc/flrlio.cpp:110-124): within
+// each tile of tile_r rows of 128 words, packed u32 word r holds the field of
+// row r in its low 16 bits and the field of row r + tile_r/2 in its high 16
+// bits.  Viewed as little-endian u16, field j lives at u16 index p2_idx16(j).
+__host__ __device__ inline int64_t p2_idx16(int64_t j, int tile_r) {
+  const int64_t row = j >> 7;
+  const int64_t tile = row / tile_r;
+  const int64_t half = tile_r >> 1;
+  const int64_t r = row - tile * tile_r;
+  const int64_t hi = r >= half;
+  const int64_t prow = tile * half + (hi ? r - half : r);
+  return 2 * (prow * 128 + (j & 127)) + hi;
+}
+
+}  // namespace flrl
+
+// Field encode of nw words (a frame multiple; bytes past the stream's end
+// must be zero: there is no tail mask).  Writes the width of each of the
+// nw/wpf frames to bits.  tile_r == 0: base mode, u32 fields to out[nw].
+// tile_r > 0: pack-2 mode, the low 16 bits of each field to its u16 slot of
+// out[nw/2 u32] (nw a multiple of tile_r·128, tile_r % 16 == 0,
+// 128 % wpf == 0); valid only where every width is ≤ 4.
+FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
+                                int64_t frame_length, int tile_r, void* bits,
+                                void* out, int device, void* stream);
+
+// Inverse: nw output words (a frame multiple) from the fields `in` (u32[nw],
+// tile_r == 0) or the pack-2 slots of `in` (tile_r > 0) and the widths
+// bits[nw/wpf] (each 1..8).
+FLRL_API int flrl_fields_decode(const void* in, const void* bits, int64_t nw,
+                                int64_t frame_length, int tile_r, void* out,
+                                int device, void* stream);

@@ -1,7 +1,8 @@
 """Codec registry of the PyTorch package: method name → implementation.
 
-``fl`` runs the dense kernels on a CUDA device (``ops/fl_torch.py``),
-``rl`` the RL kernels (``ops/rl_torch.py``).  ``fl-cpu`` and ``rl-cpu`` are
+``fl`` runs on a CUDA device (``ops/fl_torch.py``): the dense kernels, or
+with ``FLRL_NO_DENSE=1`` the field kernels and the host fold.  ``rl`` runs
+the RL kernels (``ops/rl_torch.py``).  ``fl-cpu`` and ``rl-cpu`` are
 the JAX package's own host codecs (native C++/OpenMP, NumPy fallback),
 imported as they are: they involve no JAX.  The other methods of the JAX
 package are not ported yet.
@@ -54,7 +55,9 @@ _FL_CPU = _JAX_CODECS["fl-cpu"]
 _RL_CPU = _JAX_CODECS["rl-cpu"]
 
 CODECS: dict[str, Codec] = {c.name: c for c in [
-    Codec("fl", "fl", "FL on one CUDA device (hand-written Hopper kernels)",
+    Codec("fl", "fl", "FL on one CUDA device (hand-written Hopper kernels): "
+          "dense route, or with FLRL_NO_DENSE=1 the field route (device "
+          "fields, pack-2 speculation, host fold)",
           _fl, _fl_d),
     Codec("fl-cpu", "fl", _FL_CPU.description, _FL_CPU.compress,
           _FL_CPU.decompress),

@@ -1,12 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface (``csrc/fl_dense.cuh``,
-``csrc/rl.cuh``), so ``nvcc``
-compiles them straight into a shared library in seconds, and ``ctypes``
-loads it.  No PyTorch headers are involved.  The library lands in
-``_build/libflrl_cuda_<srchash>.so`` beside the package, keyed by a hash of
-every file in ``csrc/``, at first use.  A failed build raises with
-``nvcc``'s output: there is no fallback.
+``csrc/fl_fields.cuh``, ``csrc/rl.cuh``), so ``nvcc`` compiles them in
+seconds, one process per source, all started together, and links the
+objects into one shared library that ``ctypes`` loads.  No PyTorch headers
+are involved.  The library lands in ``_build/libflrl_cuda_<srchash>.so``
+beside the package, keyed by a hash of every file in ``csrc/``, at first
+use.  A failed build raises with ``nvcc``'s output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -41,6 +41,8 @@ _SIGNATURES = {
     "flrl_pack": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P, _INT, _P]),
     "flrl_unpack": (_INT, [_P, _I64, _I64, _I64, _P, _P, _INT, _P, _INT,
                            _P]),
+    "flrl_fields_encode": (_INT, [_P, _I64, _I64, _INT, _P, _P, _INT, _P]),
+    "flrl_fields_decode": (_INT, [_P, _P, _I64, _I64, _INT, _P, _INT, _P]),
     "flrl_rl_piece_tiles": (_INT, [_P, _I64, _INT, _P, _INT, _P]),
     "flrl_rl_piece_offsets": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P]),
     "flrl_rl_compact": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _INT, _P]),
@@ -75,6 +77,19 @@ def _nvcc() -> str:
                        "or set CUDA_HOME")
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise with the first failure's output,
+    else return everything they printed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for text, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (exit {rc}):\n{text}")
+    return "".join(text for text, _ in outs)
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` unless the library for these sources exists;
     return its path."""
@@ -84,22 +99,17 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [p for p in _sources() if p.endswith(".cu")]
-    # write to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-                f"{proc.stdout}")
-        build_log = proc.stderr + proc.stdout
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # objects and the library go to private names, then the library is
+    # renamed: a concurrent build never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in srcs]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj]
+                    for src, obj in zip(srcs, objs)])
+        lib_tmp = os.path.join(tmp, "lib.so")
+        log += _run([[nvcc, "-shared", "-o", lib_tmp, *objs]])
+        build_log = log
+        os.replace(lib_tmp, out)
     return out
 
 

@@ -1,17 +1,37 @@
-"""FL codec on one device: the host dispatch around the dense kernels.
+"""FL codec on one device: the host dispatch around the FL kernels.
 
-Counterpart of ``fl_rl_compression_mpi_tpu/ops/fl_jax.py`` (its dense
-path).  One dispatch chain serves every input size:
+Counterpart of ``fl_rl_compression_mpi_tpu/ops/fl_jax.py``.  One dispatch
+chain serves every input size and both device routes:
 
 * encode — constant stream → closed-form container on the host; else a
   walk over frame-aligned chunks of at most ``_device_cap(L)`` bytes, each
-  copied to the device, its widths computed with the uniform-mode flag
-  when the host probe sees a uniform first tile, packed in uniform mode
-  on a clean flag or else through the offsets scan and the general pack,
-  and copied back (the widths and exactly the payload's bytes);
+  copied to the device and encoded by one of two routes:
+
+  - the **dense route** (the default, every frame length): widths computed
+    with the uniform-mode flag when the host probe sees a uniform first
+    tile, packed in uniform mode on a clean flag or else through the
+    offsets scan and the general pack, and copied back (the widths and
+    exactly the payload's bytes);
+  - the **field route** (``FLRL_NO_DENSE=1``): the device writes widths and
+    fields, and the host folds the fields into the payload.  Where
+    128 % (L/4) == 0 it first speculates on pack-2 (two 16-bit fields a
+    word, valid when every width is ≤ 4) and re-runs the base field
+    encode on a miss;
+
 * decode — constant container → memset; all-8 widths → the payload is
-  the output; else the same chunk walk, with a uniform widths header
-  taking uniform mode and any other the offsets scan and general unpack.
+  the output; else the same chunk walk: on the dense route a uniform
+  widths header takes uniform mode and any other the offsets scan and
+  general unpack; on the field route the host unfolds the payload into
+  fields (pack-2 where every width of the chunk is ≤ 4) and the device
+  decodes them.
+
+The JAX package takes the dense route only on a TPU at L = 128 and the
+field route everywhere else.  Here the dense kernels place bytes for every
+frame length, so dense is the default for every L and the field route runs
+where an operator asks for it with the JAX package's own switch, which is
+read at each call.  The JAX package's ``FLRL_NO_PACK`` is not read: the
+field route always speculates on pack-2 where the layout allows, and the
+container is the same either way.
 
 The codec has no weights: its state is the container.  Encode and decode
 read and write the same ``FLCompressed`` fields and file bytes as the JAX
@@ -24,6 +44,8 @@ plain PyTorch versions (the tests use it).
 
 from __future__ import annotations
 
+import functools
+import os
 import warnings
 
 import numpy as np
@@ -34,15 +56,33 @@ from fl_rl_compression_mpi_tpu.utils import constant_byte_probe
 
 from ..utils.timers import stage
 from . import fl_dense_cuda as kern
+from . import fl_fields_cuda as fkern
+from .fields import fold, fold_p2, unfold, unfold_p2
 
 # Largest chunk one device pass takes.  The kernels index with int64, but
 # the walk keeps the 1 GiB bound so a chunk's buffers stay a few GiB.
 # Chunks are frame-aligned, so the output does not depend on the cap.
 MAX_DEVICE_CHUNK = 1 << 30
 
+# Rows of 128 words in one pack-2 tile, the layout unit that the field
+# encoder, the host fold and the decoder share (the JAX package's 2048).
+PACK_TILE_R = 2048
+
 
 def _device_cap(frame_length: int) -> int:
     return (MAX_DEVICE_CHUNK // frame_length) * frame_length
+
+
+def _use_dense() -> bool:
+    """The dense route, unless ``FLRL_NO_DENSE=1`` asks for the field
+    route."""
+    return os.environ.get("FLRL_NO_DENSE") != "1"
+
+
+def _use_pack2(frame_length: int) -> bool:
+    """Pack-2 speculation on the field route: the layout needs whole frames
+    in a 128-word row."""
+    return 128 % (frame_length // 4) == 0
 
 
 def _constant_frame_pattern(c: int, fb: int,
@@ -123,12 +163,50 @@ def host_identity_decode_probe(bits: np.ndarray, values: np.ndarray,
     return None
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
     with warnings.catch_warnings():
         # read-only inputs (np.frombuffer, container views) are only read
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.to(device)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _host_tensor(a).to(device)
+
+
+def _staged(chunk: np.ndarray, size: int,
+            device: torch.device) -> torch.Tensor:
+    """``chunk`` on the device at the start of a ``size``-byte buffer whose
+    rest is zero: the field encoders carry no tail mask, and a non-zero
+    pad byte would widen the last frame."""
+    buf = torch.empty(size, dtype=torch.uint8, device=device)
+    buf[chunk.size:].zero_()
+    buf[:chunk.size].copy_(_host_tensor(chunk))
+    return buf
+
+
+def encode_fields_device(words: torch.Tensor,
+                         frame_length: int = FRAME_LENGTH,
+                         pack: bool = False):
+    """Field encode of ``words`` int32[NW] (u32 bit-views, NW a frame
+    multiple; with ``pack`` a multiple of ``PACK_TILE_R``·128): the base
+    field kernel, or the pack-2 one at this module's tile.  Returns ``(bits
+    u8[F], fields int32[NW])`` or ``(bits, packed int32[NW/2])``.  As
+    ``fl_jax.encode_fields_device`` but with no ``n``: bytes past the
+    stream's end must be zero."""
+    return fkern.encode_fields(words, frame_length,
+                               PACK_TILE_R if pack else 0)
+
+
+def decode_fields_device(fields_d: torch.Tensor, bits_d: torch.Tensor,
+                         frame_length: int = FRAME_LENGTH,
+                         pack: bool = False) -> torch.Tensor:
+    """Words int32[F·wpf] of the fields (or, with ``pack``, the pack-2
+    layout at this module's tile) and the widths ``bits_d`` u8[F].  As
+    ``fl_jax.decode_fields_device``; bytes past the stream's end are
+    unspecified."""
+    return fkern.decode_fields(fields_d, bits_d, frame_length,
+                               PACK_TILE_R if pack else 0)
 
 
 def encode(data, frame_length: int = FRAME_LENGTH, *,
@@ -146,7 +224,8 @@ def encode(data, frame_length: int = FRAME_LENGTH, *,
             return _constant_container(c, n, frame_length)
     device = torch.device(device)
     cap = _device_cap(frame_length)
-    parts = [_encode_chunk(data[off:off + cap], frame_length, device)
+    chunk_fn = _encode_chunk if _use_dense() else _encode_fields_chunk
+    parts = [chunk_fn(data[off:off + cap], frame_length, device)
              for off in range(0, n, cap)]
     if len(parts) == 1:
         return parts[0]
@@ -177,6 +256,47 @@ def _encode_chunk(chunk: np.ndarray, frame_length: int,
         if t:
             t.add_transfer_size(bits.size + values.size)
     return bits, values
+
+
+def _encode_fields_chunk(chunk: np.ndarray, frame_length: int,
+                         device: torch.device):
+    """The field route's encode of one chunk: pack-2 speculation where the
+    layout allows, else (or on a miss) the base field encode; then the host
+    fold."""
+    n = chunk.size
+    L = frame_length
+    wpf = L // 4
+    frames = -(-n // L)
+    pack = _use_pack2(L)
+    unit = PACK_TILE_R * fkern.LANES * 4 if pack else L
+    h2d = []
+    with stage("Copy input data to device", n, result=h2d):
+        buf = _staged(chunk, -(-n // unit) * unit, device)
+        h2d.append(buf)
+    words = buf.view(torch.int32)
+    if pack:
+        krn = []
+        with stage("Compression", n, result=krn):
+            bits_d, packed_d = encode_fields_device(words, L, pack=True)
+            krn += [bits_d, packed_d]
+        bits = bits_d[:frames].cpu().numpy()
+        if int(bits.max()) <= 4:
+            need = fkern.packed_words(frames * wpf, PACK_TILE_R)
+            with stage("Copy results to CPU", frames + need * 4):
+                packed = packed_d[:need].cpu().numpy().view(np.uint32)
+            with stage("Host fold (ragged placement)", n):
+                return bits, fold_p2(packed, bits, n, L, PACK_TILE_R)
+        # speculation miss (some width > 4): the base encode of the words
+        # still on the device
+    krn = []
+    with stage("Compression", n, result=krn):
+        bits_d, fields_d = encode_fields_device(words[:frames * wpf], L)
+        krn += [bits_d, fields_d]
+    with stage("Copy results to CPU", frames + frames * wpf * 4):
+        bits = bits_d.cpu().numpy()
+        fields_h = fields_d.cpu().numpy().view(np.uint32)
+    with stage("Host fold (ragged placement)", n):
+        return bits, fold(fields_h, bits, n, L)
 
 
 def decode(output_size: int, bits, values,
@@ -218,7 +338,8 @@ def decode(output_size: int, bits, values,
         raise ValueError(
             "fl decode: corrupt container (payload shorter than the "
             f"widths imply: {values.size} < {int(voffs[-1])})")
-    fb = lo if lo == hi else 0
+    chunk_fn = (functools.partial(_decode_chunk, fb=lo if lo == hi else 0)
+                if _use_dense() else _decode_fields_chunk)
     device = torch.device(device)
     cap = _device_cap(frame_length)
     fpc = cap // frame_length
@@ -226,8 +347,8 @@ def decode(output_size: int, bits, values,
     for off in range(0, n, cap):
         f0 = off // frame_length
         f1 = min(f0 + fpc, frames)
-        _decode_chunk(out[off:off + cap], widths[f0:f1],
-                      values[voffs[f0]:voffs[f1]], frame_length, device, fb)
+        chunk_fn(out[off:off + cap], widths[f0:f1],
+                 values[voffs[f0]:voffs[f1]], frame_length, device)
     return out
 
 
@@ -251,3 +372,34 @@ def _decode_chunk(out: np.ndarray, bits: np.ndarray, values: np.ndarray,
         krn.append(out_d)
     with stage("Copy results to CPU", n):
         torch.from_numpy(out).copy_(out_d)
+
+
+def _decode_fields_chunk(out: np.ndarray, bits: np.ndarray,
+                         values: np.ndarray, frame_length: int,
+                         device: torch.device) -> None:
+    """The field route's decode of one chunk into ``out``: the host unfolds
+    the payload into fields (the pack-2 layout where the layout allows and
+    every width of the chunk is ≤ 4), the device decodes them, and the
+    result is copied straight into ``out``."""
+    n = out.size
+    L = frame_length
+    nw = bits.size * (L // 4)
+    pack = _use_pack2(L) and int(bits.max()) <= 4
+    with stage("Host unfold (ragged placement)", n):
+        if pack:
+            fields_h = unfold_p2(values, bits, n, L, PACK_TILE_R,
+                                 fkern.packed_words(nw, PACK_TILE_R))
+        else:
+            fields_h = unfold(values, bits, n, L)
+    h2d = []
+    with stage("Copy input to device", fields_h.nbytes + bits.size,
+               result=h2d):
+        f = _to_device(fields_h.view(np.int32), device)
+        b = _to_device(bits, device)
+        h2d += [f, b]
+    krn = []
+    with stage("Decompression", n, result=krn):
+        out_d = decode_fields_device(f, b, L, pack=pack)
+        krn.append(out_d)
+    with stage("Copy results to CPU", n):
+        torch.from_numpy(out).copy_(out_d.view(torch.uint8)[:n])

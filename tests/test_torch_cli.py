@@ -14,10 +14,19 @@ from fl_rl_compression_mpi_tpu.cli import main as jax_main
 from fl_rl_compression_mpi_tpu.ops import rl_numpy
 from fl_rl_compression_mpi_tpu_torch.cli import main
 from fl_rl_compression_mpi_tpu_torch.models import registry
+from fl_rl_compression_mpi_tpu_torch.utils.timers import set_stage_timers
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "reference")
 GOLDEN_RL = os.path.join(os.path.dirname(__file__), "golden", "input")
 GOLDEN_BINS = sorted(glob.glob(os.path.join(GOLDEN, "case_*.bin")))
+
+
+@pytest.fixture(autouse=True)
+def _stage_timers_off():
+    """A ``--timers`` run leaves the stage timers on for the process; turn
+    them off after each test so no later test inherits them."""
+    yield
+    set_stage_timers(False)
 
 
 @pytest.fixture
@@ -115,6 +124,30 @@ def test_timers_print_stage_lines_and_launches(blob, tmp_path, on_cpu,
     # the switch must not leak into runs without --timers
     assert main(["c", "fl", src, comp]) == 0
     assert "[TIMER]" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("L", [64, 128])
+def test_field_route_through_cli(L, blob, tmp_path, on_cpu, monkeypatch,
+                                 capsys):
+    """FLRL_NO_DENSE=1: containers equal the JAX CLI's, the field route's
+    stages and launch counters show in --timers, and d fl round-trips."""
+    monkeypatch.setenv("FLRL_NO_DENSE", "1")
+    src, data = blob
+    ours, theirs = str(tmp_path / "torch.fl"), str(tmp_path / "jax.fl")
+    back = str(tmp_path / "o.bin")
+    flag = ["--frame-length", str(L)]
+    assert main(["c", "fl", src, ours, "--timers", "--verify", *flag]) == 0
+    cap = capsys.readouterr()
+    for line in ("[TIMER] Compression:", "[TIMER] Copy results to CPU:",
+                 "[TIMER] Host fold (ragged placement):",
+                 "[TIMER] Host unfold (ragged placement):"):
+        assert line in cap.out
+    assert '"fl_fields_encode_p2"' in cap.err and "verification OK" in cap.err
+    assert jax_main(["c", "fl", src, theirs, *flag]) == 0
+    assert _same_file(ours, theirs)
+    assert main(["d", "fl", theirs, back, "--timers", *flag]) == 0
+    assert "[TIMER] Host unfold (ragged placement):" in capsys.readouterr().out
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
 
 
 def test_library_api(tmp_path, on_cpu):

@@ -33,6 +33,27 @@ print("ok")
 """
 
 
+_FIELD_ROUTE = r"""
+import os, sys
+sys.modules["jax"] = None
+import numpy as np
+from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
+os.environ["FLRL_NO_DENSE"] = "1"
+g = np.random.default_rng(1)
+hit = g.integers(0, 16, 300_000, np.uint8)       # every width <= 4
+miss = g.integers(0, 64, 300_000, np.uint8)
+for data, L in ((hit, 128), (miss, 128), (hit, 24)):
+    bits, values = fl_torch.encode(data, L, device="cpu")
+    assert np.array_equal(fl_torch.decode(data.size, bits, values, L,
+                                          device="cpu"), data)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def _clean_env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
@@ -41,6 +62,14 @@ def _clean_env():
 
 def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_field_route_never_imports_jax():
+    proc = subprocess.run([sys.executable, "-c", _FIELD_ROUTE], cwd=REPO,
                           env=_clean_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
