@@ -23,7 +23,15 @@ Phases, each printing a line and failing the run on any error:
               L in {8, 24, 64, 128, 512, 1024}, pack-2 at tile_r 16 and 2048
               on width <= 4 streams, a 64 MiB stream; each container from the
               native host fold equal to fl-cpu's; timed on the 512 MiB mixed
-              (base) and uniform4 (base and pack-2) streams.
+              (base) and uniform4 (base and pack-2) streams.  Then the
+              constant-stream kernels: c in {0, 1, 3, 15, 255}, c = 0 with
+              tails {1, 77, 127}, unaligned starts, the flags on flipped
+              input and payload bytes (not on the pad past the payload),
+              64 MiB of 0x00 and 0x0F; timed on 512 MiB of zeros.  Every
+              timed kernel is reported with its bound (bytes moved over
+              3.35 TB/s) and, where one PyTorch call computes the same
+              function (torch.cumsum, torch.repeat_interleave), that call's
+              time.
 4. goldens  — the CLI's `c fl` reproduces every tests/golden/reference
               container; `d fl` of every container equals the fl-cpu decode;
               `c rl` reproduces tests/golden/input.rl and `d rl` restores it.
@@ -41,7 +49,22 @@ Phases, each printing a line and failing the run on any error:
               fl-cpu's and the dense route's, every field kernel launched on
               this route and no dense kernel (and the reverse on the dense
               route's run).  The host fold must be the native one.
-7. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
+7. dist     — parallel/dist.py: a one-rank NCCL group's set-up time; the
+              CLI's `c --verify` and `d` of fl-dist and fl-ici on the two
+              512 MiB FL files and of rl-dist on rl_mixed at --devices 1 (one
+              NCCL rank in this process): containers equal the main phase's
+              (fl-cpu's; rl's, which is rl-cpu's at one shard), round trips
+              exact, the path's kernels launched in each run; walls of each
+              beside `fl`/`rl`, three rounds; the device-resident constant
+              programs on 512 MiB of 0x00 and 0x0F at world size 1 (bytes
+              exact, flags clean, a flipped byte trips each flag; the only
+              launches of the constant kernels counted for the path); two
+              gloo ranks spawned on card 0 over 64 MiB (fl-dist through the
+              API, then fl-ici, the FL decode, rl-dist and its decode in one
+              group): FL containers equal fl-cpu's, RL equals rl-cpu's
+              per-shard containers concatenated, every rank launched its
+              kernels.
+8. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
               chunk cap, against fl-cpu and rl-cpu; the field route's fl on
               512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
               a miss).
@@ -70,15 +93,18 @@ from fl_rl_compression_mpi_tpu_torch import load_fl, load_rl
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fields
+from fl_rl_compression_mpi_tpu_torch.ops import fl_constant_cuda as ck
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
 from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
 from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
+from fl_rl_compression_mpi_tpu_torch.parallel import dist
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference")
 SEED = 1234
 MIB = 1 << 20
+DEVICE = torch.device("cuda", 0)   # the card every phase runs on
 SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/fl_dense.cu"
 PALLAS = "fl_rl_compression_mpi_tpu/ops/fl_dense_pallas.py"
 # kernel (launch-counter key) -> TPU kernel entry point it replaces
@@ -108,11 +134,24 @@ FIELDS_REPLACES = {
     "fl_fields_decode": f"{FIELDS_PALLAS}:237",
     "fl_fields_decode_p2": f"{FIELDS_PALLAS}:399",
 }
+CONST_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/fl_constant.cu"
+CONST_REPLACES = {
+    "fl_const_encode": f"{PALLAS}:1720",
+    "fl_const_decode": f"{PALLAS}:1796",
+}
 SOURCES = {**{name: SOURCE for name in REPLACES},
            **{name: FIELDS_SOURCE for name in FIELDS_REPLACES},
-           **{name: RL_SOURCE for name in RL_REPLACES}}
-ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES}
+           **{name: RL_SOURCE for name in RL_REPLACES},
+           **{name: CONST_SOURCE for name in CONST_REPLACES}}
+ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES,
+                **CONST_REPLACES}
 MAX_ERR = {name: 0 for name in ALL_REPLACES}
+# Bytes each timed kernel call must move (every input read once, every
+# output written once), and the time of one PyTorch call that computes the
+# same function on the same inputs, where there is one.
+MOVED: dict = {}
+LIBRARY_MS: dict = {}
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 
 
 def say(msg: str) -> None:
@@ -214,6 +253,18 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def moved(name: str, *tensors: torch.Tensor) -> None:
+    """Record the bytes of ``name``'s timed call: its inputs and outputs."""
+    MOVED[name] = sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(name: str) -> float:
+    """The least time the card could take for ``name``'s timed call: its
+    bytes over the card's memory rate (every kernel here does a few integer
+    operations a byte, far below the card's operation rate)."""
+    return MOVED[name] / HBM_BYTES_PER_S * 1e3
+
+
 def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     """Kernel and plain times at the main path's shapes (one 512 MiB chunk),
     each compared once more at that shape."""
@@ -241,6 +292,12 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     timings["fl_unpack"] = (
         cuda_ms(lambda: k.unpack(vals, n, L, bits=bits, offs=offs)),
         cuda_ms(lambda: k.unpack_ref(vals, n, L, bits=bits, offs=offs)))
+    moved("fl_frame_widths", x, bits)
+    moved("fl_frame_offsets", bits, offs)
+    moved("fl_pack", x, bits, offs, vals)
+    moved("fl_unpack", vals, bits, offs, x)
+    LIBRARY_MS["fl_frame_offsets"] = cuda_ms(
+        lambda: torch.cumsum(bits, 0, dtype=torch.int64))
     del x, bits, offs, vals
     x = torch.from_numpy(uniform4).cuda()
     n = x.numel()
@@ -254,6 +311,8 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     timings["fl_unpack_uniform"] = (
         cuda_ms(lambda: k.unpack(vu, n, L, fb=4)),
         cuda_ms(lambda: k.unpack_ref(vu, n, L, fb=4)))
+    moved("fl_pack_uniform", x, vu)
+    moved("fl_unpack_uniform", vu, x)
     del x, vu
     torch.cuda.empty_cache()
     return timings
@@ -344,6 +403,8 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     timings["fl_fields_decode"] = (
         cuda_ms(lambda: fk.decode_fields(out, bits, L)),
         cuda_ms(lambda: fk.decode_fields_ref(out, bits, L)))
+    moved("fl_fields_encode", words, bits, out)
+    moved("fl_fields_decode", out, bits, words)
     del words, bits, out
     check_fields(uniform4, L)
     words, bits, out = check_fields(uniform4, L, tr)
@@ -353,7 +414,112 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     timings["fl_fields_decode_p2"] = (
         cuda_ms(lambda: fk.decode_fields(out, bits, L, tr)),
         cuda_ms(lambda: fk.decode_fields_ref(out, bits, L, tr)))
+    moved("fl_fields_encode_p2", words, bits, out)
+    moved("fl_fields_decode_p2", out, bits, words)
     del words, bits, out
+    torch.cuda.empty_cache()
+    return timings
+
+
+# ---------------------------------------------------------------------------
+# FL constant-stream kernels (#5/#6)
+# ---------------------------------------------------------------------------
+
+def check_constant(data: np.ndarray, c: int, offset: int = 0) -> tuple:
+    """Both constant kernels against their plain versions on one stream
+    (from ``offset`` bytes into a card buffer, so unaligned starts too):
+    outputs and flags equal; on a clean stream the payload is fl-cpu's and
+    the decode restores it; a pad byte past values_size is not read.
+    Returns the kernels' (bits, values, flag)."""
+    fb = max(1, c.bit_length())
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint8),
+                                           data])).cuda()
+    x = buf[offset:]
+    got = ck.encode_constant(x, c, fb)
+    for out, want in zip(got, ck.encode_constant_ref(x, c, fb)):
+        compare("fl_const_encode", out, want)
+    bits, values, flag = got
+    vsz = values.numel()
+    pad = torch.full((vsz + 8 + offset,), 0xA5, dtype=torch.uint8,
+                     device=x.device)
+    v = pad[offset:]
+    v[:vsz] = values
+    dec = ck.decode_constant(v, vsz, c, fb, x.numel())
+    for out, want in zip(dec, ck.decode_constant_ref(v, vsz, c, fb,
+                                                     x.numel())):
+        compare("fl_const_decode", out, want)
+    if int(flag) == 0:
+        compare("fl_const_decode", dec[0], x)
+        if int(dec[1]) != 0:
+            raise AssertionError(f"c={c}: decode flag on a clean payload")
+        ref = CODECS["fl-cpu"].compress(data)
+        if not (np.array_equal(bits.cpu().numpy(), ref.bits)
+                and np.array_equal(values.cpu().numpy(), ref.values)):
+            raise AssertionError(f"c={c}, n={data.size}: constant kernel "
+                                 "container differs from fl-cpu")
+    return got
+
+
+def phase_constant_kernels() -> int:
+    """Every class: c in {0, 1, 3, 15, 255} with n % 128 == 0, c = 0 with
+    tails {1, 77, 127}, unaligned starts; the encode flag on a flipped
+    first, middle and last byte; the decode flag on a flipped first,
+    middle and last payload byte (the straddling tail word's real bytes)
+    and not on its pad; 64 MiB streams of 0x00 and 0x0F."""
+    cases = 0
+    classes = ([(c, MIB) for c in (0, 1, 3, 15, 255)]
+               + [(0, MIB + t) for t in (1, 77, 127)])
+    for c, n in classes:
+        data = np.full(n, c, np.uint8)
+        for offset in (0, 1, 13):
+            check_constant(data, c, offset)
+            cases += 1
+        for pos in (0, n // 2, n - 1):
+            bad = data.copy()
+            bad[pos] ^= 0x40
+            if int(check_constant(bad, c)[2]) != 1:
+                raise AssertionError(f"c={c}: encode flag missed byte {pos}")
+            cases += 1
+        fb = max(1, c.bit_length())
+        values = ck.encode_constant(torch.from_numpy(data).cuda(), c, fb)[1]
+        vsz = values.numel()
+        for pos in (0, vsz // 2, vsz - 1):
+            bad = values.clone()
+            bad[pos] ^= 0x10
+            got = ck.decode_constant(bad, vsz, c, fb, n)
+            compare("fl_const_decode", got[1],
+                    ck.decode_constant_ref(bad, vsz, c, fb, n)[1])
+            if int(got[1]) != 1:
+                raise AssertionError(f"c={c}: decode flag missed payload "
+                                     f"byte {pos}")
+            cases += 1
+    for c in (0, 15):
+        check_constant(np.full(64 * MIB, c, np.uint8), c)
+        cases += 1
+    return cases
+
+
+def time_constant_kernels() -> dict:
+    """Kernel and plain times on 512 MiB of zeros (width 1), after one
+    more comparison at that shape, and a check on 512 MiB of 0x0F."""
+    n = 512 * MIB
+    check_constant(np.full(n, 15, np.uint8), 15)
+    x = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
+    bits, values, _ = ck.encode_constant(x, 0, 1)
+    for out, want in zip((bits, values), ck.encode_constant_ref(x, 0, 1)):
+        compare("fl_const_encode", out, want)
+    timings = {
+        "fl_const_encode": (cuda_ms(lambda: ck.encode_constant(x, 0, 1)),
+                            cuda_ms(lambda: ck.encode_constant_ref(x, 0, 1))),
+        "fl_const_decode": (
+            cuda_ms(lambda: ck.decode_constant(values, values.numel(), 0, 1,
+                                               n)),
+            cuda_ms(lambda: ck.decode_constant_ref(values, values.numel(), 0,
+                                                   1, n))),
+    }
+    moved("fl_const_encode", x, bits, values)
+    moved("fl_const_decode", values, x)
+    del x, bits, values
     torch.cuda.empty_cache()
     return timings
 
@@ -770,8 +936,19 @@ def time_rl_kernels(data: np.ndarray) -> dict:
             cuda_ms(lambda: rk.expand(counts, values, offs, n)),
             cuda_ms(lambda: rk.expand_ref(counts, values, offs, n))),
     }
+    moved("rl_flags", x, summ)
+    moved("rl_scan", summ, tstart, eoffs)
+    moved("rl_compact", x, tstart, eoffs, values, starts8)
+    moved("rl_counts", starts8, counts)
+    moved("rl_offsets", counts, offs)
+    moved("rl_expand", counts, values, offs, x)
+    LIBRARY_MS["rl_offsets"] = cuda_ms(
+        lambda: torch.cumsum(counts, 0, dtype=torch.int64))
+    counts64 = counts.to(torch.int64)     # repeat_interleave's repeats type
+    LIBRARY_MS["rl_expand"] = cuda_ms(
+        lambda: torch.repeat_interleave(values, counts64, output_size=n))
     say(f"[kernels] rl_mixed: {n} bytes, {counts.numel()} pieces")
-    del x, e, offs, summ, tstart, eoffs, starts8, counts, values
+    del x, e, offs, summ, tstart, eoffs, starts8, counts, values, counts64
     torch.cuda.empty_cache()
     return timings
 
@@ -853,6 +1030,230 @@ def phase_rl_chunks(rng) -> None:
         f"{t2 - t1:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# Distribution (parallel/dist.py)
+# ---------------------------------------------------------------------------
+
+# Kernels each distributed run must launch, by stream
+DIST_EXPECT = {
+    "mixed": ("fl_frame_widths", "fl_frame_offsets", "fl_pack", "fl_unpack"),
+    "uniform4": ("fl_frame_widths", "fl_pack_uniform", "fl_unpack_uniform"),
+    "rl_mixed": tuple(RL_REPLACES),
+}
+
+
+def reset_all_launches() -> None:
+    for mod in (k, fk, rk, ck):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES}
+
+
+def group_setup_seconds() -> tuple:
+    """Wall seconds to make a one-rank NCCL group on card 0, to run its
+    first collective (where NCCL makes its communicator) and to destroy
+    it, as ``dist.run_collective`` does around every call."""
+    backend = "nccl" if DEVICE.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        if DEVICE.type == "cuda":
+            torch.cuda.set_device(DEVICE)
+        torch.distributed.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
+            world_size=1, rank=0)
+        t1 = time.perf_counter()
+        x = torch.zeros(1, device=DEVICE)
+        out = [torch.empty_like(x)]
+        torch.distributed.all_gather(out, x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        torch.distributed.destroy_process_group()
+        t3 = time.perf_counter()
+    return t1 - t0, t2 - t1, t3 - t2
+
+
+def median_range(xs: list) -> str:
+    return f"{np.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
+
+
+def phase_dist(tmp: str) -> dict:
+    """fl-dist, fl-ici and rl-dist through the CLI at --devices 1 (one NCCL
+    rank in this process) on the main phases' 512 MiB files: c --verify and
+    d, each with the counts set to 0 just before and read just after; the
+    containers equal the main phases' (fl-cpu's, and rl's, which is rl-cpu's
+    at one shard).  Then walls, three rounds, each stream's single-device
+    method beside its distributed ones.  Returns the launches of the
+    distributed runs."""
+    for _ in range(3):
+        parts = group_setup_seconds()
+        say(f"[dist] one-rank NCCL group: {sum(parts):.3f} s = init "
+            f"{parts[0]:.3f} + first all_gather {parts[1]:.3f} + destroy "
+            f"{parts[2]:.3f} s")
+    plan = (("mixed", "fl", ("fl-dist", "fl-ici")),
+            ("uniform4", "fl", ("fl-dist", "fl-ici")),
+            ("rl_mixed", "rl", ("rl-dist",)))
+    launches = {}
+    for name, base, methods in plan:
+        src = os.path.join(tmp, f"{name}.bin")
+        want = os.path.join(tmp, f"{name}.{base}")
+        for m in methods:
+            comp_path = os.path.join(tmp, f"{name}.{m}")
+            back = os.path.join(tmp, f"{name}.{m}.out")
+            reset_all_launches()
+            run_cli("c", m, src, comp_path, "--verify", "--devices", "1")
+            run_cli("d", m, comp_path, back, "--devices", "1")
+            ran = all_launches()
+            missing = [key for key in DIST_EXPECT[name] if ran[key] == 0]
+            if missing:
+                raise AssertionError(f"{m} on {name}: kernels not launched: "
+                                     f"{missing} ({json.dumps(ran)})")
+            if not same_file(comp_path, want):
+                raise AssertionError(f"{m} on {name}: container differs from "
+                                     f"the {base} main phase's")
+            if not same_file(back, src):
+                raise AssertionError(f"{m} on {name}: d did not restore the "
+                                     "input")
+            say(f"[dist] {m} --devices 1 on {name}: container equals "
+                f"{'fl-cpu' if base == 'fl' else 'rl and rl-cpu'}'s, round "
+                f"trip exact; launches "
+                f"{json.dumps({key: v for key, v in ran.items() if v})}")
+            for key, v in ran.items():
+                launches[key] = launches.get(key, 0) + v
+    walls = {}
+    for _ in range(3):
+        for name, base, methods in plan:
+            src = os.path.join(tmp, f"{name}.bin")
+            for m in (base, *methods):
+                out = os.path.join(tmp, f"{name}.w.{base}")
+                back = os.path.join(tmp, f"{name}.w.out")
+                extra = () if m == base else ("--devices", "1")
+                t0 = time.perf_counter()
+                run_cli("c", m, src, out, *extra)
+                t1 = time.perf_counter()
+                run_cli("d", m, out, back, *extra)
+                t2 = time.perf_counter()
+                walls.setdefault((name, m), []).append((t1 - t0, t2 - t1))
+    for (name, m), ws in walls.items():
+        say(f"[dist] wall {name} {m}: c {median_range([w[0] for w in ws])} "
+            f"s, d {median_range([w[1] for w in ws])} s (median (min-max) "
+            f"of 3, host clock)")
+    return launches
+
+
+def two_rank_cases(fl_data, rl_data, *, group=None, device):
+    """Rank side of the two-rank run: fl-ici, the FL decode, rl-dist and
+    its decode; every rank's launch counts."""
+    rank = torch.distributed.get_rank(group)
+    world = torch.distributed.get_world_size(group)
+    reset_all_launches()
+    ici = dist.compress_fl_ici(fl_data, group=group, device=device)
+    back = dist.decompress_fl(ici, group=group, device=device)
+    box = [dist.compress_rl(rl_data, group=group, device=device)]
+    torch.distributed.broadcast_object_list(box, src=0, group=group)
+    rback = dist.decompress_rl(box[0], group=group, device=device)
+    counts = [None] * world
+    torch.distributed.all_gather_object(counts, all_launches(), group=group)
+    return (ici, back, box[0], rback, counts) if rank == 0 else None
+
+
+def phase_dist_two_ranks(rng) -> None:
+    """Two gloo ranks spawned on card 0 (NCCL refuses two ranks on one
+    card), 64 MiB: fl-dist through the API, then one spawned group for
+    fl-ici, the FL decode, rl-dist and its decode.  FL containers equal
+    fl-cpu's; RL equals rl-cpu's per-shard containers concatenated; every
+    rank launched the kernels of its path."""
+    dev = DEVICE
+    fl_data = random_width_stream(rng, 64 * MIB + 77, 128)
+    rl_data = rl_mixed_stream(rng, 16 * MIB)
+    ref = CODECS["fl-cpu"].compress(fl_data)
+    t0 = time.perf_counter()
+    comp = compress(fl_data, method="fl-dist", devices=2, device=dev,
+                    backend="gloo")
+    t1 = time.perf_counter()
+    ici, back, rl, rback, counts = dist.run_collective(
+        two_rank_cases, fl_data, rl_data, devices=2, device=dev,
+        backend="gloo")
+    t2 = time.perf_counter()
+    for what, c in (("fl-dist", comp), ("fl-ici", ici)):
+        if not (np.array_equal(c.bits, ref.bits)
+                and np.array_equal(c.values, ref.values)):
+            raise AssertionError(f"two ranks: {what} container differs from "
+                                 "fl-cpu's")
+    plan = dist.plan_shards(rl_data.size, 2)
+    parts = [CODECS["rl-cpu"].compress(plan.shard(rl_data, i))
+             for i in range(2)]
+    if not (np.array_equal(rl.counts,
+                           np.concatenate([p.counts for p in parts]))
+            and np.array_equal(rl.values,
+                               np.concatenate([p.values for p in parts]))):
+        raise AssertionError("two ranks: rl-dist container differs from "
+                             "rl-cpu's per-shard containers")
+    if not (np.array_equal(back, fl_data) and np.array_equal(rback, rl_data)):
+        raise AssertionError("two ranks: decode did not restore the input")
+    for rank, ran in enumerate(counts):
+        missing = [key for key in DIST_EXPECT["mixed"] + DIST_EXPECT[
+            "rl_mixed"] if ran[key] == 0]
+        if missing:
+            raise AssertionError(f"two ranks: rank {rank} did not launch "
+                                 f"{missing}")
+    say(f"[dist] two gloo ranks on cuda:0, 64 MiB: fl-dist (API) and fl-ici "
+        f"equal fl-cpu's, rl-dist equals rl-cpu's per-shard containers, round "
+        f"trips exact, every rank launched its kernels; fl-dist "
+        f"{t1 - t0:.3f} s, the rest in one group {t2 - t1:.3f} s (walls with "
+        f"the spawn)")
+
+
+def constant_programs(cbyte: int, n: int, *, group=None, device):
+    """Rank side of the device-resident constant programs on n bytes of
+    cbyte made on the card: launches of the clean encode and decode,
+    their flags, the outputs' checks, and the flags of a flipped input
+    byte and of a flipped payload byte."""
+    data = torch.full((n,), cbyte, dtype=torch.uint8, device=device)
+    head = data[:ck.DENSE_UNIFORM_TILE_R * 512].cpu().numpy()
+    cb, fb = ck.host_probe_constant(head, n)
+    reset_all_launches()
+    bits, values, flags = dist.fl_compress_sharded_dense_constant(
+        data, cb, fb, group=group)
+    out, dflags = dist.fl_decompress_sharded_dense_constant(
+        values, values.numel(), n, cb, fb, group=group)
+    launches = {key: ck.LAUNCHES[key] for key in CONST_REPLACES}
+    ref = CODECS["fl-cpu"].compress(np.full(n, cbyte, np.uint8))
+    exact = (np.array_equal(bits.cpu().numpy(), ref.bits)
+             and np.array_equal(values.cpu().numpy(), ref.values)
+             and bool(torch.equal(out, data)))
+    data[n // 2] ^= 0x40
+    bad = dist.fl_compress_sharded_dense_constant(data, cb, fb,
+                                                  group=group)[2]
+    values[values.numel() - 1] ^= 0x01
+    bad_d = dist.fl_decompress_sharded_dense_constant(
+        values, values.numel(), n, cb, fb, group=group)[1]
+    return (launches, exact, [int(f.sum()) for f in (flags, dflags, bad,
+                                                     bad_d)])
+
+
+def phase_constant_programs() -> dict:
+    """The constant programs at world size 1 (one NCCL rank) on 512 MiB of
+    0x00 and of 0x0F; returns their launches."""
+    launches = {key: 0 for key in CONST_REPLACES}
+    for c in (0x00, 0x0F):
+        ran, exact, flags = dist.run_collective(
+            constant_programs, c, 512 * MIB, devices=1, device=DEVICE)
+        if not exact or flags[:2] != [0, 0] or 0 in flags[2:]:
+            raise AssertionError(f"constant programs on 0x{c:02X}: exact "
+                                 f"{exact}, flags {flags}")
+        for key, v in ran.items():
+            launches[key] += v
+        say(f"[dist] constant programs, one NCCL rank, 512 MiB of 0x{c:02X}:"
+            f" bytes exact, flags clean, a flipped byte trips each flag; "
+            f"launches {json.dumps(ran)}")
+    missing = [key for key, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"constant kernels not launched: {missing}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -914,11 +1315,20 @@ def main() -> int:
         f"byte for byte")
     rl_mixed = rl_mixed_stream(rng)
     timings.update(time_rl_kernels(rl_mixed))
-    for name, (ms, plain) in timings.items():
-        say(f"[kernels] {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain "
-            f"(512 MiB stream, median of 5)")
-    say(f"[kernels] max |err| {json.dumps(MAX_ERR)}")
     t_rl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cases = phase_constant_kernels()
+    say(f"[kernels] {cases} constant-stream inputs: kernels equal their "
+        f"plain versions byte for byte, flags equal")
+    timings.update(time_constant_kernels())
+    t_dist = time.perf_counter() - t0
+    for name, (ms, plain) in timings.items():
+        lib = LIBRARY_MS.get(name)
+        say(f"[kernels] {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
+            f"{bound_ms(name):.3f} ms bound ({MOVED[name]} bytes)"
+            + (f", {lib:.3f} ms one PyTorch call" if lib is not None else "")
+            + " (512 MiB stream, median of 5)")
+    say(f"[kernels] max |err| {json.dumps(MAX_ERR)}")
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_goldens(tmp, "dense")
@@ -935,6 +1345,15 @@ def main() -> int:
         launches.update(phase_rl_main(tmp, rl_mixed))
         del rl_mixed
         t_rl += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist_launches = phase_dist(tmp)
+        t_dist += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(phase_constant_programs())
+    phase_dist_two_ranks(rng)
+    t_dist += time.perf_counter() - t0
+    say(f"[dist] launches of the distributed CLI runs "
+        f"{json.dumps({key: v for key, v in dist_launches.items() if v})}")
     phase_chunks(rng)
     t0 = time.perf_counter()
     phase_fields_chunks(rng)
@@ -943,14 +1362,15 @@ def main() -> int:
     phase_rl_chunks(rng)
     t_rl += time.perf_counter() - t0
     say(f"[done] field route phases took {t_fields:.1f} s, RL phases "
-        f"{t_rl:.1f} s")
+        f"{t_rl:.1f} s, constant kernels and distribution {t_dist:.1f} s")
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": ALL_REPLACES[name], "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": timings[name][0],
-                "plain_ms": timings[name][1]}
+                "plain_ms": timings[name][1], "bound_ms": bound_ms(name),
+                "bound_by": "bytes", "library_ms": LIBRARY_MS.get(name)}
                for name in ALL_REPLACES]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

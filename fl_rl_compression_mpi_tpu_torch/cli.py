@@ -1,12 +1,17 @@
 """Command-line interface of the PyTorch package.
 
 The same surface as ``python -m fl_rl_compression_mpi_tpu``:
-``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``
-and ``--verify``.  Methods: ``fl`` and ``rl`` (one CUDA device), ``fl-cpu``
-and ``rl-cpu`` (host).  RL methods accept ``--frame-length`` and ignore it,
-as the JAX CLI does.  The JAX package's other methods and flags parse, and
-then fail with exit code 2 and ``[ERROR] <x>: not yet ported to the
-PyTorch package``.
+``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``,
+``--verify`` and ``--devices``.  Methods: ``fl`` and ``rl`` (one CUDA
+device); ``fl-dist``, ``fl-ici`` and ``rl-dist`` (a process group, one CUDA
+device a rank: ``--devices`` ranks, by default every card; see
+``parallel/dist.py``); ``fl-cpu`` and ``rl-cpu`` (host).  ``fl-mpi`` and
+``fl-nccl`` are aliases of ``fl-dist`` and ``fl-ici``; ``fl-shmem`` (an
+enum value with no implementation in the reference) maps to ``fl-dist``
+with a notice, as in the JAX CLI.  RL methods accept ``--frame-length`` and
+ignore it, as the JAX CLI does.  The JAX package's streaming, multi-host
+and profiler flags parse, and then fail with exit code 2 and ``[ERROR]
+<x>: not yet ported to the PyTorch package``.
 """
 
 from __future__ import annotations
@@ -17,18 +22,16 @@ import sys
 
 import numpy as np
 
-from fl_rl_compression_mpi_tpu.fileio import load_file, save_file
-from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
-
 from .api import load_container, save_container
+from .fileio import load_file, save_file
 from .models.registry import resolve
+from .ops.bitpack import FRAME_LENGTH
 from .utils.timers import set_stage_timers, timed
 
-_PORTED = ("fl", "fl-cpu", "rl", "rl-cpu")
-_NOT_PORTED = ("fl-dist", "fl-ici", "rl-dist", "fl-mpi", "fl-nccl",
-               "fl-shmem")
-_NOT_PORTED_FLAGS = ("devices", "stream_chunk_mb", "coordinator",
-                     "num_processes", "process_id", "profile")
+_METHODS = ("fl", "fl-cpu", "fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist",
+            "fl-mpi", "fl-nccl", "fl-shmem")
+_NOT_PORTED_FLAGS = ("stream_chunk_mb", "coordinator", "num_processes",
+                     "process_id", "profile")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -40,7 +43,7 @@ def _parser() -> argparse.ArgumentParser:
                "in.bin out.fl")
     p.add_argument("operation", choices=("c", "d"),
                    help="c = compress, d = decompress")
-    p.add_argument("method", choices=_PORTED + _NOT_PORTED)
+    p.add_argument("method", choices=_METHODS)
     p.add_argument("input")
     p.add_argument("output")
     p.add_argument("--frame-length", type=int, default=FRAME_LENGTH,
@@ -51,8 +54,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--verify", action="store_true",
                    help="after compressing, decompress the output and "
                         "byte-compare against the input")
+    p.add_argument("--devices", type=int, default=None,
+                   help="ranks for the distributed methods, one CUDA device "
+                        "each (default: every card)")
     # parsed only to be refused: not ported yet
-    p.add_argument("--devices", type=int, default=None)
     p.add_argument("--stream-chunk-mb", type=int, default=None)
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
@@ -65,14 +70,22 @@ def _not_ported(args) -> str | None:
     for flag in _NOT_PORTED_FLAGS:
         if getattr(args, flag) is not None:
             return "--" + flag.replace("_", "-")
-    if args.method in _NOT_PORTED:
-        return args.method
     return None
+
+
+def _method(name: str) -> str:
+    if name == "fl-shmem":
+        print("[INFO] fl-shmem: no SHMEM backend in the PyTorch package; "
+              "using fl-dist (the reference silently degraded this to CPU)",
+              file=sys.stderr)
+        return "fl-dist"
+    return name
 
 
 def _compress(args, codec, data: np.ndarray) -> int:
     with timed("compression", nbytes=data.size, enabled=args.timers):
-        comp = codec.compress(data, frame_length=args.frame_length)
+        comp = codec.compress(data, frame_length=args.frame_length,
+                              devices=args.devices)
     with timed("saving output", enabled=args.timers):
         save_container(codec.family, args.output, comp)
     if args.timers:
@@ -85,7 +98,8 @@ def _compress(args, codec, data: np.ndarray) -> int:
     if args.verify:
         with timed("verification", nbytes=data.size, enabled=args.timers):
             out = codec.decompress(load_container(codec.family, args.output),
-                                   frame_length=args.frame_length)
+                                   frame_length=args.frame_length,
+                                   devices=args.devices)
         if not np.array_equal(out, data):
             print("[ERROR] verification failed: round-trip mismatch",
                   file=sys.stderr)
@@ -99,15 +113,16 @@ def _decompress(args, codec) -> None:
         comp = load_container(codec.family, args.input)
     with timed("decompression", nbytes=int(comp.input_size),
                enabled=args.timers):
-        out = codec.decompress(comp, frame_length=args.frame_length)
+        out = codec.decompress(comp, frame_length=args.frame_length,
+                               devices=args.devices)
     with timed("saving output", nbytes=out.size, enabled=args.timers):
         save_file(args.output, out)
 
 
 def _launch_counts() -> dict:
-    from .ops import fl_dense_cuda, fl_fields_cuda, rl_cuda
+    from .ops import fl_constant_cuda, fl_dense_cuda, fl_fields_cuda, rl_cuda
     return {**fl_dense_cuda.LAUNCHES, **fl_fields_cuda.LAUNCHES,
-            **rl_cuda.LAUNCHES}
+            **fl_constant_cuda.LAUNCHES, **rl_cuda.LAUNCHES}
 
 
 def main(argv=None) -> int:
@@ -124,7 +139,10 @@ def main(argv=None) -> int:
         print("[ERROR] --frame-length must be a positive multiple of 8",
               file=sys.stderr)
         return 2
-    codec = resolve(args.method)
+    if args.devices is not None and args.devices < 1:
+        print("[ERROR] --devices must be at least 1", file=sys.stderr)
+        return 2
+    codec = resolve(_method(args.method))
     if args.timers:
         import torch
 

@@ -2,19 +2,35 @@
 
 ``fl`` runs on a CUDA device (``ops/fl_torch.py``): the dense kernels, or
 with ``FLRL_NO_DENSE=1`` the field kernels and the host fold.  ``rl`` runs
-the RL kernels (``ops/rl_torch.py``).  ``fl-cpu`` and ``rl-cpu`` are
-the JAX package's own host codecs (native C++/OpenMP, NumPy fallback),
-imported as they are: they involve no JAX.  The other methods of the JAX
-package are not ported yet.
+the RL kernels (``ops/rl_torch.py``).  ``fl-dist``, ``fl-ici`` and
+``rl-dist`` run the same chains on every rank of a ``torch.distributed``
+process group, one rank a device (``parallel/dist.py``).  ``fl-cpu`` and
+``rl-cpu`` are the host codecs: this package's copy of the native
+C++/OpenMP library, with the NumPy goldens as fallback.  ``fl-mpi`` and
+``fl-nccl`` are aliases of ``fl-dist`` and ``fl-ici``, as in the JAX
+package's registry, whose table this one mirrors.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
+import numpy as np
 import torch
 
-from fl_rl_compression_mpi_tpu.container import FLCompressed, RLCompressed
-from fl_rl_compression_mpi_tpu.models.registry import CODECS as _JAX_CODECS
-from fl_rl_compression_mpi_tpu.models.registry import Codec
+from ..container import FLCompressed, RLCompressed
+from ..native import get_native
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec:
+    name: str
+    family: str                       # "fl" | "rl"
+    description: str
+    compress: Callable[..., object]   # (data, **opts) -> container struct
+    decompress: Callable[..., np.ndarray]  # (container, **opts) -> bytes
+    distributed: bool = False
 
 
 def default_device() -> torch.device:
@@ -39,6 +55,26 @@ def _fl_d(comp, frame_length=128, device=None, **_):
                            frame_length, device=device or default_device())
 
 
+def _fl_cpu(data, frame_length=128, **_):
+    nat = get_native()
+    if nat is not None:
+        bits, values = nat.fl_encode(data, frame_length)
+    else:
+        from ..ops import fl_numpy
+        bits, values = fl_numpy.encode(data, frame_length)
+    return FLCompressed(bits, values, data.size)
+
+
+def _fl_cpu_d(comp, frame_length=128, **_):
+    nat = get_native()
+    if nat is not None:
+        return nat.fl_decode(comp.input_size, comp.bits, comp.values,
+                             frame_length)
+    from ..ops import fl_numpy
+    return fl_numpy.decode(comp.input_size, comp.bits, comp.values,
+                           frame_length)
+
+
 def _rl(data, device=None, **_):
     from ..ops import rl_torch
     counts, values = rl_torch.encode(data, device=device or default_device())
@@ -51,22 +87,77 @@ def _rl_d(comp, device=None, **_):
                            device=device or default_device())
 
 
-_FL_CPU = _JAX_CODECS["fl-cpu"]
-_RL_CPU = _JAX_CODECS["rl-cpu"]
+def _rl_cpu(data, **_):
+    nat = get_native()
+    if nat is not None:
+        counts, values = nat.rl_encode(data)
+    else:
+        from ..ops import rl_numpy
+        counts, values = rl_numpy.encode(data)
+    return RLCompressed(counts, values, data.size)
+
+
+def _rl_cpu_d(comp, **_):
+    nat = get_native()
+    if nat is not None:
+        return nat.rl_decode(comp.counts, comp.values)
+    from ..ops import rl_numpy
+    return rl_numpy.decode(comp.counts, comp.values)
+
+
+def _rank_device(device):
+    """The device every rank takes, or None for one CUDA device a rank
+    (``cuda:rank``), the default wherever :func:`default_device` is a CUDA
+    device."""
+    if device is not None:
+        return torch.device(device)
+    d = default_device()
+    return None if d.type == "cuda" else d
+
+
+def _distributed(name: str):
+    """A registry entry point that runs ``parallel.dist.<name>`` on a
+    process group (see ``dist.run_collective``); RL takes no frame
+    length."""
+    def run(x, frame_length=128, devices=None, device=None, backend=None,
+            **_):
+        from ..parallel import dist
+        args = (x,) if name.endswith("_rl") else (x, frame_length)
+        return dist.run_collective(getattr(dist, name), *args,
+                                   devices=devices,
+                                   device=_rank_device(device),
+                                   backend=backend)
+    return run
+
 
 CODECS: dict[str, Codec] = {c.name: c for c in [
     Codec("fl", "fl", "FL on one CUDA device (hand-written Hopper kernels): "
           "dense route, or with FLRL_NO_DENSE=1 the field route (device "
           "fields, pack-2 speculation, host fold)",
           _fl, _fl_d),
-    Codec("fl-cpu", "fl", _FL_CPU.description, _FL_CPU.compress,
-          _FL_CPU.decompress),
+    Codec("fl-cpu", "fl", "FL on host (native C++/OpenMP, NumPy fallback)",
+          _fl_cpu, _fl_cpu_d),
+    Codec("fl-dist", "fl", "FL over a process group, one CUDA device a "
+          "rank, rank-ordered gather to rank 0 (reference fl-mpi analog)",
+          _distributed("compress_fl"),
+          _distributed("decompress_fl"), distributed=True),
+    Codec("fl-ici", "fl", "FL over a process group, one CUDA device a "
+          "rank, all-gather of the payloads on the device (reference "
+          "fl-nccl analog)",
+          _distributed("compress_fl_ici"),
+          _distributed("decompress_fl"), distributed=True),
     Codec("rl", "rl", "RL on one CUDA device (hand-written Hopper kernels)",
           _rl, _rl_d),
-    Codec("rl-cpu", "rl", _RL_CPU.description, _RL_CPU.compress,
-          _RL_CPU.decompress),
+    Codec("rl-cpu", "rl", "RL on host (native C++/OpenMP, NumPy fallback)",
+          _rl_cpu, _rl_cpu_d),
+    Codec("rl-dist", "rl", "RL over a process group, one CUDA device a rank "
+          "(per-shard runs)",
+          _distributed("compress_rl"),
+          _distributed("decompress_rl"), distributed=True),
 ]}
+
+ALIASES = {"fl-mpi": "fl-dist", "fl-nccl": "fl-ici"}
 
 
 def resolve(name: str) -> Codec:
-    return CODECS[name]
+    return CODECS[ALIASES.get(name, name)]

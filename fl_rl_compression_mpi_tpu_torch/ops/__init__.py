@@ -1,1 +1,2 @@
-"""Dense FL kernels (CUDA) and the host dispatch around them."""
+"""The kernels (CUDA) with their plain PyTorch twins, the host dispatch
+around them, and the NumPy goldens."""

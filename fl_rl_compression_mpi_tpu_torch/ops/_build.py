@@ -1,12 +1,15 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface (``csrc/fl_dense.cuh``,
-``csrc/fl_fields.cuh``, ``csrc/rl.cuh``), so ``nvcc`` compiles them in
-seconds, one process per source, all started together, and links the
-objects into one shared library that ``ctypes`` loads.  No PyTorch headers
-are involved.  The library lands in ``_build/libflrl_cuda_<srchash>.so``
-beside the package, keyed by a hash of every file in ``csrc/``, at first
-use.  A failed build raises with ``nvcc``'s output: there is no fallback.
+``csrc/fl_fields.cuh``, ``csrc/fl_constant.cuh``, ``csrc/rl.cuh``), so
+``nvcc`` compiles them in seconds, one process per source, all started
+together, and links the objects into one shared library that ``ctypes``
+loads.  No PyTorch headers are involved.  The library lands in
+``_build/libflrl_cuda_<srchash>.so`` beside the package, keyed by a hash of
+every ``*.cu`` and ``*.cuh`` file in ``csrc/``, at first use.  A failed
+build raises with ``nvcc``'s output: there is no fallback.  The host
+library's C++ source there (``csrc/flrlio.cpp``, built with g++ by
+``native.py``) is neither hashed nor given to ``nvcc``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,10 @@ _SIGNATURES = {
     "flrl_rl_counts": (_INT, [_P, _I64, _I64, _P, _INT, _P]),
     "flrl_rl_run_offsets": (_INT, [_P, _I64, _P, _INT, _P]),
     "flrl_rl_expand": (_INT, [_P, _P, _I64, _P, _I64, _P, _INT, _P]),
+    "flrl_const_encode": (_INT, [_P, _I64, _INT, _INT, _P, _P, _P, _INT,
+                                 _P]),
+    "flrl_const_decode": (_INT, [_P, _I64, _INT, _INT, _P, _I64, _P, _INT,
+                                 _P]),
     "flrl_cuda_error_string": (ctypes.c_char_p, [_INT]),
 }
 

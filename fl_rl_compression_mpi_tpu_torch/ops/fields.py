@@ -4,9 +4,9 @@ Counterpart of ``fl_rl_compression_mpi_tpu/ops/fields.py``, which cannot be
 imported here: it imports ``fl_jax`` and so JAX.  The device turns each
 frame into fields (``ops/fl_fields_cuda.py``); the host folds a frame's
 fields into its payload bytes, the reference container's layout, and
-unfolds them back.  Fold and unfold run in the JAX package's native OpenMP
-library (``csrc/flrlio.cpp``) when it is available, else in the NumPy
-fallbacks below; the output is the same either way.
+unfolds them back.  Fold and unfold run in the native OpenMP library
+(``native.py``, ``csrc/flrlio.cpp``) when it is available, else in the
+NumPy fallbacks below; the output is the same either way.
 
 The pack-2 layout (two 16-bit fields a u32, the halves of each tile of
 ``tile_r`` rows of 128 words) is fixed by ``p2_idx16`` in
@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from fl_rl_compression_mpi_tpu.native import get_native
-from fl_rl_compression_mpi_tpu.ops import fl_numpy
-from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
+from ..native import get_native
+from . import fl_numpy
+from .bitpack import FRAME_LENGTH
 
 
 def host_fold_kind() -> str:

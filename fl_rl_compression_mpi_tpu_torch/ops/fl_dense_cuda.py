@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
+from .bitpack import FRAME_LENGTH
 
 # Bytes the host probes for the speculative uniform mode: the first tile
 # of the TPU's single-width kernels (1024 rows of 512 bytes).

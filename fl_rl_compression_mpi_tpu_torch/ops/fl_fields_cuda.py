@@ -28,8 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
-
+from .bitpack import FRAME_LENGTH
 from .fl_dense_cuda import _check, _launch, _on_cuda, _stream
 
 LANES = 128

@@ -35,8 +35,9 @@ container is the same either way.
 
 The codec has no weights: its state is the container.  Encode and decode
 read and write the same ``FLCompressed`` fields and file bytes as the JAX
-package (``fl_rl_compression_mpi_tpu.container``), so containers cross
-between the two packages as they are, with no conversion.
+package (this package's ``container.py`` is a copy of
+``fl_rl_compression_mpi_tpu/container.py``), so containers cross between
+the two packages as they are, with no conversion.
 
 ``device`` is explicit: a CUDA device runs the kernels, the CPU runs their
 plain PyTorch versions (the tests use it).
@@ -51,12 +52,11 @@ import warnings
 import numpy as np
 import torch
 
-from fl_rl_compression_mpi_tpu.ops.bitpack import FRAME_LENGTH
-from fl_rl_compression_mpi_tpu.utils import constant_byte_probe
-
+from ..utils import constant_byte_probe
 from ..utils.timers import stage
 from . import fl_dense_cuda as kern
 from . import fl_fields_cuda as fkern
+from .bitpack import FRAME_LENGTH
 from .fields import fold, fold_p2, unfold, unfold_p2
 
 # Largest chunk one device pass takes.  The kernels index with int64, but
@@ -222,19 +222,46 @@ def encode(data, frame_length: int = FRAME_LENGTH, *,
     if c is not None:
         with stage("Compression", n):
             return _constant_container(c, n, frame_length)
+    return encode_walk(data, frame_length, device)
+
+
+def encode_walk(data: np.ndarray, frame_length: int,
+                device: str | torch.device, to_host: bool = True):
+    """The chunk walk of :func:`encode`, with no host closed form: ``data``
+    in frame-aligned chunks of at most ``_device_cap(L)`` bytes, each through
+    the route ``FLRL_NO_DENSE`` selects.  Returns ``(bits, values)`` as NumPy
+    arrays, or with ``to_host=False`` as u8 tensors on ``device`` (the dense
+    route's stay where the kernels wrote them; the field route's payload,
+    folded on the host, is copied up)."""
     device = torch.device(device)
+    n = data.size
     cap = _device_cap(frame_length)
-    chunk_fn = _encode_chunk if _use_dense() else _encode_fields_chunk
+    if _use_dense():
+        chunk_fn = _encode_chunk if to_host else _encode_chunk_device
+    else:
+        chunk_fn = _encode_fields_chunk
     parts = [chunk_fn(data[off:off + cap], frame_length, device)
              for off in range(0, n, cap)]
+    if to_host:
+        if len(parts) == 1:
+            return parts[0]
+        if not parts:
+            return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
+        return (np.concatenate([b for b, _ in parts]),
+                np.concatenate([v for _, v in parts]))
+    parts = [tuple(x if isinstance(x, torch.Tensor) else _to_device(x, device)
+                   for x in part) for part in parts]
     if len(parts) == 1:
         return parts[0]
-    return (np.concatenate([b for b, _ in parts]),
-            np.concatenate([v for _, v in parts]))
+    empty = [torch.zeros(0, dtype=torch.uint8, device=device)]
+    return (torch.cat([b for b, _ in parts] + empty),
+            torch.cat([v for _, v in parts] + empty))
 
 
-def _encode_chunk(chunk: np.ndarray, frame_length: int,
-                  device: torch.device):
+def _encode_chunk_device(chunk: np.ndarray, frame_length: int,
+                         device: torch.device):
+    """The dense route's encode of one chunk, left on the device:
+    ``(bits_d u8[F], values_d u8[V])``."""
     n = chunk.size
     h2d = []
     with stage("Copy input data to device", n, result=h2d):
@@ -250,6 +277,12 @@ def _encode_chunk(chunk: np.ndarray, frame_length: int,
             offs = kern.frame_offsets(bits_d, n, frame_length)
             values_d = kern.pack(x, frame_length, bits=bits_d, offs=offs)
         krn += [bits_d, values_d]
+    return bits_d, values_d
+
+
+def _encode_chunk(chunk: np.ndarray, frame_length: int,
+                  device: torch.device):
+    bits_d, values_d = _encode_chunk_device(chunk, frame_length, device)
     with stage("Copy results to CPU") as t:
         bits = bits_d.cpu().numpy()
         values = values_d.cpu().numpy()
@@ -311,6 +344,19 @@ def decode(output_size: int, bits, values,
     n = int(output_size)
     if n == 0:
         return np.zeros(0, np.uint8)
+    out = decode_closed_form(n, bits, values, frame_length)
+    if out is not None:
+        return out
+    widths, voffs = container_layout(n, bits, values, frame_length)
+    return decode_walk(n, widths, values, voffs, frame_length, device)
+
+
+def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
+                       frame_length: int) -> np.ndarray | None:
+    """The host closed forms of decode, tried before any device work: the
+    constant container becomes a memset, all-8 widths mean the payload is
+    the output.  Returns the n decoded bytes, or None.  Raises when the
+    widths array is shorter than the frame count."""
     frames = -(-n // frame_length)
     if bits.size < frames:
         raise ValueError(
@@ -324,6 +370,16 @@ def decode(output_size: int, bits, values,
     if out8 is not None:
         with stage("Decompression", n):
             return out8
+    return None
+
+
+def container_layout(n: int, bits: np.ndarray, values: np.ndarray,
+                     frame_length: int):
+    """``(widths u8[F], voffs i64[F+1])``: the widths of the frames of an
+    n-byte stream and the exclusive scan of their payload bytes.  Raises
+    on a width byte outside 1..8 or a payload shorter than the widths
+    imply."""
+    frames = -(-n // frame_length)
     widths = bits[:frames]
     lo, hi = int(widths.min()), int(widths.max())
     if lo < 1 or hi > 8:
@@ -338,12 +394,26 @@ def decode(output_size: int, bits, values,
         raise ValueError(
             "fl decode: corrupt container (payload shorter than the "
             f"widths imply: {values.size} < {int(voffs[-1])})")
+    return widths, voffs
+
+
+def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
+                voffs: np.ndarray, frame_length: int,
+                device: str | torch.device) -> np.ndarray:
+    """The chunk walk of :func:`decode`, with no host closed form: the n
+    bytes of the frames ``widths`` (each 1..8) whose payload starts at
+    ``values[voffs[f]]``, decoded chunk by chunk on the route
+    ``FLRL_NO_DENSE`` selects."""
+    out = np.empty(n, np.uint8)
+    if n == 0:
+        return out
+    lo, hi = int(widths.min()), int(widths.max())
     chunk_fn = (functools.partial(_decode_chunk, fb=lo if lo == hi else 0)
                 if _use_dense() else _decode_fields_chunk)
     device = torch.device(device)
     cap = _device_cap(frame_length)
     fpc = cap // frame_length
-    out = np.empty(n, np.uint8)
+    frames = widths.size
     for off in range(0, n, cap):
         f0 = off // frame_length
         f1 = min(f0 + fpc, frames)

@@ -21,8 +21,9 @@ API).  One dispatch chain serves every input size:
 
 The codec has no weights: its state is the container.  Encode and decode
 read and write the same ``RLCompressed`` fields and file bytes as the JAX
-package (``fl_rl_compression_mpi_tpu.container``), so containers cross
-between the two packages as they are, with no conversion.
+package (this package's ``container.py`` is a copy of
+``fl_rl_compression_mpi_tpu/container.py``), so containers cross between
+the two packages as they are, with no conversion.
 
 ``device`` is explicit: a CUDA device runs the kernels, the CPU runs their
 plain PyTorch versions (the tests use it).
@@ -33,8 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fl_rl_compression_mpi_tpu.utils import constant_byte_probe
-
+from ..utils import constant_byte_probe
 from ..utils.timers import stage
 from . import fl_torch
 from . import rl_cuda as kern
@@ -73,6 +73,15 @@ def encode(data, *, device: str | torch.device):
     if c is not None:
         with stage("Compression", n):
             return _constant_container(c, n)
+    return encode_walk(data, device)
+
+
+def encode_walk(data: np.ndarray, device: str | torch.device):
+    """The chunk walk of :func:`encode`, with no host closed form:
+    ``(counts, values)`` of ``data`` through the kernels, chunk by chunk."""
+    n = data.size
+    if n == 0:
+        return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
     device = torch.device(device)
     cap = fl_torch.MAX_DEVICE_CHUNK
     parts = []
@@ -175,8 +184,21 @@ def decode(counts, values, *, device: str | torch.device) -> np.ndarray:
     if c is not None and bool((counts[:-1] == RUN_CAP).all()):
         with stage("Decompression", n):
             return np.full(n, c, np.uint8)
+    return decode_walk(counts, values, device, block_end)
+
+
+def decode_walk(counts: np.ndarray, values: np.ndarray,
+                device: str | torch.device,
+                block_end: np.ndarray | None = None) -> np.ndarray:
+    """The chunk walk of :func:`decode`, with no host closed form: the
+    Σ counts bytes of the runs, chunk by chunk.  ``block_end`` is
+    :func:`_block_ends` of ``counts`` where the caller has it."""
+    if counts.size == 0:
+        return np.zeros(0, np.uint8)
+    if block_end is None:
+        block_end = _block_ends(counts)
     device = torch.device(device)
-    out = np.empty(n, np.uint8)
+    out = np.empty(int(block_end[-1]), np.uint8)
     for r0, r1, o0, o1 in _run_chunks(counts, block_end,
                                       fl_torch.MAX_DEVICE_CHUNK):
         _decode_chunk(out[o0:o1], counts[r0:r1], values[r0:r1], device)

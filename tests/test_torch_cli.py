@@ -73,15 +73,25 @@ def test_roundtrip_methods_and_frame_lengths(method, L, blob, tmp_path,
 
 @pytest.mark.parametrize("method", ["fl-dist", "fl-ici", "fl-mpi",
                                     "fl-nccl", "fl-shmem", "rl-dist"])
-def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys):
-    src, _ = blob
-    assert main(["c", method, src, str(tmp_path / "x")]) == 2
-    assert (f"[ERROR] {method}: not yet ported to the PyTorch package"
-            in capsys.readouterr().err)
+def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys, on_cpu):
+    """The distributed methods and their aliases, which the CLI refused
+    with exit 2 until they were ported, now run (one gloo rank on the CPU
+    here): exit 0, a verified round trip, the JAX CLI's container."""
+    src, data = blob
+    ours, theirs = str(tmp_path / "torch.c"), str(tmp_path / "jax.c")
+    back = str(tmp_path / "o.bin")
+    assert main(["c", method, src, ours, "--verify"]) == 0
+    err = capsys.readouterr().err
+    assert "verification OK" in err and "[ERROR]" not in err
+    assert ("[INFO] fl-shmem:" in err) == (method == "fl-shmem")
+    assert main(["d", method, ours, back, "--devices", "1"]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+    assert jax_main(["c", method, src, theirs, "--devices", "1"]) == 0
+    assert _same_file(ours, theirs)
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("--devices", "2"), ("--stream-chunk-mb", "64"),
+    ("--stream-chunk-mb", "64"),
     ("--coordinator", "localhost:1234"), ("--num-processes", "2"),
     ("--process-id", "0"), ("--profile", "trace")])
 def test_flags_not_ported_exit_2(flag, value, blob, tmp_path, capsys):
@@ -89,6 +99,39 @@ def test_flags_not_ported_exit_2(flag, value, blob, tmp_path, capsys):
     assert main(["c", "fl", src, str(tmp_path / "x"), flag, value]) == 2
     assert (f"[ERROR] {flag}: not yet ported to the PyTorch package"
             in capsys.readouterr().err)
+
+
+@pytest.mark.parametrize("method", ["fl-dist", "fl-ici", "rl-dist"])
+def test_devices_beyond_the_count_exit_nonzero(method, blob, tmp_path,
+                                              capsys, monkeypatch):
+    """More ranks than cards is an error (one card here, faked), as is
+    fewer than one rank; neither starts any rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(registry, "default_device",
+                        lambda: torch.device("cuda", 0))
+    src, _ = blob
+    assert main(["c", method, src, str(tmp_path / "x"), "--devices",
+                 "2"]) == 1
+    assert "more than the 1 CUDA devices" in capsys.readouterr().err
+    assert main(["c", method, src, str(tmp_path / "x"), "--devices",
+                 "0"]) == 2
+    assert "--devices must be at least 1" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("method", ["fl-dist", "rl-dist"])
+def test_two_spawned_ranks_through_the_cli(method, blob, tmp_path, on_cpu,
+                                           capsys):
+    """``--devices 2`` on the CPU: two spawned gloo ranks for c and d; the
+    container equals the JAX CLI's at two devices."""
+    src, data = blob
+    ours, theirs = str(tmp_path / "torch.c"), str(tmp_path / "jax.c")
+    back = str(tmp_path / "o.bin")
+    assert main(["c", method, src, ours, "--devices", "2"]) == 0
+    assert main(["d", method, ours, back, "--devices", "2"]) == 0
+    np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
+    assert jax_main(["c", method, src, theirs, "--devices", "2"]) == 0
+    assert _same_file(ours, theirs)
 
 
 def test_no_cuda_device_is_an_error(blob, tmp_path, capsys, monkeypatch):
@@ -152,7 +195,8 @@ def test_field_route_through_cli(L, blob, tmp_path, on_cpu, monkeypatch,
 
 def test_library_api(tmp_path, on_cpu):
     data = np.random.default_rng(9).integers(0, 32, 128 * 64 + 9, np.uint8)
-    assert set(flrl.methods()) == {"fl", "fl-cpu", "rl", "rl-cpu"}
+    assert set(flrl.methods()) == {"fl", "fl-cpu", "fl-dist", "fl-ici",
+                                   "rl", "rl-cpu", "rl-dist"}
     for method in ("fl", "fl-cpu"):
         comp = flrl.compress(data.tobytes(), method=method)
         np.testing.assert_array_equal(flrl.decompress(comp, method=method),

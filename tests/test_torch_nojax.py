@@ -1,5 +1,6 @@
-"""The PyTorch package and chip_smoke.py never import JAX: the machine with
-the GPU has none."""
+"""The PyTorch package and chip_smoke.py never import JAX, nor anything of
+the JAX package: the machine with the GPU has no JAX, and the port keeps its
+own copies of the JAX package's framework-free modules."""
 
 import os
 import subprocess
@@ -17,6 +18,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
 import chip_smoke
+import chip_routes
+import chip_dist
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch, rl_torch
 data = np.random.default_rng(0).integers(0, 32, 50_000, np.uint8)
 bits, values = fl_torch.encode(data, device="cpu")
@@ -25,10 +28,32 @@ assert np.array_equal(fl_torch.decode(data.size, bits, values,
 data = np.repeat(data % 4, 9)
 counts, values = rl_torch.encode(data, device="cpu")
 assert np.array_equal(rl_torch.decode(counts, values, device="cpu"), data)
+# the distributed path, one gloo rank in this process
+import torch
+import fl_rl_compression_mpi_tpu_torch as flrl
+from fl_rl_compression_mpi_tpu_torch.parallel import dist
+for method in ("fl-dist", "fl-ici", "rl-dist"):
+    comp = flrl.compress(data, method=method, device="cpu")
+    assert np.array_equal(flrl.decompress(comp, method=method,
+                                          device="cpu"), data)
+zeros = torch.zeros(128 * 40, dtype=torch.uint8)
+def constant(*, group=None, device):
+    bits, values, flags = dist.fl_compress_sharded_dense_constant(
+        zeros, 0, 1, group=group)
+    out, dflags = dist.fl_decompress_sharded_dense_constant(
+        values, values.numel(), zeros.numel(), 0, 1, group=group)
+    return int(flags.sum() + dflags.sum()), bool((out == 0).all())
+assert dist.run_collective(constant, device=torch.device("cpu")) == (0, True)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
+# nor anything of the JAX package, which would bring its side effects
+# (fl_rl_compression_mpi_tpu/__init__.py's allocator settings) with it
+jax_pkg = sorted(m for m in sys.modules
+                 if m == "fl_rl_compression_mpi_tpu"
+                 or m.startswith("fl_rl_compression_mpi_tpu."))
+assert not jax_pkg, jax_pkg
 print("ok")
 """
 
@@ -50,6 +75,10 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
+jax_pkg = sorted(m for m in sys.modules
+                 if m == "fl_rl_compression_mpi_tpu"
+                 or m.startswith("fl_rl_compression_mpi_tpu."))
+assert not jax_pkg, jax_pkg
 print("ok")
 """
 
