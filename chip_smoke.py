@@ -10,11 +10,20 @@ Phases, each printing a line and failing the run on any error:
 3. kernels  — every FL kernel against its plain PyTorch version on the
               card, byte for byte: widths 1..8, per-frame random widths,
               tails n mod 128 in {0, 1, 77, 127}, L in {128, 64, 1024}, a
-              64 MiB mixed stream, general and uniform mode, the widths flag;
-              then both versions timed at the main path's shapes (CUDA
-              events).  Then every RL kernel the same way: few runs, runs of
-              300, dense bytes (R = n), one long zero run, runs of 254, 255,
-              256 and 510, constant tiles between varying regions, tails
+              64 MiB mixed stream, general and uniform mode, the widths flag.
+              The offsets scan on frame counts 1, tile-1, tile, tile+1,
+              2·tile+1 and 2^27 (1 GiB at L = 8) of random widths, and twenty
+              calls in a row on other widths of one size, each result freed
+              before the next (the allocator hands back the block with the
+              last call's status words); the pack on widths cycling with
+              periods 3, 5 and 7 at L in {8, 24, 40, 64, 128, 136, 1024} with
+              tails n mod L in {0, 1, 7, 8, 9, 15, 16, 17, L-1}, uniform mode
+              at widths 1..8 there, and data at a 16-byte, frame-aligned
+              offset inside a larger buffer.  Then both versions timed at the
+              main path's shapes (CUDA events).  Then every RL kernel the
+              same way: few runs, runs of 300, dense bytes (R = n), one long
+              zero run, runs of 254, 255, 256 and 510, constant tiles
+              between varying regions, tails
               n mod 4096 in {0, 1, 77, 4095}, a 64 MiB mixed stream, chunk
               carries (mid-piece, at a cap boundary, on a new value), zero
               counts; timed on the 512 MiB rl_mixed stream.
@@ -31,7 +40,13 @@ Phases, each printing a line and failing the run on any error:
               timed kernel is reported with its bound (bytes moved over
               3.35 TB/s) and, where one PyTorch call computes the same
               function (torch.cumsum, torch.repeat_interleave), that call's
-              time.
+              time.  Each kernel and library call is timed two ways: the
+              median of 5 single calls, each between its own event pair
+              (`ms`, which counts the wrapper's host work while the card
+              waits), and the time a launch over a run of 20 calls between
+              one event pair, queued behind a device sleep so that the
+              host's enqueue stays out of it (`launch_ms`; a wrapper that
+              reads a size back, as the general pack does, still waits).
 4. goldens  — the CLI's `c fl` reproduces every tests/golden/reference
               container; `d fl` of every container equals the fl-cpu decode;
               `c rl` reproduces tests/golden/input.rl and `d rl` restores it.
@@ -151,6 +166,12 @@ MAX_ERR = {name: 0 for name in ALL_REPLACES}
 # same function on the same inputs, where there is one.
 MOVED: dict = {}
 LIBRARY_MS: dict = {}
+# Milliseconds a launch over a run of RUN calls, of each kernel and library
+# call (see launch_ms).
+LAUNCH_MS: dict = {}
+LIBRARY_LAUNCH_MS: dict = {}
+RUN = 20
+SLEEP_CYCLES = 20_000_000          # about 10 ms of device sleep at 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 
 
@@ -238,6 +259,92 @@ def check_kernels(data: np.ndarray, L: int) -> None:
         raise AssertionError("kernel container differs from fl-cpu")
 
 
+# The offsets scan's classes: frame counts around its tile and a 1 GiB chunk
+# at L = 8.  The pack's: frame lengths with L % 16 in {0, 8}, tails around
+# its 8- and 16-byte lane groups, widths that change inside a warp's span.
+PACK_LENGTHS = (8, 24, 40, 64, 128, 136, 1024)
+PACK_TAILS = (0, 1, 7, 8, 9, 15, 16, 17)
+
+
+def check_offsets(bits: torch.Tensor, n: int, L: int,
+                  want: torch.Tensor | None = None) -> None:
+    if want is None:
+        want = k.frame_offsets_ref(bits, n, L)
+    compare("fl_frame_offsets", k.frame_offsets(bits, n, L), want)
+
+
+def phase_offsets_classes(rng) -> int:
+    """The offsets scan on random widths 1..8 at frame counts 1, tile-1,
+    tile, tile+1, 2·tile+1 (L = 8, 24, 128 with tails) and 2^27 (1 GiB at
+    L = 8); then twenty calls in a row on other widths of one size (the
+    main path's 2^22 frames), each compared and freed before the next."""
+    T = k.OFFSETS_TILE
+    cases = 0
+    for F in (1, T - 1, T, T + 1, 2 * T + 1):
+        for L, tail in ((8, 0), (24, 5), (128, 77)):
+            bits = torch.from_numpy(rng.integers(1, 9, F, np.uint8)).cuda()
+            check_offsets(bits, (F - 1) * L + (tail or L), L)
+            cases += 1
+    F = 1024 * MIB // 8
+    bits = torch.from_numpy(rng.integers(1, 9, F, np.uint8)).cuda()
+    check_offsets(bits, F * 8, 8)
+    del bits
+    torch.cuda.empty_cache()
+    F = 512 * MIB // 128
+    widths = [torch.from_numpy(rng.integers(1, 9, F, np.uint8)).cuda()
+              for _ in range(20)]
+    wants = [k.frame_offsets_ref(b, F * 128, 128) for b in widths]
+    for b, want in zip(widths, wants):
+        check_offsets(b, F * 128, 128, want)
+    return cases + 21
+
+
+def cycling_stream(rng, frames: int, L: int, period: int,
+                   tail: int) -> np.ndarray:
+    """Frames whose widths cycle through ``period`` distinct widths, so every
+    group of four frames mixes widths; the last frame holds ``tail`` bytes
+    (0: a whole frame)."""
+    cycle = rng.permutation(8)[:period] + 1
+    data = frames_of_widths(rng, np.resize(cycle, frames), L)
+    return data[:(frames - 1) * L + tail] if tail else data
+
+
+def phase_pack_classes(rng) -> int:
+    """The pack (general and uniform mode, through check_kernels) on widths
+    cycling with periods 3, 5 and 7 and on every width 1..8, at each frame
+    length of PACK_LENGTHS and each tail of PACK_TAILS and L-1; then data at
+    a 16-byte, frame-aligned offset inside a larger buffer, as a chunk
+    walk's slice would be."""
+    cases = 0
+    for L in PACK_LENGTHS:
+        tails = sorted({t % L for t in PACK_TAILS} | {L - 1})
+        for period in (3, 5, 7):
+            for tail in tails:
+                check_kernels(cycling_stream(rng, 67, L, period, tail), L)
+                cases += 1
+        for b in range(1, 9):
+            tail = tails[b % len(tails)]
+            check_kernels(uniform_stream(rng, 66 * L + tail, L, b), L)
+            cases += 1
+    for L in (24, 128):
+        for b in (0, 5):
+            data = (uniform_stream(rng, MIB + 9, L, b) if b
+                    else random_width_stream(rng, MIB + 9, L))
+            buf = torch.from_numpy(np.concatenate(
+                [np.zeros(16 * L, np.uint8), data])).cuda()
+            x = buf[16 * L:]
+            bits, _ = k.frame_widths(x, L)
+            offs = k.frame_offsets(bits, x.numel(), L)
+            vals = k.pack(x, L, bits=bits, offs=offs)
+            compare("fl_pack", vals, k.pack_ref(x, L, bits=bits, offs=offs))
+            compare("fl_pack", vals, k.pack(x.clone(), L, bits=bits,
+                                            offs=offs))
+            if b:
+                compare("fl_pack_uniform", k.pack(x, L, fb=b), vals)
+            cases += 1
+    return cases
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median milliseconds of fn() over reps runs, after one warm-up."""
     fn()
@@ -251,6 +358,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def launch_ms(fn, runs: int = RUN) -> float:
+    """Milliseconds a call of fn() over ``runs`` calls in a row between one
+    event pair, after one warm-up.  A device sleep queued ahead of the run
+    lets the host enqueue it before the card starts, so the run measures
+    the card's work, unless fn() itself waits on the card."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def kernel_ms(name: str, fn) -> float:
+    """The single-call median of a kernel's wrapper (cuda_ms); its time a
+    launch over a run goes to LAUNCH_MS[name]."""
+    LAUNCH_MS[name] = launch_ms(fn)
+    return cuda_ms(fn)
+
+
+def library_ms(name: str, fn) -> None:
+    """Both times of the PyTorch call that computes ``name``'s function."""
+    LIBRARY_LAUNCH_MS[name] = launch_ms(fn)
+    LIBRARY_MS[name] = cuda_ms(fn)
 
 
 def moved(name: str, *tensors: torch.Tensor) -> None:
@@ -281,23 +419,25 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     compare("fl_unpack", k.unpack(vals, n, L, bits=bits, offs=offs),
             k.unpack_ref(vals, n, L, bits=bits, offs=offs))
     timings["fl_frame_widths"] = (
-        cuda_ms(lambda: k.frame_widths(x, L, fb_expect=4)),
+        kernel_ms("fl_frame_widths",
+                  lambda: k.frame_widths(x, L, fb_expect=4)),
         cuda_ms(lambda: k.frame_widths_ref(x, L, fb_expect=4)))
     timings["fl_frame_offsets"] = (
-        cuda_ms(lambda: k.frame_offsets(bits, n, L)),
+        kernel_ms("fl_frame_offsets", lambda: k.frame_offsets(bits, n, L)),
         cuda_ms(lambda: k.frame_offsets_ref(bits, n, L)))
     timings["fl_pack"] = (
-        cuda_ms(lambda: k.pack(x, L, bits=bits, offs=offs)),
+        kernel_ms("fl_pack", lambda: k.pack(x, L, bits=bits, offs=offs)),
         cuda_ms(lambda: k.pack_ref(x, L, bits=bits, offs=offs)))
     timings["fl_unpack"] = (
-        cuda_ms(lambda: k.unpack(vals, n, L, bits=bits, offs=offs)),
+        kernel_ms("fl_unpack",
+                  lambda: k.unpack(vals, n, L, bits=bits, offs=offs)),
         cuda_ms(lambda: k.unpack_ref(vals, n, L, bits=bits, offs=offs)))
     moved("fl_frame_widths", x, bits)
     moved("fl_frame_offsets", bits, offs)
     moved("fl_pack", x, bits, offs, vals)
     moved("fl_unpack", vals, bits, offs, x)
-    LIBRARY_MS["fl_frame_offsets"] = cuda_ms(
-        lambda: torch.cumsum(bits, 0, dtype=torch.int64))
+    library_ms("fl_frame_offsets",
+               lambda: torch.cumsum(bits, 0, dtype=torch.int64))
     del x, bits, offs, vals
     x = torch.from_numpy(uniform4).cuda()
     n = x.numel()
@@ -306,10 +446,10 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     compare("fl_unpack_uniform", k.unpack(vu, n, L, fb=4),
             k.unpack_ref(vu, n, L, fb=4))
     timings["fl_pack_uniform"] = (
-        cuda_ms(lambda: k.pack(x, L, fb=4)),
+        kernel_ms("fl_pack_uniform", lambda: k.pack(x, L, fb=4)),
         cuda_ms(lambda: k.pack_ref(x, L, fb=4)))
     timings["fl_unpack_uniform"] = (
-        cuda_ms(lambda: k.unpack(vu, n, L, fb=4)),
+        kernel_ms("fl_unpack_uniform", lambda: k.unpack(vu, n, L, fb=4)),
         cuda_ms(lambda: k.unpack_ref(vu, n, L, fb=4)))
     moved("fl_pack_uniform", x, vu)
     moved("fl_unpack_uniform", vu, x)
@@ -398,10 +538,10 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     timings = {}
     words, bits, out = check_fields(mixed, L)
     timings["fl_fields_encode"] = (
-        cuda_ms(lambda: fk.encode_fields(words, L)),
+        kernel_ms("fl_fields_encode", lambda: fk.encode_fields(words, L)),
         cuda_ms(lambda: fk.encode_fields_ref(words, L)))
     timings["fl_fields_decode"] = (
-        cuda_ms(lambda: fk.decode_fields(out, bits, L)),
+        kernel_ms("fl_fields_decode", lambda: fk.decode_fields(out, bits, L)),
         cuda_ms(lambda: fk.decode_fields_ref(out, bits, L)))
     moved("fl_fields_encode", words, bits, out)
     moved("fl_fields_decode", out, bits, words)
@@ -409,10 +549,12 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     check_fields(uniform4, L)
     words, bits, out = check_fields(uniform4, L, tr)
     timings["fl_fields_encode_p2"] = (
-        cuda_ms(lambda: fk.encode_fields(words, L, tr)),
+        kernel_ms("fl_fields_encode_p2",
+                  lambda: fk.encode_fields(words, L, tr)),
         cuda_ms(lambda: fk.encode_fields_ref(words, L, tr)))
     timings["fl_fields_decode_p2"] = (
-        cuda_ms(lambda: fk.decode_fields(out, bits, L, tr)),
+        kernel_ms("fl_fields_decode_p2",
+                  lambda: fk.decode_fields(out, bits, L, tr)),
         cuda_ms(lambda: fk.decode_fields_ref(out, bits, L, tr)))
     moved("fl_fields_encode_p2", words, bits, out)
     moved("fl_fields_decode_p2", out, bits, words)
@@ -509,11 +651,14 @@ def time_constant_kernels() -> dict:
     for out, want in zip((bits, values), ck.encode_constant_ref(x, 0, 1)):
         compare("fl_const_encode", out, want)
     timings = {
-        "fl_const_encode": (cuda_ms(lambda: ck.encode_constant(x, 0, 1)),
-                            cuda_ms(lambda: ck.encode_constant_ref(x, 0, 1))),
+        "fl_const_encode": (
+            kernel_ms("fl_const_encode",
+                      lambda: ck.encode_constant(x, 0, 1)),
+            cuda_ms(lambda: ck.encode_constant_ref(x, 0, 1))),
         "fl_const_decode": (
-            cuda_ms(lambda: ck.decode_constant(values, values.numel(), 0, 1,
-                                               n)),
+            kernel_ms("fl_const_decode",
+                      lambda: ck.decode_constant(values, values.numel(), 0,
+                                                 1, n)),
             cuda_ms(lambda: ck.decode_constant_ref(values, values.numel(), 0,
                                                    1, n))),
     }
@@ -921,19 +1066,20 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     summ, tstart, eoffs = e["summ"], e["tstart"], e["offs"]
     starts8, counts, values = e["starts8"], e["counts"], e["values"]
     timings = {
-        "rl_flags": (cuda_ms(lambda: rk.piece_tiles(x)),
+        "rl_flags": (kernel_ms("rl_flags", lambda: rk.piece_tiles(x)),
                      cuda_ms(lambda: rk.piece_tiles_ref(x))),
-        "rl_scan": (cuda_ms(lambda: rk.piece_offsets(summ, n)),
+        "rl_scan": (kernel_ms("rl_scan", lambda: rk.piece_offsets(summ, n)),
                     cuda_ms(lambda: rk.piece_offsets_ref(summ, n))),
         "rl_compact": (
-            cuda_ms(lambda: rk.compact(x, -1, tstart, eoffs)),
+            kernel_ms("rl_compact", lambda: rk.compact(x, -1, tstart, eoffs)),
             cuda_ms(lambda: rk.compact_ref(x, -1, tstart, eoffs))),
-        "rl_counts": (cuda_ms(lambda: rk.piece_counts(starts8, n)),
+        "rl_counts": (kernel_ms("rl_counts",
+                                lambda: rk.piece_counts(starts8, n)),
                       cuda_ms(lambda: rk.piece_counts_ref(starts8, n))),
-        "rl_offsets": (cuda_ms(lambda: rk.run_offsets(counts)),
+        "rl_offsets": (kernel_ms("rl_offsets", lambda: rk.run_offsets(counts)),
                        cuda_ms(lambda: rk.run_offsets_ref(counts))),
         "rl_expand": (
-            cuda_ms(lambda: rk.expand(counts, values, offs, n)),
+            kernel_ms("rl_expand", lambda: rk.expand(counts, values, offs, n)),
             cuda_ms(lambda: rk.expand_ref(counts, values, offs, n))),
     }
     moved("rl_flags", x, summ)
@@ -942,11 +1088,11 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     moved("rl_counts", starts8, counts)
     moved("rl_offsets", counts, offs)
     moved("rl_expand", counts, values, offs, x)
-    LIBRARY_MS["rl_offsets"] = cuda_ms(
-        lambda: torch.cumsum(counts, 0, dtype=torch.int64))
+    library_ms("rl_offsets",
+               lambda: torch.cumsum(counts, 0, dtype=torch.int64))
     counts64 = counts.to(torch.int64)     # repeat_interleave's repeats type
-    LIBRARY_MS["rl_expand"] = cuda_ms(
-        lambda: torch.repeat_interleave(values, counts64, output_size=n))
+    library_ms("rl_expand", lambda: torch.repeat_interleave(
+        values, counts64, output_size=n))
     say(f"[kernels] rl_mixed: {n} bytes, {counts.numel()} pieces")
     del x, e, offs, summ, tstart, eoffs, starts8, counts, values, counts64
     torch.cuda.empty_cache()
@@ -1297,6 +1443,15 @@ def main() -> int:
     cases += 1
     say(f"[kernels] {cases} inputs: kernels equal their plain versions "
         f"byte for byte; max |err| {json.dumps(MAX_ERR)}")
+    t0 = time.perf_counter()
+    # a generator of their own, so that the streams below stay the bytes
+    # earlier runs of this script timed
+    classes_rng = np.random.default_rng(SEED + 1)
+    cases = phase_offsets_classes(classes_rng)
+    say(f"[kernels] {cases} offsets-scan inputs equal their plain version")
+    cases = phase_pack_classes(classes_rng)
+    say(f"[kernels] {cases} pack inputs equal their plain version, the "
+        f"containers fl-cpu's ({time.perf_counter() - t0:.1f} s)")
 
     mixed = mixed_main_stream(rng)
     uniform4 = uniform_stream(rng, 512 * MIB, 128, 4)
@@ -1327,7 +1482,10 @@ def main() -> int:
         say(f"[kernels] {name}: {ms:.3f} ms kernel, {plain:.3f} ms plain, "
             f"{bound_ms(name):.3f} ms bound ({MOVED[name]} bytes)"
             + (f", {lib:.3f} ms one PyTorch call" if lib is not None else "")
-            + " (512 MiB stream, median of 5)")
+            + f" (512 MiB stream, median of 5 single calls); a launch over a "
+            f"run of {RUN}: {LAUNCH_MS[name]:.4f} ms kernel"
+            + (f", {LIBRARY_LAUNCH_MS[name]:.4f} ms PyTorch call"
+               if lib is not None else ""))
     say(f"[kernels] max |err| {json.dumps(MAX_ERR)}")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1370,7 +1528,9 @@ def main() -> int:
                 "replaces": ALL_REPLACES[name], "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": timings[name][0],
                 "plain_ms": timings[name][1], "bound_ms": bound_ms(name),
-                "bound_by": "bytes", "library_ms": LIBRARY_MS.get(name)}
+                "bound_by": "bytes", "library_ms": LIBRARY_MS.get(name),
+                "launch_ms": LAUNCH_MS[name],
+                "library_launch_ms": LIBRARY_LAUNCH_MS.get(name)}
                for name in ALL_REPLACES]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

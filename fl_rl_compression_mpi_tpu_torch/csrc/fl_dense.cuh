@@ -16,27 +16,37 @@
 
 namespace flrl {
 
-// Frame kernels: one warp per frame, 8 warps per block.
+// Frame kernels (widths, unpack): one warp per frame, 8 warps per block.
 constexpr int kWarpsPerBlock = 8;
 constexpr int kFrameThreads = kWarpsPerBlock * kWarp;
 // Grid cap for the grid-stride frame loops (a 1 GiB chunk at L = 8 has
 // 2^27 frames; a capped grid walks them instead of launching 2^24 blocks).
 constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
 
-// Pack staging: a warp stages 256 input bytes (8 per lane) in shared
-// memory.  256 values at width b are exactly 32·b payload bytes, so a
-// segment's output is byte-aligned for every width.
-constexpr int kSegValues = kWarp * 8;
+// Offsets: a block scans a tile of 256 threads × 16 frames, one 16-byte
+// load of widths a thread.  ops/fl_dense_cuda.py's OFFSETS_TILE must match.
+constexpr int kOffsetsThreads = 256;
+constexpr int kOffsetsItems = 16;
+constexpr int64_t kOffsetsTile = int64_t(kOffsetsThreads) * kOffsetsItems;
 
-// Number of real bytes in frame f of an n-byte stream cut into L-byte frames.
-__host__ __device__ inline int64_t frame_count(int64_t f, int64_t n,
-                                               int64_t L) {
-  const int64_t rest = n - f * L;
+// Pack: 8 warps a block; a warp span is 32 lanes × U input bytes (U = 16,
+// or 8 where L % 16 != 0) and stages at most 32·U payload bytes, behind up
+// to 15 bytes that align the span to its 16-byte phase in device memory.
+constexpr int kPackWarps = 8;
+constexpr int kPackThreads = kPackWarps * kWarp;
+constexpr int kPackStage = kWarp * 16 + 16;
+
+// Number of real bytes in frame f of an n-byte stream cut into L-byte frames
+// (T: int64_t, or uint32_t where every position fits).
+template <typename T>
+__host__ __device__ inline T frame_count(T f, T n, T L) {
+  const T rest = n - f * L;
   return rest < L ? rest : L;
 }
 
 // Payload bytes of a frame of `count` values at width b: ceil(count·b/8).
-__host__ __device__ inline int64_t frame_bytes(int b, int64_t count) {
+template <typename T>
+__host__ __device__ inline T frame_bytes(int b, T count) {
   return (count * b + 7) / 8;
 }
 
@@ -50,15 +60,16 @@ FLRL_API int flrl_frame_widths(const void* data, int64_t n,
                                void* stream);
 
 // offs[0..F] = exclusive scan of ceil(count_f·bits[f]/8); offs[F] is the
-// payload size.  `carries` is scratch of flrl_scan_carries_size(F) int64s.
+// payload size.  `offs` is 16-byte aligned.  `scratch` holds
+// ceil(F / kOffsetsTile) + 1 int64 words (the tiles' status words, then
+// the ticket); the launcher clears it on `stream` before the kernel runs.
 FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
                                 int64_t frame_length, void* offs,
-                                void* carries, int device, void* stream);
-FLRL_API int64_t flrl_scan_carries_size(int64_t frames);
+                                void* scratch, int device, void* stream);
 
-// Pack n bytes into the container payload.  General mode: widths `bits`
-// and offsets `offs` (fb = 0).  Uniform mode: fb in 1..8, bits and offs
-// null, frame f at the static offset f·L·fb/8.
+// Pack n bytes (`data` 16-byte aligned) into the container payload.
+// General mode: widths `bits` and offsets `offs` (fb = 0).  Uniform mode:
+// fb in 1..8, bits and offs null, frame f at the static offset f·L·fb/8.
 FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,
                        const void* bits, const void* offs, int fb,
                        void* values, int device, void* stream);

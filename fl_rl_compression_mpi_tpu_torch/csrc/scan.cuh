@@ -1,11 +1,29 @@
 // Block-level int64 scans shared by the FL and RL kernels.
 //
 // Hopper blocks run in no order, so anything that places variable-sized
-// pieces (FL frames, RL pieces) takes a two-level scan: each block scans
-// its own tile with block_exclusive_scan and writes the tile's total, one
-// block scans the totals (scan_carries_kernel), and every item adds its
-// tile's carry (add_carries_kernel) or reads it directly.  All in int64:
-// a 1 GiB chunk has up to 2^30 items.
+// pieces (FL frames, RL pieces) needs a scan across blocks.  Two kinds live
+// here, both in int64 (a 1 GiB chunk has up to 2^30 items):
+//
+// - Two-level (the RL kernels): each block scans its own tile with
+//   block_exclusive_scan and writes the tile's total, one block scans the
+//   totals (scan_carries_kernel), and every item reads its tile's carry.
+// - Single-pass with decoupled look-back (flrl_frame_offsets, the frame
+//   placement of fl_dense_pallas.py:732 and :1074, whose sequential grid
+//   carries a cursor; Merrill & Garland, "Single-pass Parallel Prefix Scan
+//   with Decoupled Look-back", NVIDIA 2016).  Bound by bytes: it reads F
+//   widths and writes 8·(F+1) bytes of offsets, each once, where the
+//   two-level scan writes, reads back and writes again the offsets.  A
+//   block takes its tile by ticket (take_tile), scans it,
+//   publishes its aggregate and then its inclusive prefix as one 64-bit
+//   status word each (publish_status), and one warp folds its
+//   predecessors' words until it meets a prefix (look_back).  One launch,
+//   and each item is written once.  The status words and the ticket must
+//   be zero when the kernel starts: the launcher clears them on the
+//   kernel's stream, since a look-back that read a word of an earlier call
+//   (the caching allocator hands the same memory back) would be wrong.
+//   Forward progress: tiles are taken in ticket order, so a block only
+//   ever waits on tiles whose blocks have already started, and tile 0
+//   publishes its prefix without waiting.
 #pragma once
 
 #include <cstdint>
@@ -15,10 +33,15 @@ namespace flrl {
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// One scan tile: 512 threads × 8 items.
+// One scan tile of the two-level scan: 512 threads × 8 items.
 constexpr int kScanThreads = 512;
 constexpr int kScanItems = 8;
 constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanItems;
+
+// Status word of a single-pass scan tile: a 2-bit flag over a 62-bit value.
+constexpr uint64_t kStatusAggregate = uint64_t(1) << 62;  // tile's own sum
+constexpr uint64_t kStatusPrefix = uint64_t(2) << 62;     // inclusive prefix
+constexpr uint64_t kStatusValue = (uint64_t(1) << 62) - 1;
 
 struct Sum {
   __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
@@ -51,14 +74,21 @@ __device__ __forceinline__ int64_t warp_inclusive_scan(int64_t x, int lane,
   return x;
 }
 
+__device__ __forceinline__ int64_t warp_sum(int64_t x) {
+#pragma unroll
+  for (int d = kWarp / 2; d > 0; d >>= 1)
+    x += __shfl_xor_sync(kFullMask, x, d);
+  return x;
+}
+
 // Exclusive scan under `op` (identity `id`) of one value per thread across
-// a block of kScanThreads; *total receives the whole block's reduction.
+// a block of kThreads; *total receives the whole block's reduction.
 // Every thread of the block must call it.  Safe to call repeatedly in a
 // loop.
-template <typename Op>
+template <int kThreads = kScanThreads, typename Op>
 __device__ int64_t block_exclusive_scan(int64_t v, int64_t id, Op op,
                                         int64_t* total) {
-  constexpr int kWarps = kScanThreads / kWarp;
+  constexpr int kWarps = kThreads / kWarp;
   __shared__ int64_t warp_sums[kWarps];
   const int lane = threadIdx.x % kWarp;
   const int w = threadIdx.x / kWarp;
@@ -80,9 +110,10 @@ __device__ int64_t block_exclusive_scan(int64_t v, int64_t id, Op op,
 }
 
 // The sum scan the placement passes use.
+template <int kThreads = kScanThreads>
 __device__ __forceinline__ int64_t block_exclusive_scan(int64_t v,
                                                         int64_t* total) {
-  return block_exclusive_scan(v, 0, Sum(), total);
+  return block_exclusive_scan<kThreads>(v, 0, Sum(), total);
 }
 
 // One block: carries[t] <- exclusive scan of the tile totals; *end <- sum.
@@ -111,12 +142,48 @@ scan_carries_kernel(int64_t* __restrict__ carries, int64_t tiles,
   if (threadIdx.x == 0) *end = running;
 }
 
-__global__ void add_carries_kernel(int64_t* __restrict__ offs, int64_t frames,
-                                   const int64_t* __restrict__ carries) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t f = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       f < frames; f += stride)
-    offs[f] += carries[f / kScanTile];
+// Single-pass scan: the block's tile, in the order blocks started.
+__device__ __forceinline__ int64_t take_tile(unsigned* ticket) {
+  __shared__ unsigned tile;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  return tile;
+}
+
+// One 64-bit store, so a reader never sees a flag without its value.
+__device__ __forceinline__ void publish_status(uint64_t* status,
+                                               uint64_t flag, int64_t value) {
+  *reinterpret_cast<volatile unsigned long long*>(status) =
+      flag | (static_cast<uint64_t>(value) & kStatusValue);
+}
+
+// Exclusive prefix of tile t >= 1, called by one whole warp: lane i reads
+// tile t-1-i's status word, the warp waits until every word up to the
+// nearest prefix is published, adds the aggregates and that prefix, or all
+// 32 aggregates and steps 32 tiles further back.
+__device__ int64_t look_back(const uint64_t* status, int64_t t, int lane) {
+  int64_t prefix = 0;
+  for (int64_t end = t;; end -= kWarp) {
+    const int64_t j = end - 1 - lane;
+    uint64_t s;
+    unsigned prefixes, wanted;
+    for (;;) {
+      // a lane before tile 0 reads a zero prefix; tile 0's own prefix
+      // always comes first in the fold
+      s = j >= 0 ? *reinterpret_cast<const volatile unsigned long long*>(
+                       status + j)
+                 : kStatusPrefix;
+      const unsigned ready = __ballot_sync(kFullMask, (s >> 62) != 0);
+      prefixes = __ballot_sync(kFullMask, (s >> 62) == 2);
+      // lanes up to and including the nearest prefix (all if none)
+      wanted = prefixes ? (prefixes & (0u - prefixes)) * 2u - 1u : kFullMask;
+      if ((ready & wanted) == wanted) break;
+    }
+    prefix += warp_sum((wanted >> lane) & 1u
+                           ? static_cast<int64_t>(s & kStatusValue)
+                           : 0);
+    if (prefixes) return prefix;
+  }
 }
 
 }  // namespace

@@ -40,7 +40,6 @@ _SIGNATURES = {
     # name: (restype, argtypes)
     "flrl_frame_widths": (_INT, [_P, _I64, _I64, _INT, _P, _P, _INT, _P]),
     "flrl_frame_offsets": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P]),
-    "flrl_scan_carries_size": (_I64, [_I64]),
     "flrl_pack": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P, _INT, _P]),
     "flrl_unpack": (_INT, [_P, _I64, _I64, _I64, _P, _P, _INT, _P, _INT,
                            _P]),

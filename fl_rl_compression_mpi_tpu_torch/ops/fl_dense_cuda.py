@@ -32,6 +32,11 @@ from .bitpack import FRAME_LENGTH
 # of the TPU's single-width kernels (1024 rows of 512 bytes).
 DENSE_UNIFORM_TILE_R = 1024
 
+# Frames one block of ``flrl_frame_offsets`` scans (kOffsetsTile in
+# csrc/fl_dense.cuh): the kernel's scratch holds a status word a tile and
+# a ticket.
+OFFSETS_TILE = 4096
+
 LAUNCHES = {"fl_frame_widths": 0, "fl_frame_offsets": 0,
             "fl_pack": 0, "fl_pack_uniform": 0,
             "fl_unpack": 0, "fl_unpack_uniform": 0}
@@ -273,15 +278,15 @@ def frame_offsets(bits: torch.Tensor, n: int,
     _check(bits, "bits", torch.uint8, F)
     if not _on_cuda(bits):
         return frame_offsets_ref(bits, n, frame_length)
-    from . import _build
-    offs = torch.empty(F + 1, dtype=torch.int64, device=bits.device)
-    carries = torch.empty(_build.lib().flrl_scan_carries_size(F),
-                          dtype=torch.int64, device=bits.device)
+    # one allocation: the offsets, then the scan's status words and ticket
+    # (the launcher clears those on the stream)
+    buf = torch.empty(F + 1 + -(-F // OFFSETS_TILE) + 1, dtype=torch.int64,
+                      device=bits.device)
     _launch("flrl_frame_offsets", bits.data_ptr(), n, frame_length,
-            offs.data_ptr(), carries.data_ptr(), bits.device.index,
+            buf.data_ptr(), buf.data_ptr() + 8 * (F + 1), bits.device.index,
             _stream(bits))
     LAUNCHES["fl_frame_offsets"] += 1
-    return offs
+    return buf[:F + 1]
 
 
 def _check_mode(n, frame_length, bits, offs, fb) -> None:

@@ -2,6 +2,9 @@
 against the NumPy golden; ``test_torch_fl_dense_pallas.py`` holds them
 against the TPU's Pallas kernels.  Tolerance: byte equality throughout."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -10,7 +13,13 @@ from fuzz_battery import battery
 from fl_rl_compression_mpi_tpu.ops import fl_dense_pallas, fl_numpy
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
 
-FRAME_LENGTHS = (8, 64, 128, 256, 1024)
+FRAME_LENGTHS = (8, 24, 40, 64, 128, 136, 256, 1024)
+# The pack kernel's lane groups are 16 bytes where L % 16 == 0, else 8:
+# tails around both, and widths that change inside a warp's span.
+PACK_LENGTHS = (8, 24, 40, 64, 128, 136, 1024)
+PACK_TAILS = (0, 1, 7, 8, 9, 15, 16, 17)
+TAIL_CASES = [(L, t) for L in PACK_LENGTHS
+              for t in sorted({t % L for t in PACK_TAILS} | {L - 1})]
 
 
 def _width_cases():
@@ -58,6 +67,80 @@ def test_plain_versions_match_numpy_golden(name, data, L):
             k.unpack(vu, data.size, L, fb=fb).numpy(), data)
     # CPU tensors run the plain versions: no kernel launch is counted
     assert k.LAUNCHES == before
+
+
+def _frames_of_widths(g, widths, L):
+    masks = ((1 << widths.astype(np.int64)) - 1).astype(np.uint8)
+    d = g.integers(0, 256, (widths.size, L), np.uint8) & masks[:, None]
+    d[:, 0] = masks
+    return d.reshape(-1)
+
+
+def _cut(data, L, tail):
+    """The stream with its last frame holding ``tail`` bytes (0: whole)."""
+    return data[:data.size - L + tail] if tail else data
+
+
+def _check_against_golden(data, L):
+    bits, flag, offs, values, out = _roundtrip(data, L)
+    bg, vg = fl_numpy.encode(data, L)
+    np.testing.assert_array_equal(bits.numpy(), bg)
+    fbytes = (bg.astype(np.int64) * np.minimum(
+        data.size - np.arange(bg.size) * L, L) + 7) // 8
+    np.testing.assert_array_equal(offs.numpy()[1:], np.cumsum(fbytes))
+    assert int(offs[0]) == 0
+    np.testing.assert_array_equal(values.numpy(), vg)
+    np.testing.assert_array_equal(out.numpy(), data)
+    np.testing.assert_array_equal(fl_numpy.decode(data.size, bg, vg, L), data)
+    return bg, vg
+
+
+@pytest.mark.parametrize("period", (3, 5, 7))
+@pytest.mark.parametrize("L,tail", TAIL_CASES,
+                         ids=[f"L{L}-tail{t}" for L, t in TAIL_CASES])
+def test_plain_versions_on_cycling_widths(L, tail, period):
+    """Widths cycling through ``period`` distinct values, so every group of
+    four frames (a warp's span at L = 128) mixes widths."""
+    g = np.random.default_rng(1000 * L + 10 * tail + period)
+    cycle = g.permutation(8)[:period] + 1
+    data = _cut(_frames_of_widths(g, np.resize(cycle, 67), L), L, tail)
+    _check_against_golden(data, L)
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("L,tail", TAIL_CASES,
+                         ids=[f"L{L}-tail{t}" for L, t in TAIL_CASES])
+def test_uniform_pack_on_tails(L, tail, b):
+    g = np.random.default_rng(1000 * L + 10 * tail + b)
+    data = _cut(_frames_of_widths(g, np.full(33, b), L), L, tail)
+    _, vg = _check_against_golden(data, L)
+    x = torch.from_numpy(data)
+    assert int(k.frame_widths(x, L, fb_expect=b)[1]) == 0
+    vu = k.pack(x, L, fb=b)
+    np.testing.assert_array_equal(vu.numpy(), vg)
+    np.testing.assert_array_equal(k.unpack(vu, data.size, L, fb=b).numpy(),
+                                  data)
+
+
+SCAN_FRAMES = (1, k.OFFSETS_TILE - 1, k.OFFSETS_TILE, k.OFFSETS_TILE + 1,
+               2 * k.OFFSETS_TILE + 1)
+
+
+@pytest.mark.parametrize("L,tail", ((8, 0), (24, 5), (128, 77)))
+@pytest.mark.parametrize("frames", SCAN_FRAMES)
+def test_plain_versions_around_the_scan_tile(frames, L, tail):
+    g = np.random.default_rng(frames + L)
+    widths = g.integers(1, 9, frames)
+    _check_against_golden(_cut(_frames_of_widths(g, widths, L), L, tail), L)
+
+
+def test_offsets_tile_matches_the_cuda_source():
+    path = os.path.join(os.path.dirname(k.__file__), "..", "csrc",
+                        "fl_dense.cuh")
+    src = open(path).read()
+    threads = int(re.search(r"kOffsetsThreads = (\d+);", src).group(1))
+    items = int(re.search(r"kOffsetsItems = (\d+);", src).group(1))
+    assert threads * items == k.OFFSETS_TILE
 
 
 def test_widths_flag_fires_on_mixed_stream():
