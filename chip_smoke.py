@@ -342,6 +342,22 @@ def phase_pack_classes(rng) -> int:
             if b:
                 compare("fl_pack_uniform", k.pack(x, L, fb=b), vals)
             cases += 1
+    # streams no longer than one frame (the launcher takes a shorter L)
+    for L in (1024, 1032):
+        for n in (1, 17, 1000, L):
+            check_kernels(random_width_stream(rng, n, L), L)
+            check_kernels(uniform_stream(rng, n, L, 1 + n % 8), L)
+            cases += 2
+    # the kernel's 32-bit positions: more than 2^31 bytes must raise
+    big = torch.empty((1 << 31) + 16, dtype=torch.uint8, device=DEVICE)
+    try:
+        k.pack(big, 128, fb=4)
+    except RuntimeError:
+        cases += 1
+    else:
+        raise AssertionError("flrl_pack took more than 2^31 bytes")
+    del big
+    torch.cuda.empty_cache()
     return cases
 
 

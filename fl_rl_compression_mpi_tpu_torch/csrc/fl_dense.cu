@@ -210,9 +210,9 @@ frame_offsets_kernel(const uint8_t* __restrict__ bits, int64_t n, int64_t L,
 // the stream's end load as zero and the tail frame's output is clipped to
 // frame_bytes(b, count).  In uniform mode every value is masked to fb
 // bits, so a frame of another width writes junk but stays inside its slot;
-// the caller reads the widths flag and discards the payload.  Should the
-// offsets not make the lanes' outputs follow each other, each lane stores
-// its own bytes.
+// the caller reads the widths flag and discards the payload.  Positions are
+// 32-bit (the launcher takes at most 2^31 bytes), and p / L is a
+// multiply-high.
 // --------------------------------------------------------------------------
 
 // Eight bytes, each masked to b bits, packed LSB-first into 8·b bits.
@@ -253,7 +253,7 @@ __device__ __forceinline__ void store_bytes(uint8_t* dst, uint64_t lo,
 
 struct PackArgs {
   const uint8_t* data;
-  int64_t n, L;
+  uint32_t n, L;   // n ≤ 2^31, L ≤ 2^31
   uint64_t recip;  // UINT64_MAX / L + 1: p / L == umulhi(p, recip), p < 2^32
   const uint8_t* bits;
   const int64_t* offs;  // null in uniform mode
@@ -263,11 +263,11 @@ struct PackArgs {
 
 // A lane's U input bytes from byte p on (v0: the first 8, v1: the next 8);
 // zeros past the stream's end.
-template <int U, typename Pos>
-__device__ __forceinline__ void load_group(const PackArgs& a, Pos p,
+template <int U>
+__device__ __forceinline__ void load_group(const PackArgs& a, uint32_t p,
                                            uint64_t& v0, uint64_t& v1) {
   v0 = v1 = 0;
-  const Pos n = static_cast<Pos>(a.n);
+  const uint32_t n = a.n;
   if (p + U <= n) {
     if (U == 16) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(a.data + p));
@@ -287,29 +287,30 @@ __device__ __forceinline__ void load_group(const PackArgs& a, Pos p,
 }
 
 // One warp span: the lanes' packed bytes through the warp's stage to the
-// payload (see above).  Pos is uint32_t where n < 2^32 and L < 2^28 (the
-// payload is no larger than n), else int64_t.
-template <int U, typename Pos>
-__device__ __forceinline__ void pack_span(const PackArgs& a, Pos p,
-                                          uint64_t v0, uint64_t v1, int lane,
+// payload (see above).  A lane writes into the stage only inside the
+// span's kSpan bytes, so offsets that are not the scan of the widths
+// cannot write past the stage.
+template <int U>
+__device__ __forceinline__ void pack_span(const PackArgs& a, uint32_t p,
+                                          uint64_t v0, uint64_t v1,
                                           uint8_t* st) {
-  constexpr int kSpan = kWarp * U;
-  const Pos n = static_cast<Pos>(a.n);
-  const Pos L = static_cast<Pos>(a.L);
+  constexpr uint32_t kSpan = kWarp * U;
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t n = a.n, L = a.L;
   const bool active = p < n;
   int b = 0;
-  Pos start = 0, end = 0;  // this lane's payload bytes [start, end)
+  uint32_t start = 0, end = 0;  // this lane's payload bytes [start, end)
   if (active) {
-    Pos f;
-    if (sizeof(Pos) == 4)
-      f = static_cast<Pos>(__umul64hi(static_cast<uint64_t>(p), a.recip));
-    else
-      f = p / L;
+    const uint32_t f =
+        static_cast<uint32_t>(__umul64hi(uint64_t(p), a.recip));
     b = a.offs != nullptr ? min(int(a.bits[f]), 8) : a.fb;
-    const Pos base = a.offs != nullptr ? static_cast<Pos>(a.offs[f])
-                                       : f * (L / 8 * a.fb);
-    const Pos nbytes = frame_bytes(b, frame_count(f, n, L));
-    const Pos q = (p - f * L) / 8 * b;
+    const uint32_t base = a.offs != nullptr
+                              ? static_cast<uint32_t>(a.offs[f])
+                              : f * (L / 8 * a.fb);
+    const uint32_t rest = n - f * L;
+    const uint32_t nbytes =
+        static_cast<uint32_t>(frame_bytes(b, rest < L ? rest : L));
+    const uint32_t q = (p - f * L) / 8 * b;
     start = base + q;
     end = base + (q + U / 8 * b < nbytes ? q + U / 8 * b : nbytes);
   }
@@ -321,52 +322,48 @@ __device__ __forceinline__ void pack_span(const PackArgs& a, Pos p,
   const int nb = static_cast<int>(end - start);
 
   const int last = 31 - __clz(__ballot_sync(kFullMask, active));
-  const Pos span_lo = __shfl_sync(kFullMask, start, 0);
-  const Pos span_hi = __shfl_sync(kFullMask, end, last);
-  const Pos next = __shfl_down_sync(kFullMask, start, 1);
-  const bool joined = __all_sync(kFullMask, lane >= last || end == next);
-  if (joined && span_hi >= span_lo && span_hi - span_lo <= Pos(kSpan)) {
-    const int phase = static_cast<int>(
-        (reinterpret_cast<uintptr_t>(a.values) + span_lo) & 15);
+  const uint32_t span_lo = __shfl_sync(kFullMask, start, 0);
+  const uint32_t span_hi = __shfl_sync(kFullMask, end, last);
+  const int phase = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(a.values) + span_lo) & 15);
+  if (start - span_lo + nb <= kSpan)
     store_bytes(st + phase + (start - span_lo), lo, hi, nb);
-    __syncwarp();
-    const int run = static_cast<int>(span_hi - span_lo);
-    const int head = min(run, (16 - phase) & 15);
-    const int body = (run - head) / 16;
-    const int tail = run - head - 16 * body;
-    uint8_t* dst = a.values + span_lo;
-    if (lane < head) dst[lane] = st[phase + lane];
-    if (lane < body)
-      reinterpret_cast<uint4*>(dst + head)[lane] =
-          reinterpret_cast<const uint4*>(st + phase + head)[lane];
-    if (lane < tail)
-      dst[head + 16 * body + lane] = st[phase + head + 16 * body + lane];
-    __syncwarp();
-  } else if (nb > 0) {
-    store_bytes(a.values + start, lo, hi, nb);
-  }
+  __syncwarp();
+  const int run = static_cast<int>(min(span_hi - span_lo, kSpan));
+  const int head = min(run, (16 - phase) & 15);
+  const int body = (run - head) / 16;
+  const int tail = run - head - 16 * body;
+  uint8_t* dst = a.values + span_lo;
+  if (lane < head) dst[lane] = st[phase + lane];
+  if (lane < body)
+    reinterpret_cast<uint4*>(dst + head)[lane] =
+        reinterpret_cast<const uint4*>(st + phase + head)[lane];
+  if (lane < tail)
+    dst[head + 16 * body + lane] = st[phase + head + 16 * body + lane];
+  __syncwarp();
 }
 
 // Two spans a step, both loaded before either is packed, so that a lane
 // keeps two 16-byte loads in flight.
-template <int U, typename Pos>
-__global__ void __launch_bounds__(kPackThreads)
+template <int U>
+__global__ void __launch_bounds__(kPackThreads, kPackBlocksPerSm)
 pack_kernel(const PackArgs a) {
-  constexpr int kSpan = kWarp * U;
+  constexpr uint32_t kSpan = kWarp * U;
   __shared__ __align__(16) uint8_t stage[kPackWarps][kPackStage];
   const int lane = threadIdx.x % kWarp;
   uint8_t* st = stage[threadIdx.x / kWarp];
-  const int64_t spans = (a.n + kSpan - 1) / kSpan;
-  const int64_t stride = warp_stride();
-  for (int64_t sp = global_warp(); sp < spans; sp += 2 * stride) {
+  const uint32_t spans = (a.n + kSpan - 1) / kSpan;
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  for (uint32_t sp = static_cast<uint32_t>(global_warp()); sp < spans;
+       sp += 2 * stride) {
     const bool second = sp + stride < spans;
-    const Pos p0 = static_cast<Pos>(sp * kSpan + lane * U);
-    const Pos p1 = static_cast<Pos>((sp + stride) * kSpan + lane * U);
+    const uint32_t p0 = sp * kSpan + lane * U;
+    const uint32_t p1 = (sp + stride) * kSpan + lane * U;
     uint64_t x0, x1, y0, y1;
     load_group<U>(a, p0, x0, x1);
     if (second) load_group<U>(a, p1, y0, y1);
-    pack_span<U>(a, p0, x0, x1, lane, st);
-    if (second) pack_span<U>(a, p1, y0, y1, lane, st);
+    pack_span<U>(a, p0, x0, x1, st);
+    if (second) pack_span<U>(a, p1, y0, y1, st);
   }
 }
 
@@ -423,39 +420,20 @@ bool bad_geometry(int64_t n, int64_t L) {
   return n < 0 || L <= 0 || L % 8 != 0;
 }
 
-// Blocks of `kernel` (at `threads` a block) the card holds at once, into
-// *blocks; kept per device and kernel after the first query.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, int device,
-                            int* cache, int* blocks) {
-  if (device >= 0 && device < 64 && cache[device] > 0) {
-    *blocks = cache[device];
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
+// The grid holds the blocks that the card runs at once (__launch_bounds__
+// keeps kPackBlocksPerSm resident), fewer for a short stream.
+template <int U>
+cudaError_t launch_pack(const PackArgs& a, int device, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
-  if (err != cudaSuccess) return err;
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (device >= 0 && device < 64) cache[device] = *blocks;
-  return cudaSuccess;
-}
-
-template <int U, typename Pos>
-cudaError_t launch_pack(const PackArgs& a, int device, cudaStream_t stream) {
-  static int cache[64];
-  int resident = 0;
-  const cudaError_t err = resident_blocks(pack_kernel<U, Pos>, kPackThreads,
-                                          device, cache, &resident);
-  if (err != cudaSuccess) return err;
-  const int64_t spans = (a.n + kWarp * U - 1) / (kWarp * U);
+  const int64_t spans = (int64_t(a.n) + kWarp * U - 1) / (kWarp * U);
   const int64_t blocks = (spans + kPackWarps - 1) / kPackWarps;
-  pack_kernel<U, Pos><<<static_cast<unsigned>(blocks < resident ? blocks
-                                                                : resident),
-                        kPackThreads, 0, stream>>>(a);
+  const int64_t resident = int64_t(sms) * kPackBlocksPerSm;
+  pack_kernel<U><<<static_cast<unsigned>(blocks < resident ? blocks
+                                                           : resident),
+                   kPackThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -510,26 +488,25 @@ FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,
                        const void* bits, const void* offs, int fb,
                        void* values, int device, void* stream) {
   const bool uniform = offs == nullptr;
-  if (bad_geometry(n, frame_length) ||
+  if (bad_geometry(n, frame_length) || n > kPackMaxBytes ||
       reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
       (uniform ? (fb < 1 || fb > 8) : (fb != 0 || bits == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
-  const PackArgs a{static_cast<const uint8_t*>(data), n, frame_length,
-                   UINT64_MAX / static_cast<uint64_t>(frame_length) + 1,
+  // A frame at least as long as the stream is the whole stream: any L ≥ n
+  // packs the same bytes, so take one that fits 32 bits.
+  const int64_t L = frame_length < n ? frame_length : (n + 15) / 16 * 16;
+  const PackArgs a{static_cast<const uint8_t*>(data),
+                   static_cast<uint32_t>(n), static_cast<uint32_t>(L),
+                   UINT64_MAX / static_cast<uint64_t>(L) + 1,
                    static_cast<const uint8_t*>(bits),
                    static_cast<const int64_t*>(offs), fb,
                    static_cast<uint8_t*>(values)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 32-bit positions hold every offset and count·b of such a stream
-  const bool narrow = n < (int64_t(1) << 32) && frame_length < (1 << 28);
-  if (frame_length % 16 == 0)
-    return narrow ? launch_pack<16, uint32_t>(a, device, s)
-                  : launch_pack<16, int64_t>(a, device, s);
-  return narrow ? launch_pack<8, uint32_t>(a, device, s)
-                : launch_pack<8, int64_t>(a, device, s);
+  return L % 16 == 0 ? launch_pack<16>(a, device, s)
+                     : launch_pack<8>(a, device, s);
 }
 
 FLRL_API int flrl_unpack(const void* values, int64_t values_size, int64_t n,

@@ -29,24 +29,26 @@ constexpr int kOffsetsThreads = 256;
 constexpr int kOffsetsItems = 16;
 constexpr int64_t kOffsetsTile = int64_t(kOffsetsThreads) * kOffsetsItems;
 
-// Pack: 8 warps a block; a warp span is 32 lanes × U input bytes (U = 16,
-// or 8 where L % 16 != 0) and stages at most 32·U payload bytes, behind up
-// to 15 bytes that align the span to its 16-byte phase in device memory.
+// Pack: 8 warps a block, 8 blocks an SM (32 registers a thread); a warp
+// span is 32 lanes × U input bytes (U = 16, or 8 where L % 16 != 0) and
+// stages at most 32·U payload bytes, behind up to 15 bytes that align the
+// span to its 16-byte phase in device memory.  Positions are 32-bit, so a
+// launch packs at most 2^31 bytes.
 constexpr int kPackWarps = 8;
 constexpr int kPackThreads = kPackWarps * kWarp;
+constexpr int kPackBlocksPerSm = 8;
 constexpr int kPackStage = kWarp * 16 + 16;
+constexpr int64_t kPackMaxBytes = int64_t(1) << 31;
 
-// Number of real bytes in frame f of an n-byte stream cut into L-byte frames
-// (T: int64_t, or uint32_t where every position fits).
-template <typename T>
-__host__ __device__ inline T frame_count(T f, T n, T L) {
-  const T rest = n - f * L;
+// Number of real bytes in frame f of an n-byte stream cut into L-byte frames.
+__host__ __device__ inline int64_t frame_count(int64_t f, int64_t n,
+                                               int64_t L) {
+  const int64_t rest = n - f * L;
   return rest < L ? rest : L;
 }
 
 // Payload bytes of a frame of `count` values at width b: ceil(count·b/8).
-template <typename T>
-__host__ __device__ inline T frame_bytes(int b, T count) {
+__host__ __device__ inline int64_t frame_bytes(int b, int64_t count) {
   return (count * b + 7) / 8;
 }
 
@@ -67,7 +69,8 @@ FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
                                 int64_t frame_length, void* offs,
                                 void* scratch, int device, void* stream);
 
-// Pack n bytes (`data` 16-byte aligned) into the container payload.
+// Pack n ≤ kPackMaxBytes bytes (`data` 16-byte aligned) into the container
+// payload.
 // General mode: widths `bits` and offsets `offs` (fb = 0).  Uniform mode:
 // fb in 1..8, bits and offs null, frame f at the static offset f·L·fb/8.
 FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,

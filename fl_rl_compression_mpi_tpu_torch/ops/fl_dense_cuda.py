@@ -308,7 +308,7 @@ def pack(data: torch.Tensor, frame_length: int = FRAME_LENGTH,
     """Container payload u8[V] of ``data`` u8[n].  General mode: the
     frames' ``bits`` and ``offs``.  Uniform mode: ``fb`` alone, every
     frame at width fb (a frame of another width yields junk — check the
-    widths flag first)."""
+    widths flag first).  The kernel takes at most 2^31 bytes a call."""
     check_frame_length(frame_length)
     _check(data, "data", torch.uint8)
     n = data.numel()
