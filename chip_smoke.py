@@ -24,9 +24,16 @@ Phases, each printing a line and failing the run on any error:
               same way: few runs, runs of 300, dense bytes (R = n), one long
               zero run, runs of 254, 255, 256 and 510, constant tiles
               between varying regions, tails
-              n mod 4096 in {0, 1, 77, 4095}, a 64 MiB mixed stream, chunk
-              carries (mid-piece, at a cap boundary, on a new value), zero
-              counts; timed on the 512 MiB rl_mixed stream.
+              n mod 4096 in {0, 1, 77, 4095}, a 64 MiB mixed stream; the
+              encode at 1, 31, 32, 33 and 1024 tiles, a run of one byte
+              over 40 tiles inside a non-constant chunk, twenty calls in a
+              row on reused memory, one launch of exactly 2^30 bytes
+              (against rl-cpu), the refusal of 2^30 + 16 bytes, chunk
+              carries (mid-piece, at a cap boundary, on a new value, d0 in
+              {254, 255, 256, 2^31 + 7}, a chunk with no natural start);
+              the expand on output sizes 1..33, runs of 1, 15, 16, 17 and
+              255, tile outputs at every 16-byte phase, zero counts; timed
+              on the 512 MiB rl_mixed stream.
               Then the FL field kernels (base and pack-2 mode) the same way:
               widths 1..8, random widths, tails n mod L in {0, 1, 77, L-1},
               L in {8, 24, 64, 128, 512, 1024}, pack-2 at tile_r 16 and 2048
@@ -134,10 +141,7 @@ REPLACES = {
 RL_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/rl.cu"
 RL_PALLAS = "fl_rl_compression_mpi_tpu/ops/rl_pallas.py"
 RL_REPLACES = {
-    "rl_flags": f"{RL_PALLAS}:302",
-    "rl_scan": f"{RL_PALLAS}:302",
-    "rl_compact": f"{RL_PALLAS}:302",
-    "rl_counts": f"{RL_PALLAS}:302",
+    "rl_encode": f"{RL_PALLAS}:302",
     "rl_offsets": f"{RL_PALLAS}:579",
     "rl_expand": f"{RL_PALLAS}:579",
 }
@@ -991,24 +995,19 @@ def rl_mixed_stream(rng, part: int | None = None) -> np.ndarray:
                            np.zeros(part, np.uint8)])
 
 
-def check_rl_encode(x: torch.Tensor, prev: int = -1, d0: int = 0) -> dict:
-    """The four encode kernels on one chunk, each against its plain
-    version on the kernel's own inputs; returns their outputs."""
-    n = x.numel()
-    summ = rk.piece_tiles(x, prev)
-    compare("rl_flags", summ, rk.piece_tiles_ref(x, prev))
-    tstart, offs = rk.piece_offsets(summ, n, d0)
-    want_t, want_o = rk.piece_offsets_ref(summ, n, d0)
-    compare("rl_scan", tstart, want_t)
-    compare("rl_scan", offs, want_o)
-    values, starts8 = rk.compact(x, prev, tstart, offs)
-    want_v, want_s = rk.compact_ref(x, prev, tstart, offs)
-    compare("rl_compact", values, want_v)
-    compare("rl_compact", starts8, want_s)
-    counts = rk.piece_counts(starts8, n)
-    compare("rl_counts", counts, rk.piece_counts_ref(starts8, n))
-    return {"summ": summ, "tstart": tstart, "offs": offs, "values": values,
-            "starts8": starts8, "counts": counts}
+def check_rl_encode(x: torch.Tensor, prev: int = -1, d0: int = 0,
+                    want: tuple | None = None) -> dict:
+    """The encode kernel on one chunk against its plain version (``want``,
+    if the caller has it); returns its outputs."""
+    values, counts, run_start = rk.encode_chunk(x, prev, d0)
+    want_v, want_c, want_s = (rk.encode_chunk_ref(x, prev, d0)
+                              if want is None else want)
+    compare("rl_encode", values, want_v)
+    compare("rl_encode", counts, want_c)
+    if run_start != want_s:
+        raise AssertionError(f"rl_encode: run start {run_start} != "
+                             f"{want_s} (prev {prev}, d0 {d0})")
+    return {"values": values, "counts": counts, "run_start": run_start}
 
 
 def check_rl_decode(counts: torch.Tensor, values: torch.Tensor):
@@ -1033,7 +1032,7 @@ def check_rl(data: np.ndarray) -> None:
         raise AssertionError("RL kernel container differs from rl-cpu")
 
 
-def phase_rl_kernels(rng) -> int:
+def phase_rl_kernels(rng, classes_rng) -> int:
     tile = rk.TILE
     alt = np.arange(4096, dtype=np.uint8) % 2
     cases = [
@@ -1053,13 +1052,17 @@ def phase_rl_kernels(rng) -> int:
     ]
     for data in cases:
         check_rl(data)
+    cases = len(cases)
     # chunk carries: byte 0 continues a run of 5 mid-piece, at a cap
-    # boundary, and starts a new value
+    # boundary, and starts a new value; d0 only counts mod 255
     data = np.concatenate([np.full(600, 5, np.uint8),
                            runs_stream(rng, 3 * MIB, 1, 600, 256)])
     x = torch.from_numpy(data).cuda()
-    for prev, d0 in ((5, 100), (5, 255), (5, 510), (6, 40)):
+    for prev, d0 in ((5, 100), (5, 255), (5, 510), (6, 40), (5, 254),
+                     (5, 256), (5, 2**31 + 7)):
         check_rl_encode(x, prev, d0)
+        check_rl_encode(x[:600], prev, d0)   # no natural start: -d0 back
+        cases += 2
     # zero counts (a corrupt but loadable container) take no output
     counts = rng.integers(0, 256, 4 * MIB).astype(np.uint8)
     counts[::3] = 0
@@ -1069,7 +1072,107 @@ def phase_rl_kernels(rng) -> int:
                              torch.from_numpy(values).cuda())
     if not np.array_equal(out.cpu().numpy(), np.repeat(values, counts)):
         raise AssertionError("zero-count decode differs from np.repeat")
-    return len(cases) + 2
+    # the classes below draw from a generator of their own, so that the
+    # streams drawn from `rng` after this phase stay the bytes earlier runs
+    # of this script timed
+    return (cases + 1 + phase_rl_encode_classes(classes_rng)
+            + phase_rl_expand_classes(classes_rng))
+
+
+ENCODE_TILE_COUNTS = (1, 31, 32, 33, 1024)
+ENCODE_MAX_BYTES = 1 << 30       # kEncodeMaxBytes in csrc/rl.cuh
+
+
+def phase_rl_encode_classes(rng) -> int:
+    """The encode kernel at tile counts around its look-back window, a run
+    of one byte over more than 32 tiles inside a non-constant chunk, twenty
+    calls in a row on reused memory (each result freed before the next),
+    one launch of ENCODE_MAX_BYTES (2^30) bytes, against rl-cpu, and the
+    refusal of 16 bytes more."""
+    T = rk.ENCODE_TILE
+    cases = 0
+    for tiles in ENCODE_TILE_COUNTS:
+        for tail in (0, 5):
+            x = torch.from_numpy(
+                runs_stream(rng, tiles * T - tail, 1, 600, 256)).cuda()
+            check_rl_encode(x)
+            cases += 1
+    data = np.concatenate([rng.integers(0, 9, 700, np.uint8),
+                           np.full(40 * T + 11, 42, np.uint8),
+                           rng.integers(0, 9, 900, np.uint8)])
+    check_rl_encode(torch.from_numpy(data).cuda())
+    x = torch.from_numpy(rl_mixed_stream(rng, 16 * MIB)).cuda()
+    streams = [torch.roll(x, 4099 * i) for i in range(20)]
+    wants = [rk.encode_chunk_ref(s) for s in streams]
+    for s, want in zip(streams, wants):
+        check_rl_encode(s, want=want)
+    del x, streams, wants
+    # 2^30 bytes, the chunk walk's largest launch: the kernel's container is
+    # rl-cpu's of the same bytes
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    runs = torch.randint(1, 600, (ENCODE_MAX_BYTES // 256,), generator=g,
+                         device=DEVICE)
+    vals = torch.randint(0, 256, (runs.numel(),), generator=g,
+                         device=DEVICE).to(torch.uint8)
+    big = torch.repeat_interleave(vals, runs)[:ENCODE_MAX_BYTES]
+    if big.numel() != ENCODE_MAX_BYTES:
+        raise AssertionError("the 2^30-byte stream came out short")
+    values, counts, _ = rk.encode_chunk(big)
+    ref = CODECS["rl-cpu"].compress(big.cpu().numpy())
+    if not (np.array_equal(counts.cpu().numpy(), ref.counts)
+            and np.array_equal(values.cpu().numpy(), ref.values)):
+        raise AssertionError("rl_encode of 2^30 bytes differs from rl-cpu")
+    del big, values, counts, runs, vals
+    # the kernel's 32-bit positions: more than 2^30 bytes must raise
+    over = torch.zeros(ENCODE_MAX_BYTES + 16, dtype=torch.uint8,
+                       device=DEVICE)
+    try:
+        rk.encode_chunk(over)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("flrl_rl_encode took more than 2^30 bytes")
+    del over
+    torch.cuda.empty_cache()
+    return cases + 23
+
+
+def phase_rl_expand_classes(rng) -> int:
+    """The expand kernel on output sizes 1..33, runs of 1, 15, 16, 17 and
+    255, runs of 1..8, 5..6 and 6..7 (tile outputs around the size the
+    kernel stages in shared memory), tiles whose outputs start at every
+    16-byte phase, and zero counts in short runs, each against np.repeat
+    too."""
+    classes = []
+    for size in range(1, 34):
+        cuts = (np.sort(rng.choice(np.arange(1, size), min(size - 1, 5),
+                                   replace=False)) if size > 1 else [])
+        classes.append(np.diff(np.concatenate([[0], cuts, [size]])))
+    for length in (1, 15, 16, 17, 255):
+        classes.append(np.full(3 * rk.TILE + 100, length))
+    # tiles whose output fits the expand's shared stage, near its end, and
+    # just past it
+    for lo, hi in ((1, 8), (5, 6), (6, 7)):
+        classes.append(rng.integers(lo, hi + 1, 5 * rk.TILE + 77))
+    # tile t's output starts at phase t mod 16: tiles of 4097 bytes (staged
+    # in shared memory) and of 65537 bytes (filled by 16-byte groups)
+    for length in (1, 16):
+        phased = np.full(17 * rk.TILE, length, np.int64)
+        phased[::rk.TILE] = length + 1
+        classes.append(phased)
+    # zero counts in staged tiles (the zero-count case of the 16-byte
+    # groups is phase_rl_kernels')
+    zeros = rng.integers(0, 3, 5 * rk.TILE + 9)
+    zeros[-1] = 0
+    classes.append(zeros)
+    for counts in classes:
+        counts = counts.astype(np.uint8)
+        values = rng.integers(0, 256, counts.size, np.uint8)
+        _, out = check_rl_decode(torch.from_numpy(counts).cuda(),
+                                 torch.from_numpy(values).cuda())
+        if not np.array_equal(out.cpu().numpy(), np.repeat(values, counts)):
+            raise AssertionError("rl_expand differs from np.repeat")
+    return len(classes)
 
 
 def time_rl_kernels(data: np.ndarray) -> dict:
@@ -1078,30 +1181,18 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     x = torch.from_numpy(data).cuda()
     n = x.numel()
     e = check_rl_encode(x)
-    offs, _ = check_rl_decode(e["counts"], e["values"])
-    summ, tstart, eoffs = e["summ"], e["tstart"], e["offs"]
-    starts8, counts, values = e["starts8"], e["counts"], e["values"]
+    counts, values = e["counts"], e["values"]
+    offs, _ = check_rl_decode(counts, values)
     timings = {
-        "rl_flags": (kernel_ms("rl_flags", lambda: rk.piece_tiles(x)),
-                     cuda_ms(lambda: rk.piece_tiles_ref(x))),
-        "rl_scan": (kernel_ms("rl_scan", lambda: rk.piece_offsets(summ, n)),
-                    cuda_ms(lambda: rk.piece_offsets_ref(summ, n))),
-        "rl_compact": (
-            kernel_ms("rl_compact", lambda: rk.compact(x, -1, tstart, eoffs)),
-            cuda_ms(lambda: rk.compact_ref(x, -1, tstart, eoffs))),
-        "rl_counts": (kernel_ms("rl_counts",
-                                lambda: rk.piece_counts(starts8, n)),
-                      cuda_ms(lambda: rk.piece_counts_ref(starts8, n))),
+        "rl_encode": (kernel_ms("rl_encode", lambda: rk.encode_chunk(x)),
+                      cuda_ms(lambda: rk.encode_chunk_ref(x))),
         "rl_offsets": (kernel_ms("rl_offsets", lambda: rk.run_offsets(counts)),
                        cuda_ms(lambda: rk.run_offsets_ref(counts))),
         "rl_expand": (
             kernel_ms("rl_expand", lambda: rk.expand(counts, values, offs, n)),
             cuda_ms(lambda: rk.expand_ref(counts, values, offs, n))),
     }
-    moved("rl_flags", x, summ)
-    moved("rl_scan", summ, tstart, eoffs)
-    moved("rl_compact", x, tstart, eoffs, values, starts8)
-    moved("rl_counts", starts8, counts)
+    moved("rl_encode", x, values, counts)
     moved("rl_offsets", counts, offs)
     moved("rl_expand", counts, values, offs, x)
     library_ms("rl_offsets",
@@ -1110,9 +1201,32 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     library_ms("rl_expand", lambda: torch.repeat_interleave(
         values, counts64, output_size=n))
     say(f"[kernels] rl_mixed: {n} bytes, {counts.numel()} pieces")
-    del x, e, offs, summ, tstart, eoffs, starts8, counts, values, counts64
+    del e, offs, counts, values, counts64
+    time_rl_parts(x)
+    del x
     torch.cuda.empty_cache()
     return timings
+
+
+RL_PARTS = ("runs of 1..8", "runs of 200..900", "random bytes", "zeros")
+
+
+def time_rl_parts(x: torch.Tensor) -> None:
+    """The encode and expand on each quarter of rl_mixed (rl_mixed_stream's
+    parts) alone, a launch over a run of RUN calls, beside each part's
+    bound: where the time of the whole goes."""
+    part = x.numel() // len(RL_PARTS)
+    for i, name in enumerate(RL_PARTS):
+        xp = x[i * part:(i + 1) * part]
+        values, counts, _ = rk.encode_chunk(xp)
+        offs = rk.run_offsets(counts)
+        bound = (part + 2 * counts.numel()) / HBM_BYTES_PER_S * 1e3
+        enc = launch_ms(lambda: rk.encode_chunk(xp))
+        exp = launch_ms(lambda: rk.expand(counts, values, offs, part))
+        say(f"[kernels] rl_mixed part {i} ({name}): {counts.numel()} pieces; "
+            f"rl_encode {enc:.4f} ms, rl_expand {exp:.4f} ms a launch over a "
+            f"run of {RUN}, bound {bound:.4f} ms each")
+        del values, counts, offs
 
 
 def phase_rl_goldens(tmp: str) -> None:
@@ -1481,7 +1595,7 @@ def main() -> int:
     t_fields = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cases = phase_rl_kernels(rng)
+    cases = phase_rl_kernels(rng, classes_rng)
     say(f"[kernels] {cases} RL inputs: kernels equal their plain versions "
         f"byte for byte")
     rl_mixed = rl_mixed_stream(rng)

@@ -17,12 +17,15 @@ import numpy as np
 
 from . import container
 from .fileio import load_file, save_file
-from .models.registry import CODECS, resolve
+from .models.registry import ALIASES, CODECS, resolve
 
 
 def methods() -> dict[str, str]:
-    """Available method names → description."""
-    return {name: c.description for name, c in CODECS.items()}
+    """Available method names (the reference aliases included) →
+    description."""
+    out = {name: c.description for name, c in CODECS.items()}
+    out.update({a: f"alias of {t}" for a, t in ALIASES.items()})
+    return out
 
 
 def _as_u8(data) -> np.ndarray:

@@ -3,8 +3,8 @@
 //
 // Conventions as in fl_dense.cuh: every launcher runs on the stream it is
 // given, allocates nothing, and returns cudaGetLastError() (0 on success).
-// Positions and offsets are int64.  Encode tiles are kScanTile (4096)
-// bytes, decode tiles kScanTile runs; ops/rl_cuda.py's TILE must match.
+// Encode tiles are kEncodeTile (16384) bytes, decode tiles kScanTile (4096)
+// runs; ops/rl_cuda.py's ENCODE_TILE and TILE must match.
 //
 // Encode of a chunk x[n] with its carry-in: `prev` is the previous chunk's
 // last byte (-1 for none) and `d0` the distance of x[0] from the start of
@@ -20,31 +20,34 @@
 #define FLRL_API extern "C" __attribute__((visibility("default")))
 #endif
 
-// summ[T][3], T = ceil(n / 4096): per tile, its first natural run start
-// (the tile's end if none), its last natural run start (INT64_MIN if none)
-// and the number of pieces at or after its first natural run start.
-FLRL_API int flrl_rl_piece_tiles(const void* x, int64_t n, int prev,
-                                 void* summ, int device, void* stream);
+namespace flrl {
 
-// From summ: tstart[0..T], the start of the natural run in progress at
-// each tile's first byte (tstart[T]: that of the chunk's last byte, the
-// carry-out), and offs[0..T], the exclusive scan of pieces per tile
-// (offs[T] = R, the chunk's piece count).
-FLRL_API int flrl_rl_piece_offsets(const void* summ, int64_t n, int64_t d0,
-                                   void* tstart, void* offs, int device,
-                                   void* stream);
+// Encode: a block takes a tile of 256 threads × 64 bytes, four 16-byte loads
+// a thread.  Positions are 32-bit, so a launch takes at most 2^30 bytes
+// (the chunk walk's 1 GiB chunk).
+constexpr int kEncodeThreads = 256;
+constexpr int kEncodeItems = 64;
+constexpr int kEncodeTile = kEncodeThreads * kEncodeItems;
+constexpr int64_t kEncodeMaxBytes = int64_t(1) << 30;
 
-// values[R] and starts8[R] (each piece's start position, low byte).
-FLRL_API int flrl_rl_compact(const void* x, int64_t n, int prev,
-                             const void* tstart, const void* offs,
-                             void* values, void* starts8, int device,
-                             void* stream);
+// Expand: a block takes a tile of 256 threads × 16 runs (kScanTile), one
+// 16-byte load of counts and one of values a thread.
+constexpr int kExpandThreads = 256;
+constexpr int kExpandRuns = 16;
 
-// counts[j] = starts8[j+1] - starts8[j] (mod 256) for j < R-1, and
-// counts[R-1] = n - start of the last piece (mod 256): the chunk's last
-// piece measured to the chunk's end.  Exact: every piece is 1..255 long.
-FLRL_API int flrl_rl_counts(const void* starts8, int64_t R, int64_t n,
-                            void* counts, int device, void* stream);
+}  // namespace flrl
+
+// One launch encodes the chunk: values[R] (each piece's byte) and
+// counts[R] (each piece's length; the last measured to the chunk's end),
+// meta[0] = R and meta[1] = the start of the natural run the chunk's last
+// byte belongs to, or INT64_MIN when that run began before the chunk.
+// x, values and counts are 16-byte aligned and hold n ≤ kEncodeMaxBytes
+// bytes (R ≤ n); meta holds 2 + ceil(n / kEncodeTile) + 1 int64 words, the
+// last ones the tiles' status words and the ticket, which the launcher
+// clears on `stream` before the kernel runs.  n = 0 launches nothing.
+FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
+                            void* values, void* counts, void* meta,
+                            int device, void* stream);
 
 // offs[0..T], T = ceil(R / 4096): exclusive scan of the output bytes of
 // each tile of runs; offs[T] = sum of counts.
@@ -52,6 +55,7 @@ FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, void* offs,
                                  int device, void* stream);
 
 // out[n] = values[j] repeated counts[j] times, j = 0..R-1 (n = offs[T]).
+// counts, values and out are 16-byte aligned.
 FLRL_API int flrl_rl_expand(const void* counts, const void* values,
                             int64_t R, const void* offs, int64_t n,
                             void* out, int device, void* stream);

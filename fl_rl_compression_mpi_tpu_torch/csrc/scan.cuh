@@ -4,13 +4,15 @@
 // pieces (FL frames, RL pieces) needs a scan across blocks.  Two kinds live
 // here, both in int64 (a 1 GiB chunk has up to 2^30 items):
 //
-// - Two-level (the RL kernels): each block scans its own tile with
+// - Two-level (flrl_rl_run_offsets): each block scans its own tile with
 //   block_exclusive_scan and writes the tile's total, one block scans the
 //   totals (scan_carries_kernel), and every item reads its tile's carry.
 // - Single-pass with decoupled look-back (flrl_frame_offsets, the frame
 //   placement of fl_dense_pallas.py:732 and :1074, whose sequential grid
 //   carries a cursor; Merrill & Garland, "Single-pass Parallel Prefix Scan
-//   with Decoupled Look-back", NVIDIA 2016).  Bound by bytes: it reads F
+//   with Decoupled Look-back", NVIDIA 2016), over a sum or, templated on
+//   its operator, over the run-start operator of flrl_rl_encode (rl.cu).
+//   Bound by bytes: it reads F
 //   widths and writes 8·(F+1) bytes of offsets, each once, where the
 //   two-level scan writes, reads back and writes again the offsets.  A
 //   block takes its tile by ticket (take_tile), scans it,
@@ -43,33 +45,13 @@ constexpr uint64_t kStatusAggregate = uint64_t(1) << 62;  // tile's own sum
 constexpr uint64_t kStatusPrefix = uint64_t(2) << 62;     // inclusive prefix
 constexpr uint64_t kStatusValue = (uint64_t(1) << 62) - 1;
 
-struct Sum {
-  __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
-    return a + b;
-  }
-};
-
-struct Max {
-  __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
-    return a > b ? a : b;
-  }
-};
-
-struct Min {
-  __device__ __forceinline__ int64_t operator()(int64_t a, int64_t b) const {
-    return a < b ? a : b;
-  }
-};
-
 namespace {
 
-template <typename Op = Sum>
-__device__ __forceinline__ int64_t warp_inclusive_scan(int64_t x, int lane,
-                                                       Op op = Op()) {
+__device__ __forceinline__ int64_t warp_inclusive_scan(int64_t x, int lane) {
 #pragma unroll
   for (int d = 1; d < kWarp; d <<= 1) {
     const int64_t y = __shfl_up_sync(kFullMask, x, d);
-    if (lane >= d) x = op(x, y);
+    if (lane >= d) x += y;
   }
   return x;
 }
@@ -81,39 +63,28 @@ __device__ __forceinline__ int64_t warp_sum(int64_t x) {
   return x;
 }
 
-// Exclusive scan under `op` (identity `id`) of one value per thread across
-// a block of kThreads; *total receives the whole block's reduction.
-// Every thread of the block must call it.  Safe to call repeatedly in a
-// loop.
-template <int kThreads = kScanThreads, typename Op>
-__device__ int64_t block_exclusive_scan(int64_t v, int64_t id, Op op,
-                                        int64_t* total) {
+// Exclusive sum of one value per thread across a block of kThreads;
+// *total receives the whole block's sum.  Every thread of the block must
+// call it.  Safe to call repeatedly in a loop.
+template <int kThreads = kScanThreads>
+__device__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
   constexpr int kWarps = kThreads / kWarp;
   __shared__ int64_t warp_sums[kWarps];
   const int lane = threadIdx.x % kWarp;
   const int w = threadIdx.x / kWarp;
-  const int64_t inc = warp_inclusive_scan(v, lane, op);
-  int64_t exc = __shfl_up_sync(kFullMask, inc, 1);
-  if (lane == 0) exc = id;
+  const int64_t inc = warp_inclusive_scan(v, lane);
   if (lane == kWarp - 1) warp_sums[w] = inc;
   __syncthreads();
   if (w == 0) {
-    int64_t s = lane < kWarps ? warp_sums[lane] : id;
-    s = warp_inclusive_scan(s, lane, op);
+    int64_t s = lane < kWarps ? warp_sums[lane] : 0;
+    s = warp_inclusive_scan(s, lane);
     if (lane < kWarps) warp_sums[lane] = s;
   }
   __syncthreads();
-  const int64_t prefix = w > 0 ? warp_sums[w - 1] : id;
+  const int64_t prefix = w > 0 ? warp_sums[w - 1] : 0;
   *total = warp_sums[kWarps - 1];
   __syncthreads();
-  return op(prefix, exc);
-}
-
-// The sum scan the placement passes use.
-template <int kThreads = kScanThreads>
-__device__ __forceinline__ int64_t block_exclusive_scan(int64_t v,
-                                                        int64_t* total) {
-  return block_exclusive_scan<kThreads>(v, 0, Sum(), total);
+  return prefix + inc - v;
 }
 
 // One block: carries[t] <- exclusive scan of the tile totals; *end <- sum.
@@ -157,12 +128,31 @@ __device__ __forceinline__ void publish_status(uint64_t* status,
       flag | (static_cast<uint64_t>(value) & kStatusValue);
 }
 
+// The summation the look-back folds by default: a status value is a tile's
+// sum (aggregate) or the sum of every tile up to it (prefix).
+struct SumLookBack {
+  using T = int64_t;
+  __device__ __forceinline__ T identity() const { return 0; }
+  __device__ __forceinline__ T value(uint64_t s, int64_t) const {
+    return static_cast<int64_t>(s & kStatusValue);
+  }
+  __device__ __forceinline__ T fold(T x) const { return warp_sum(x); }
+  __device__ __forceinline__ T combine(T earlier, T later) const {
+    return earlier + later;
+  }
+};
+
 // Exclusive prefix of tile t >= 1, called by one whole warp: lane i reads
 // tile t-1-i's status word, the warp waits until every word up to the
-// nearest prefix is published, adds the aggregates and that prefix, or all
-// 32 aggregates and steps 32 tiles further back.
-__device__ int64_t look_back(const uint64_t* status, int64_t t, int lane) {
-  int64_t prefix = 0;
+// nearest prefix is published, folds the aggregates and that prefix, or all
+// 32 aggregates and steps 32 tiles further back.  `Op` reads a status word
+// of tile j (value), folds the warp's values in tile order, lane 31 the
+// earliest (fold, its result on every lane), and combines two folds of
+// adjacent ranges (combine); any associative operator will do.
+template <typename Op = SumLookBack>
+__device__ typename Op::T look_back(const uint64_t* status, int64_t t,
+                                    int lane, const Op op = Op()) {
+  typename Op::T prefix = op.identity();
   for (int64_t end = t;; end -= kWarp) {
     const int64_t j = end - 1 - lane;
     uint64_t s;
@@ -179,9 +169,9 @@ __device__ int64_t look_back(const uint64_t* status, int64_t t, int lane) {
       wanted = prefixes ? (prefixes & (0u - prefixes)) * 2u - 1u : kFullMask;
       if ((ready & wanted) == wanted) break;
     }
-    prefix += warp_sum((wanted >> lane) & 1u
-                           ? static_cast<int64_t>(s & kStatusValue)
-                           : 0);
+    prefix = op.combine(
+        op.fold((wanted >> lane) & 1u ? op.value(s, j) : op.identity()),
+        prefix);
     if (prefixes) return prefix;
   }
 }

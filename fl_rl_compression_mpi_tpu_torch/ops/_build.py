@@ -45,10 +45,7 @@ _SIGNATURES = {
                            _P]),
     "flrl_fields_encode": (_INT, [_P, _I64, _I64, _INT, _P, _P, _INT, _P]),
     "flrl_fields_decode": (_INT, [_P, _P, _I64, _I64, _INT, _P, _INT, _P]),
-    "flrl_rl_piece_tiles": (_INT, [_P, _I64, _INT, _P, _INT, _P]),
-    "flrl_rl_piece_offsets": (_INT, [_P, _I64, _I64, _P, _P, _INT, _P]),
-    "flrl_rl_compact": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _INT, _P]),
-    "flrl_rl_counts": (_INT, [_P, _I64, _I64, _P, _INT, _P]),
+    "flrl_rl_encode": (_INT, [_P, _I64, _INT, _I64, _P, _P, _P, _INT, _P]),
     "flrl_rl_run_offsets": (_INT, [_P, _I64, _P, _INT, _P]),
     "flrl_rl_expand": (_INT, [_P, _P, _I64, _P, _I64, _P, _INT, _P]),
     "flrl_const_encode": (_INT, [_P, _I64, _INT, _INT, _P, _P, _P, _INT,

@@ -4,18 +4,15 @@ Counterpart of ``fl_rl_compression_mpi_tpu/ops/rl_pallas.py``.  The
 kernels live in ``csrc/rl.cu``; their wrappers here are
 
 ==================  =================================================
-``piece_tiles``     per 4096-byte tile: first and last natural run
-                    start, pieces from the first one on
-``piece_offsets``   per tile: the run start it continues and its
-                    output offset; the piece count R and the carry-out
-``compact``         each piece's value and start byte
-``piece_counts``    counts from consecutive start bytes
+``encode_chunk``    one chunk → each piece's value and count, and the
+                    start of the natural run its last byte belongs to
+                    (one launch, one pass over the chunk)
 ``run_offsets``     per 4096-run tile: its output offset; the output size
 ``expand``          counts + values → bytes
 ==================  =================================================
 
-The first four replace ``rl_encode_pallas`` (+ ``rl_split_packed``), the
-last two ``_decode_impl`` behind ``rl_decode_pallas`` and
+The first replaces ``rl_encode_pallas`` (+ ``rl_split_packed``), the last
+two ``_decode_impl`` behind ``rl_decode_pallas`` and
 ``rl_decode_packed_pallas``.
 
 Encode works on one chunk of the stream with a carry-in from the chunk
@@ -41,14 +38,13 @@ import torch
 from .fl_dense_cuda import _aligned, _check, _launch, _on_cuda, _stream
 
 RUN_CAP = 255
-# Bytes of an encode tile and runs of a decode tile (kScanTile in
-# csrc/scan.cuh).
+# Bytes of an encode tile (kEncodeTile in csrc/rl.cuh) and runs of a decode
+# tile (kScanTile in csrc/scan.cuh).
+ENCODE_TILE = 16384
 TILE = 4096
-_NONE = torch.iinfo(torch.int64).min
-_NONE_HI = torch.iinfo(torch.int64).max
+_NONE = torch.iinfo(torch.int64).min   # meta[1]: no natural start in the chunk
 
-LAUNCHES = {"rl_flags": 0, "rl_scan": 0, "rl_compact": 0, "rl_counts": 0,
-            "rl_offsets": 0, "rl_expand": 0}
+LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0}
 
 
 def reset_launches() -> None:
@@ -56,13 +52,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _tiles(items: int) -> int:
-    return -(-items // TILE)
+def _tiles(items: int, tile: int = TILE) -> int:
+    return -(-items // tile)
 
 
-def _check_prev(prev: int) -> None:
+def _check_carry(prev: int, d0: int) -> None:
     if not -1 <= prev <= 255:
         raise ValueError(f"prev must be in -1..255, got {prev}")
+    if d0 < 0:
+        raise ValueError(f"d0 must be >= 0, got {d0}")
 
 
 # ---------------------------------------------------------------------------
@@ -84,62 +82,20 @@ def _pieces(x: torch.Tensor, prev: int, seed: int) -> torch.Tensor:
     return ((idx - start) % RUN_CAP == 0).nonzero().squeeze(1)
 
 
-def piece_tiles_ref(x: torch.Tensor, prev: int = -1) -> torch.Tensor:
-    """``summ i64[T, 3]``: per tile its first natural run start (the
-    tile's end if none), its last (INT64_MIN if none) and the pieces at
-    or after its first."""
+def encode_chunk_ref(x: torch.Tensor, prev: int = -1, d0: int = 0):
+    """``(values u8[R], counts u8[R], run_start)`` of the chunk ``x``
+    u8[n]: each piece's byte and length (the last measured to n), and the
+    start of the natural run x[n-1] belongs to, relative to the chunk
+    (-d0 when that run began before it)."""
     n = x.numel()
-    T = _tiles(n)
-    nat = torch.zeros(T * TILE, dtype=torch.bool, device=x.device)
-    nat[:n] = _natural(x, prev)
-    nat = nat.view(T, TILE)
-    pos = torch.arange(T * TILE, dtype=torch.int64,
-                       device=x.device).view(T, TILE)
-    ends = ((torch.arange(T, device=x.device) + 1) * TILE).clamp(max=n)
-    first = torch.minimum(torch.where(nat, pos, _NONE_HI).amin(1), ends)
-    last = torch.where(nat, pos, _NONE).amax(1)
-    local = torch.cummax(torch.where(nat, pos, -1), 1).values
-    after = ((local >= 0) & (pos < n)
-             & ((pos - local) % RUN_CAP == 0)).sum(1)
-    return torch.stack([first, last, after], 1)
-
-
-def piece_offsets_ref(summ: torch.Tensor, n: int, d0: int = 0):
-    """``(tstart i64[T+1], offs i64[T+1])`` from the tile summaries:
-    tstart[t] = the natural run start in progress at tile t's first byte
-    (tstart[T]: at the chunk's last byte); offs = exclusive scan of the
-    pieces per tile, offs[T] = R."""
-    first, last, after = summ.unbind(1)
-    T = summ.shape[0]
-    tstart = torch.cummax(torch.cat([last.new_tensor([-d0]), last]),
-                          0).values
-    s = tstart[:T]
-    b0 = torch.arange(T, dtype=torch.int64, device=summ.device) * TILE
-    caps = torch.where(first > b0,
-                       (first - 1 - s) // RUN_CAP - (b0 - 1 - s) // RUN_CAP,
-                       0)
-    offs = torch.zeros(T + 1, dtype=torch.int64, device=summ.device)
-    torch.cumsum(after + caps, 0, out=offs[1:])
-    return tstart, offs
-
-
-def compact_ref(x: torch.Tensor, prev: int, tstart: torch.Tensor,
-                offs: torch.Tensor):
-    """``(values u8[R], starts8 u8[R])``: each piece's byte and the low
-    byte of its start position."""
-    if x.numel() == 0:
+    if n == 0:
         empty = torch.zeros(0, dtype=torch.uint8, device=x.device)
-        return empty, empty.clone()
-    pos = _pieces(x, prev, int(tstart[0]))
-    return x[pos], (pos & 0xFF).to(torch.uint8)
-
-
-def piece_counts_ref(starts8: torch.Tensor, n: int) -> torch.Tensor:
-    """``counts u8[R]``: start-byte differences mod 256, the last piece
-    measured to n."""
-    s = starts8.to(torch.int64)
-    nxt = torch.cat([s[1:], s.new_tensor([n & 0xFF])])
-    return ((nxt - s) & 0xFF).to(torch.uint8)
+        return empty, empty.clone(), -d0
+    pos = _pieces(x, prev, -d0)
+    counts = torch.diff(pos, append=pos.new_tensor([n])).to(torch.uint8)
+    natural = _natural(x, prev).nonzero()
+    run_start = int(natural[-1]) if natural.numel() else -d0
+    return x[pos], counts, run_start
 
 
 def run_offsets_ref(counts: torch.Tensor) -> torch.Tensor:
@@ -164,78 +120,29 @@ def expand_ref(counts: torch.Tensor, values: torch.Tensor,
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def piece_tiles(x: torch.Tensor, prev: int = -1) -> torch.Tensor:
-    """Tile summaries ``summ i64[T, 3]`` of the chunk ``x`` u8[n]; see
-    :func:`piece_tiles_ref`."""
+def encode_chunk(x: torch.Tensor, prev: int = -1, d0: int = 0):
+    """``(values u8[R], counts u8[R], run_start)`` of the chunk ``x``
+    u8[n]; see :func:`encode_chunk_ref`.  The kernel takes at most 2^30
+    bytes a call; R and the run start come back in one small copy."""
     _check(x, "x", torch.uint8)
-    _check_prev(prev)
+    _check_carry(prev, d0)
     if not _on_cuda(x):
-        return piece_tiles_ref(x, prev)
+        return encode_chunk_ref(x, prev, d0)
     _aligned(x, "x")
     n = x.numel()
-    summ = torch.empty((_tiles(n), 3), dtype=torch.int64, device=x.device)
-    _launch("flrl_rl_piece_tiles", x.data_ptr(), n, prev, summ.data_ptr(),
-            x.device.index, _stream(x))
-    LAUNCHES["rl_flags"] += 1
-    return summ
-
-
-def piece_offsets(summ: torch.Tensor, n: int, d0: int = 0):
-    """``(tstart i64[T+1], offs i64[T+1])``; see :func:`piece_offsets_ref`."""
-    T = _tiles(n)
-    if (summ.dtype != torch.int64 or tuple(summ.shape) != (T, 3)
-            or not summ.is_contiguous()):
-        raise ValueError(f"summ: expected a contiguous ({T}, 3) int64 "
-                         f"tensor, got {summ.dtype} {tuple(summ.shape)}")
-    if d0 < 0:
-        raise ValueError(f"d0 must be >= 0, got {d0}")
-    if not _on_cuda(summ):
-        return piece_offsets_ref(summ, n, d0)
-    tstart = torch.empty(T + 1, dtype=torch.int64, device=summ.device)
-    offs = torch.empty(T + 1, dtype=torch.int64, device=summ.device)
-    _launch("flrl_rl_piece_offsets", summ.data_ptr(), n, d0,
-            tstart.data_ptr(), offs.data_ptr(), summ.device.index,
-            _stream(summ))
-    LAUNCHES["rl_scan"] += 1
-    return tstart, offs
-
-
-def compact(x: torch.Tensor, prev: int, tstart: torch.Tensor,
-            offs: torch.Tensor):
-    """``(values u8[R], starts8 u8[R])`` of the chunk ``x``, R =
-    ``offs[-1]``; see :func:`compact_ref`."""
-    _check(x, "x", torch.uint8)
-    _check_prev(prev)
-    T = _tiles(x.numel())
-    _check(tstart, "tstart", torch.int64, T + 1)
-    _check(offs, "offs", torch.int64, T + 1)
-    if not _on_cuda(x, tstart, offs):
-        return compact_ref(x, prev, tstart, offs)
-    _aligned(x, "x")
-    R = int(offs[-1])
-    values = torch.empty(R, dtype=torch.uint8, device=x.device)
-    starts8 = torch.empty(R, dtype=torch.uint8, device=x.device)
-    _launch("flrl_rl_compact", x.data_ptr(), x.numel(), prev,
-            tstart.data_ptr(), offs.data_ptr(), values.data_ptr(),
-            starts8.data_ptr(), x.device.index, _stream(x))
-    LAUNCHES["rl_compact"] += 1
-    return values, starts8
-
-
-def piece_counts(starts8: torch.Tensor, n: int) -> torch.Tensor:
-    """``counts u8[R]`` of a chunk of n bytes; see
-    :func:`piece_counts_ref`."""
-    _check(starts8, "starts8", torch.uint8)
-    R = starts8.numel()
-    if n < R:
-        raise ValueError(f"{R} pieces cannot come from {n} bytes")
-    if not _on_cuda(starts8):
-        return piece_counts_ref(starts8, n)
-    counts = torch.empty(R, dtype=torch.uint8, device=starts8.device)
-    _launch("flrl_rl_counts", starts8.data_ptr(), R, n, counts.data_ptr(),
-            starts8.device.index, _stream(starts8))
-    LAUNCHES["rl_counts"] += 1
-    return counts
+    if n == 0:
+        return encode_chunk_ref(x, prev, d0)
+    values = torch.empty(n, dtype=torch.uint8, device=x.device)
+    counts = torch.empty(n, dtype=torch.uint8, device=x.device)
+    # R, the run start, then the tiles' status words and the ticket (the
+    # launcher clears those on the stream)
+    meta = torch.empty(2 + _tiles(n, ENCODE_TILE) + 1, dtype=torch.int64,
+                       device=x.device)
+    _launch("flrl_rl_encode", x.data_ptr(), n, prev, d0, values.data_ptr(),
+            counts.data_ptr(), meta.data_ptr(), x.device.index, _stream(x))
+    LAUNCHES["rl_encode"] += 1
+    R, start = meta[:2].tolist()
+    return values[:R], counts[:R], -d0 if start == _NONE else start
 
 
 def run_offsets(counts: torch.Tensor) -> torch.Tensor:

@@ -117,13 +117,9 @@ def _encode_chunk(chunk: np.ndarray, prev: int, d0: int,
         h2d.append(x)
     krn = []
     with stage("Compression", n, result=krn):
-        summ = kern.piece_tiles(x, prev)
-        tstart, offs = kern.piece_offsets(summ, n, d0)
-        values_d, starts8 = kern.compact(x, prev, tstart, offs)
-        counts_d = kern.piece_counts(starts8, n)
+        values_d, counts_d, run_start = kern.encode_chunk(x, prev, d0)
         krn += [counts_d, values_d]
     with stage("Copy results to CPU") as t:
-        run_start = int(tstart[-1])
         counts = counts_d.cpu().numpy()
         values = values_d.cpu().numpy()
         if t:

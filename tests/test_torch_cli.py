@@ -9,7 +9,9 @@ import pytest
 import torch
 
 import fl_rl_compression_mpi_tpu_torch as flrl
+from fl_rl_compression_mpi_tpu import api as jax_api
 from fl_rl_compression_mpi_tpu import container
+from fl_rl_compression_mpi_tpu.models import registry as jax_registry
 from fl_rl_compression_mpi_tpu.cli import main as jax_main
 from fl_rl_compression_mpi_tpu.ops import rl_numpy
 from fl_rl_compression_mpi_tpu_torch.cli import main
@@ -195,8 +197,18 @@ def test_field_route_through_cli(L, blob, tmp_path, on_cpu, monkeypatch,
 
 def test_library_api(tmp_path, on_cpu):
     data = np.random.default_rng(9).integers(0, 32, 128 * 64 + 9, np.uint8)
-    assert set(flrl.methods()) == {"fl", "fl-cpu", "fl-dist", "fl-ici",
-                                   "rl", "rl-cpu", "rl-dist"}
+    # the JAX package's table: the same names, the aliases and the host
+    # codecs described alike; a device method names its own device
+    theirs = jax_api.methods()
+    ours = flrl.methods()
+    assert list(ours) == list(theirs)
+    assert {"fl-mpi", "fl-nccl"} <= set(ours)
+    for name, text in ours.items():
+        if name.endswith("-cpu") or name in jax_registry.ALIASES:
+            assert text == theirs[name], name
+        else:
+            assert text.split()[0] == theirs[name].split()[0], name
+            assert "TPU" not in text and "CUDA" in text, name
     for method in ("fl", "fl-cpu"):
         comp = flrl.compress(data.tobytes(), method=method)
         np.testing.assert_array_equal(flrl.decompress(comp, method=method),

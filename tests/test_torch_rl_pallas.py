@@ -36,9 +36,7 @@ def _pallas_cases():
 def _plain(data):
     x = torch.from_numpy(data)
     n = x.numel()
-    tstart, offs = k.piece_offsets(k.piece_tiles(x), n)
-    values, starts8 = k.compact(x, -1, tstart, offs)
-    counts = k.piece_counts(starts8, n)
+    values, counts, _ = k.encode_chunk(x)
     out = k.expand(counts, values, k.run_offsets(counts), n)
     return counts.numpy(), values.numpy(), out.numpy()
 
