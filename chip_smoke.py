@@ -19,8 +19,19 @@ Phases, each printing a line and failing the run on any error:
               periods 3, 5 and 7 at L in {8, 24, 40, 64, 128, 136, 1024} with
               tails n mod L in {0, 1, 7, 8, 9, 15, 16, 17, L-1}, uniform mode
               at widths 1..8 there, and data at a 16-byte, frame-aligned
-              offset inside a larger buffer.  Then both versions timed at the
-              main path's shapes (CUDA events).  Then every RL kernel the
+              offset inside a larger buffer.  The widths and the unpack on
+              frame counts around a widths step, a block and the resident
+              grid's pass and byte counts around the unpack's two-span
+              step, twenty widths calls in a row on reused memory, the
+              flag with one frame of another width first, in the middle
+              and last at each fb_expect, 1 GiB at L = 8 in both modes,
+              the payload at every 16-byte phase with values_size exact,
+              last frames of 1..17 bytes, and the refusal past 2^31 bytes
+              (drawn from a generator of their own).  Then both versions
+              timed at the main path's shapes (CUDA events), the widths and
+              unpack on each part of the mixed stream beside its bound,
+              and torch.amax over the mixed stream's frames as a yardstick
+              for the widths.  Then every RL kernel the
               same way: few runs, runs of 300, dense bytes (R = n), one long
               zero run, runs of 254, 255, 256 and 510, constant tiles
               between varying regions, tails
@@ -101,6 +112,7 @@ import contextlib
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -177,6 +189,7 @@ LIBRARY_LAUNCH_MS: dict = {}
 RUN = 20
 SLEEP_CYCLES = 20_000_000          # about 10 ms of device sleep at 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+DENSE_MAX_BYTES = 1 << 31          # kDenseMaxBytes: the most a launch takes
 
 
 def say(msg: str) -> None:
@@ -228,6 +241,11 @@ def mixed_main_stream(rng) -> np.ndarray:
              np.zeros(64 * MIB, np.uint8),
              uniform_stream(rng, 96 * MIB, L, 8)]
     return np.concatenate(parts)
+
+
+# mixed_main_stream's parts: name, MiB
+MIXED_PARTS = (("w4 head", 96), ("random widths", 256), ("zeros", 64),
+               ("w8", 96))
 
 
 def check_kernels(data: np.ndarray, L: int) -> None:
@@ -353,13 +371,167 @@ def phase_pack_classes(rng) -> int:
             check_kernels(uniform_stream(rng, n, L, 1 + n % 8), L)
             cases += 2
     # the kernel's 32-bit positions: more than 2^31 bytes must raise
-    big = torch.empty((1 << 31) + 16, dtype=torch.uint8, device=DEVICE)
+    big = torch.empty(DENSE_MAX_BYTES + 16, dtype=torch.uint8, device=DEVICE)
     try:
         k.pack(big, 128, fb=4)
     except RuntimeError:
         cases += 1
     else:
         raise AssertionError("flrl_pack took more than 2^31 bytes")
+    del big
+    torch.cuda.empty_cache()
+    return cases
+
+
+def dense_constant(name: str) -> int:
+    """A constant of csrc/fl_dense.cuh."""
+    path = os.path.join(REPO, "fl_rl_compression_mpi_tpu_torch", "csrc",
+                        "fl_dense.cuh")
+    with open(path) as f:
+        return int(re.search(rf"{name} = (\d+);", f.read()).group(1))
+
+
+def check_widths(x: torch.Tensor, L: int, fb: int = 0) -> int:
+    """Widths and flag against the plain version; returns the flag."""
+    bits, flag = k.frame_widths(x, L, fb_expect=fb)
+    want_bits, want_flag = k.frame_widths_ref(x, L, fb_expect=fb)
+    compare("fl_frame_widths", bits, want_bits)
+    compare("fl_frame_widths", flag, want_flag)
+    return int(flag.item())
+
+
+def check_unpack(values: torch.Tensor, n: int, L: int, want: torch.Tensor,
+                 bits=None, offs=None, fb: int = 0) -> None:
+    """The unpack against its plain version and the bytes it restores."""
+    name = "fl_unpack_uniform" if fb else "fl_unpack"
+    out = k.unpack(values, n, L, bits=bits, offs=offs, fb=fb)
+    compare(name, out, k.unpack_ref(values, n, L, bits=bits, offs=offs,
+                                    fb=fb))
+    compare(name, out, want)
+
+
+def widths_stream(F: int, L: int, fb: int) -> torch.Tensor:
+    """F frames of L random bytes on the card, each of width fb (0: random
+    widths 1..8), drawn on the card (1 GiB at L = 8 in seconds)."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 3)
+    widths = (torch.full((F,), fb, dtype=torch.int32, device=DEVICE) if fb
+              else torch.randint(1, 9, (F,), dtype=torch.int32,
+                                 device=DEVICE, generator=g))
+    masks = ((1 << widths) - 1).to(torch.uint8)
+    x = torch.randint(0, 256, (F, L), dtype=torch.uint8, device=DEVICE,
+                      generator=g) & masks[:, None]
+    x[:, 0] = masks
+    return x.view(-1)
+
+
+def phase_widths_unpack_classes(rng) -> int:
+    """flrl_frame_widths and flrl_unpack on the classes of their layout.
+    Frame counts around a widths step (kWidthsSpans warp spans), a block's
+    steps and the resident grid's pass, and byte counts around the unpack's
+    two-span step and its pass, at L = 8, 128 (the widths' span path) and
+    24, 1024 (a warp a frame), through check_kernels; twenty widths calls
+    in a row on reused memory with the flag; the flag on uniform streams
+    with one frame of another width first, in the middle and last, at each
+    fb_expect 1..8 (and at L = 8, 24, 1024), clean without it; the 1 GiB
+    chunk at L = 8 (2^27 frames) in both modes; the unpack of payloads at
+    every 16-byte phase inside a larger buffer with values_size exactly the
+    payload (both modes, L = 24 and 128), and of streams whose last frame
+    holds 1, 7, 8, 9, 15, 16 or 17 bytes; more than 2^31 bytes refused."""
+    cases = 0
+    warps = (torch.cuda.get_device_properties(DEVICE).multi_processor_count
+             * dense_constant("kDenseBlocksPerSm")
+             * dense_constant("kDenseWarps"))
+    spans = dense_constant("kWidthsSpans")
+    for L in (8, 128, 24, 1024):
+        U = 16 if L % 16 == 0 else 8
+        per_step = spans * 32 * U // L if 32 * U % L == 0 else 1
+        frames = {1, per_step - 1, per_step + 1, 8 * per_step + 1,
+                  warps * per_step - 1, warps * per_step,
+                  warps * per_step + 1, 2 * warps * per_step + 1}
+        # the unpack: 2 spans a warp step, a pass of 2 * warps spans
+        frames |= {-(-2 * warps * 32 * U // L) + d for d in (-1, 0, 1)}
+        for F in sorted(frames - {0}):
+            tail = L - 3 if F > 1 else L // 2
+            check_kernels(random_width_stream(rng, (F - 1) * L + tail, L), L)
+            cases += 1
+    x = torch.from_numpy(uniform_stream(rng, 16 * MIB, 128, 4)).cuda()
+    xs = [x.clone() for _ in range(20)]
+    for i, y in enumerate(xs):
+        y[(i * 977_003) % y.numel()] = 200 if i % 2 else 15
+    wants = [k.frame_widths_ref(y, 128, fb_expect=4) for y in xs]
+    for y, (want_bits, want_flag) in zip(xs, wants):
+        bits, flag = k.frame_widths(y, 128, fb_expect=4)
+        compare("fl_frame_widths", bits, want_bits)
+        compare("fl_frame_widths", flag, want_flag)
+        del bits, flag
+    cases += 20
+    del x, xs, wants
+    for L, fbs in ((128, range(1, 9)), (8, (3,)), (24, (3,)), (1024, (3,))):
+        for fb in fbs:
+            base = uniform_stream(rng, 300 * L + L // 2 + 1, L, fb)
+            if check_widths(torch.from_numpy(base).cuda(), L, fb) != 0:
+                raise AssertionError(f"widths flag on a uniform stream "
+                                     f"(L={L}, fb={fb})")
+            w = fb % 8 + 1
+            for f in (0, 150, 300):
+                d = base.copy()
+                frame = d[f * L:(f + 1) * L]
+                frame &= (1 << w) - 1
+                frame[0] = (1 << w) - 1
+                if check_widths(torch.from_numpy(d).cuda(), L, fb) != 1:
+                    raise AssertionError(f"widths flag missed frame {f} of "
+                                         f"width {w} (L={L}, fb={fb})")
+            cases += 4
+    F = 1024 * MIB // 8
+    for fb in (0, 5):
+        x = widths_stream(F, 8, fb)
+        check_widths(x, 8, fb)
+        if fb:
+            check_unpack(k.pack(x, 8, fb=fb), x.numel(), 8, x, fb=fb)
+        else:
+            bits, _ = k.frame_widths(x, 8)
+            offs = k.frame_offsets(bits, x.numel(), 8)
+            check_unpack(k.pack(x, 8, bits=bits, offs=offs), x.numel(), 8,
+                         x, bits=bits, offs=offs)
+            del bits, offs
+        del x
+        torch.cuda.empty_cache()
+        cases += 1
+    for L in (24, 128):
+        n = 4 * MIB + 77
+        x = torch.from_numpy(random_width_stream(rng, n, L)).cuda()
+        bits, _ = k.frame_widths(x, L)
+        offs = k.frame_offsets(bits, n, L)
+        xu = torch.from_numpy(uniform_stream(rng, n, L, 3)).cuda()
+        for values, want, mode in (
+                (k.pack(x, L, bits=bits, offs=offs), x,
+                 dict(bits=bits, offs=offs)),
+                (k.pack(xu, L, fb=3), xu, dict(fb=3))):
+            for phase in range(16):
+                buf = torch.full((values.numel() + 32,), 0xFF,
+                                 dtype=torch.uint8, device=DEVICE)
+                at = (phase - buf.data_ptr()) % 16
+                view = buf[at:at + values.numel()]
+                view.copy_(values)
+                check_unpack(view, n, L, want, **mode)
+                cases += 1
+        for tail in (1, 7, 8, 9, 15, 16, 17):
+            check_kernels(random_width_stream(rng, 40 * L + tail, L), L)
+            check_kernels(uniform_stream(rng, 40 * L + tail, L, tail % 8 + 1),
+                          L)
+            cases += 2
+    big = torch.empty(DENSE_MAX_BYTES + 16, dtype=torch.uint8, device=DEVICE)
+    for name, fn in (
+            ("flrl_frame_widths", lambda: k.frame_widths(big, 128)),
+            ("flrl_unpack", lambda: k.unpack(big[:64], big.numel(), 128,
+                                             fb=4))):
+        try:
+            fn()
+        except RuntimeError:
+            cases += 1
+        else:
+            raise AssertionError(f"{name} took more than 2^31 bytes")
     del big
     torch.cuda.empty_cache()
     return cases
@@ -423,6 +595,32 @@ def bound_ms(name: str) -> float:
     return MOVED[name] / HBM_BYTES_PER_S * 1e3
 
 
+def time_mixed_parts(x: torch.Tensor) -> None:
+    """flrl_frame_widths (fb_expect 4, as on the whole stream) and the
+    general flrl_unpack on each part of the mixed stream alone, a launch
+    over a run of RUN calls, beside each part's bound: where the time of
+    the whole goes."""
+    L = 128
+    at = 0
+    for i, (name, mib) in enumerate(MIXED_PARTS):
+        xp = x[at:at + mib * MIB]
+        at += mib * MIB
+        n = xp.numel()
+        bits, _ = k.frame_widths(xp, L)
+        offs = k.frame_offsets(bits, n, L)
+        vals = k.pack(xp, L, bits=bits, offs=offs)
+        widths = launch_ms(lambda: k.frame_widths(xp, L, fb_expect=4))
+        unpack = launch_ms(lambda: k.unpack(vals, n, L, bits=bits, offs=offs))
+        moved_w = n + bits.numel()
+        moved_u = vals.numel() + bits.numel() + 8 * offs.numel() + n
+        say(f"[kernels] mixed part {i} ({name}, {mib} MiB, {vals.numel()} "
+            f"payload bytes): fl_frame_widths {widths:.4f} ms (bound "
+            f"{moved_w / HBM_BYTES_PER_S * 1e3:.4f}), fl_unpack "
+            f"{unpack:.4f} ms (bound {moved_u / HBM_BYTES_PER_S * 1e3:.4f}) "
+            f"a launch over a run of {RUN}")
+        del bits, offs, vals
+
+
 def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     """Kernel and plain times at the main path's shapes (one 512 MiB chunk),
     each compared once more at that shape."""
@@ -458,7 +656,14 @@ def time_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     moved("fl_unpack", vals, bits, offs, x)
     library_ms("fl_frame_offsets",
                lambda: torch.cumsum(bits, 0, dtype=torch.int64))
-    del x, bits, offs, vals
+    rows = x.view(-1, L)
+    say(f"[kernels] yardstick torch.amax(x.view(-1, {L}), dim=1) on the "
+        f"mixed stream (the frames' max, not their width): "
+        f"{cuda_ms(lambda: torch.amax(rows, dim=1)):.3f} ms single "
+        f"(median of 5), {launch_ms(lambda: torch.amax(rows, dim=1)):.4f} "
+        f"ms a launch over a run of {RUN}")
+    time_mixed_parts(x)
+    del x, bits, offs, vals, rows
     x = torch.from_numpy(uniform4).cuda()
     n = x.numel()
     vu = k.pack(x, L, fb=4)
@@ -1582,6 +1787,10 @@ def main() -> int:
     cases = phase_pack_classes(classes_rng)
     say(f"[kernels] {cases} pack inputs equal their plain version, the "
         f"containers fl-cpu's ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = phase_widths_unpack_classes(np.random.default_rng(SEED + 2))
+    say(f"[kernels] {cases} widths and unpack inputs equal their plain "
+        f"versions ({time.perf_counter() - t0:.1f} s)")
 
     mixed = mixed_main_stream(rng)
     uniform4 = uniform_stream(rng, 512 * MIB, 128, 4)

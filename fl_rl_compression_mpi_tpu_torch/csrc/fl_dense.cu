@@ -24,6 +24,10 @@
 // widths and writes 8·(F+1) bytes of offsets.  What each design does about
 // it:
 //
+// - flrl_frame_widths: a lane per 16 input bytes, four 16-byte loads in
+//   flight a lane on a grid the card holds at once; the lanes of a frame
+//   combine their OR by xor shuffles, and a warp stores its widths as
+//   16-byte vectors.
 // - flrl_frame_offsets: one launch, a single-pass scan with decoupled
 //   look-back (scan.cuh), so each offset is written once (a two-level scan
 //   writes, reads back and writes again the 8-byte offsets); 16-byte loads
@@ -33,8 +37,9 @@
 //   lanes on neighbouring addresses), packed in registers; the warp's
 //   payload is one contiguous span, staged in shared memory and stored as
 //   16-byte vectors.
-// - flrl_frame_widths, flrl_unpack: one warp a frame, 8-byte loads; unpack
-//   stores a 32-bit word a lane.
+// - flrl_unpack: the pack read backwards: the warp's span of payload is
+//   loaded into shared memory by 16-byte loads, and a lane unpacks 16
+//   output bytes in registers and stores them as one 16-byte vector.
 #include <cuda_runtime.h>
 
 #include "fl_dense.cuh"
@@ -51,40 +56,198 @@ __device__ __forceinline__ int64_t warp_stride() {
   return int64_t(gridDim.x) * blockDim.x / kWarp;
 }
 
+// The U bytes from byte p on of the n-byte stream at data (v0: the first
+// 8, v1: the next 8); zeros past the stream's end.  data + p is U-byte
+// aligned.
+template <int U>
+__device__ __forceinline__ void load_group(const uint8_t* data, uint32_t n,
+                                           uint32_t p, uint64_t& v0,
+                                           uint64_t& v1) {
+  v0 = v1 = 0;
+  if (p + U <= n) {
+    if (U == 16) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(data + p));
+      v0 = q.x | uint64_t(q.y) << 32;
+      v1 = q.z | uint64_t(q.w) << 32;
+    } else {
+      v0 = __ldg(reinterpret_cast<const uint64_t*>(data + p));
+    }
+  } else {
+    for (int j = 0; j < U && p + j < n; ++j) {
+      if (j < 8)
+        v0 |= uint64_t(data[p + j]) << (8 * j);
+      else
+        v1 |= uint64_t(data[p + j]) << (8 * (j - 8));
+    }
+  }
+}
+
 // --------------------------------------------------------------------------
 // Frame widths.  Replaces the width half of fl_dense_pallas._encode_kernel
 // and _uniform_enc_kernel (the f32-exponent / MXU width tricks there exist
 // because the TPU's VPU lacks a cheap clz).  Reads n bytes, writes n/L: a
-// pure read stream, so each lane ORs 8-byte words and the warp reduces with
-// one __reduce_or_sync.  bitlen(OR of bytes) == bitlen(max byte).
+// pure read stream.  bitlen(OR of bytes) == bitlen(max byte).
+//
+// Where L divides a warp span of 32·U bytes (L = 8, 16, 32, ..., 512), a
+// warp takes kWidthsSpans consecutive spans a step and issues all their
+// loads before it reduces any: 2 KiB a step at U = 16.  A lane ORs each
+// span's U bytes into one byte of a word (byte j: span j), the L/U lanes of
+// a frame combine their words with log2(L/U) xor shuffles, and the first
+// lane of each frame writes its widths into the warp's stage.  A step's
+// widths are contiguous (16 at L = 128), so the warp stores them as 16-byte
+// vectors, or one word where a step has fewer than 16.  Any other L (24,
+// 40, 1024, ...) takes a warp a frame with U-byte loads and one
+// __reduce_or_sync.  A thread remembers a width that differs from
+// fb_expect, and each block sends at most one atomicOr to the flag.
+// Positions are 32-bit (the launcher takes at most 2^31 bytes).  The
+// launcher computes the loop bounds into the launch parameters, which the
+// kernel reads without holding them in registers beside the four loads.
 // --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFrameThreads)
-frame_widths_kernel(const uint8_t* __restrict__ data, int64_t n, int64_t L,
-                    int64_t frames, int fb_expect, uint8_t* __restrict__ bits,
-                    int* __restrict__ flag) {
+
+struct WidthsArgs {
+  const uint8_t* data;
+  uint32_t n, L;   // n ≤ 2^31, L ≤ 2^31
+  uint32_t frames;
+  uint32_t steps;  // warp steps (span path)
+  int k;           // log2(L / U) (span path)
+  int fb_expect;
+  uint8_t* bits;
+  int* flag;
+};
+
+// The OR of the four bytes of x.
+__device__ __forceinline__ unsigned or_bytes(uint32_t x) {
+  x |= x >> 16;
+  x |= x >> 8;
+  return x & 0xffu;
+}
+
+__device__ __forceinline__ int width_of(unsigned m) {
+  return max(1, 32 - __clz(static_cast<int>(m)));
+}
+
+// Every thread of the block passes here once; the block sets the flag with
+// at most one atomic.
+__device__ __forceinline__ void raise_flag(bool bad, int* flag) {
+  if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(flag, 1);
+}
+
+// The U bytes at an aligned address, in the first U bytes of a uint4.
+template <int U>
+__device__ __forceinline__ uint4 load_vec(const uint8_t* src) {
+  if (U == 16) return __ldg(reinterpret_cast<const uint4*>(src));
+  const uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
+  return make_uint4(h.x, h.y, 0, 0);
+}
+
+// A step's `count` widths from the stage to dst (a multiple of `whole`
+// widths from the 16-byte aligned start of bits): 16-byte vectors, or one
+// word where a whole step has 4 or 8, and bytes where the step is cut.
+__device__ __forceinline__ void store_widths(uint8_t* dst, const uint8_t* st,
+                                             uint32_t count, uint32_t whole,
+                                             int lane) {
+  if (count == whole && whole >= 16) {
+    if (lane < static_cast<int>(whole / 16))
+      reinterpret_cast<uint4*>(dst)[lane] =
+          reinterpret_cast<const uint4*>(st)[lane];
+  } else if (count == whole && whole == 8) {
+    if (lane == 0)
+      *reinterpret_cast<uint64_t*>(dst) =
+          *reinterpret_cast<const uint64_t*>(st);
+  } else if (count == whole && whole == 4) {
+    if (lane == 0)
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(st);
+  } else {
+    for (uint32_t i = lane; i < count; i += kWarp) dst[i] = st[i];
+  }
+}
+
+// L divides the span.
+template <int U>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+widths_spans_kernel(const WidthsArgs a) {
+  static_assert(kWidthsSpans == 4, "a lane's span ORs fill one word");
+  constexpr uint32_t kSpan = kWarp * U;
+  constexpr uint32_t kStep = kWidthsSpans * kSpan;
+  __shared__ __align__(16) uint8_t stage[kDenseWarps][kWidthsSpans * kWarp];
   const int lane = threadIdx.x % kWarp;
-  for (int64_t f = global_warp(); f < frames; f += warp_stride()) {
-    const int64_t count = frame_count(f, n, L);
-    const uint8_t* src = data + f * L;
+  uint8_t* st = stage[threadIdx.x / kWarp];
+  const int k = a.k;
+  const uint32_t per_span = kWarp >> k;  // frames a span
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  bool bad = false;
+  for (uint32_t s = static_cast<uint32_t>(global_warp()); s < a.steps;
+       s += stride) {
+    const uint32_t p = s * kStep + lane * U;
+    uint4 q[kWidthsSpans];
+    if (s * kStep + kStep <= a.n) {
+#pragma unroll
+      for (int j = 0; j < kWidthsSpans; ++j)
+        q[j] = load_vec<U>(a.data + p + j * kSpan);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kWidthsSpans; ++j) {
+        uint64_t v0, v1;
+        load_group<U>(a.data, a.n, p + j * kSpan, v0, v1);
+        q[j] = make_uint4(static_cast<uint32_t>(v0),
+                          static_cast<uint32_t>(v0 >> 32),
+                          static_cast<uint32_t>(v1),
+                          static_cast<uint32_t>(v1 >> 32));
+      }
+    }
+    unsigned m = 0;  // byte j: the OR of the lane's bytes of span j
+#pragma unroll
+    for (int j = 0; j < kWidthsSpans; ++j)
+      m |= or_bytes(q[j].x | q[j].y | q[j].z | q[j].w) << (8 * j);
+    for (int i = 0; i < k; ++i) m |= __shfl_xor_sync(kFullMask, m, 1 << i);
+    const uint32_t f0 = s * (kWidthsSpans * per_span);
+    if ((lane & ((1 << k) - 1)) == 0) {  // the first of its frame's lanes
+#pragma unroll
+      for (int j = 0; j < kWidthsSpans; ++j) {
+        const uint32_t g = j * per_span + (lane >> k);
+        if (f0 + g < a.frames) {
+          const int b = width_of((m >> (8 * j)) & 0xffu);
+          st[g] = static_cast<uint8_t>(b);
+          bad |= a.fb_expect != 0 && b != a.fb_expect;
+        }
+      }
+    }
+    __syncwarp();
+    const uint32_t whole = kWidthsSpans * per_span;
+    const uint32_t left = a.frames - f0;
+    store_widths(a.bits + f0, st, left < whole ? left : whole, whole, lane);
+    __syncwarp();
+  }
+  raise_flag(bad, a.flag);
+}
+
+// Any L: a warp a frame.
+template <int U>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+widths_frames_kernel(const WidthsArgs a) {
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  bool bad = false;
+  for (uint32_t f = static_cast<uint32_t>(global_warp()); f < a.frames;
+       f += stride) {
+    const uint32_t p0 = f * a.L;
+    const uint32_t end = a.n - p0 < a.L ? a.n : p0 + a.L;
     uint64_t acc = 0;
-    const int64_t words = count / 8;
-    const uint64_t* src8 = reinterpret_cast<const uint64_t*>(src);
-    for (int64_t i = lane; i < words; i += kWarp) acc |= __ldg(src8 + i);
-    for (int64_t i = words * 8 + lane; i < count; i += kWarp) acc |= src[i];
-    unsigned m = static_cast<unsigned>(acc | (acc >> 32));
-    m |= m >> 16;
-    m |= m >> 8;
-    m = __reduce_or_sync(kFullMask, m & 0xffu);
-    const int b = max(1, 32 - __clz(static_cast<int>(m)));
+    for (uint32_t p = p0 + lane * U; p < end; p += kWarp * U) {
+      uint64_t v0, v1;
+      load_group<U>(a.data, end, p, v0, v1);
+      acc |= v0 | v1;
+    }
+    const unsigned m = __reduce_or_sync(
+        kFullMask, or_bytes(static_cast<uint32_t>(acc | (acc >> 32))));
     if (lane == 0) {
-      bits[f] = static_cast<uint8_t>(b);
-      // Read before the atomic: a mixed stream would otherwise send one
-      // atomic per frame to the same address.
-      if (fb_expect != 0 && b != fb_expect &&
-          *reinterpret_cast<volatile int*>(flag) == 0)
-        atomicOr(flag, 1);
+      const int b = width_of(m);
+      a.bits[f] = static_cast<uint8_t>(b);
+      bad |= a.fb_expect != 0 && b != a.fb_expect;
     }
   }
+  raise_flag(bad, a.flag);
 }
 
 // --------------------------------------------------------------------------
@@ -224,6 +387,18 @@ __device__ __forceinline__ uint64_t pack8(uint64_t v, int b) {
   return (v & 0xffffffffull) | ((v >> 32) << (4 * b));
 }
 
+// Inverse of pack8: 8·b bits LSB-first (nothing above them) into eight
+// bytes of b bits, in three steps that halve the groups: 4·b-bit halves to
+// 32-bit words, 2·b-bit quarters to 16-bit lanes, b-bit values to bytes.
+__device__ __forceinline__ uint64_t unpack8(uint64_t w, int b) {
+  const uint64_t m4 = (uint64_t(1) << (4 * b)) - 1;
+  uint64_t v = (w & m4) | ((w >> (4 * b)) & m4) << 32;
+  const uint64_t m2 = ((uint64_t(1) << (2 * b)) - 1) * 0x0000000100000001ull;
+  v = (v & m2) | ((v >> (2 * b)) & m2) << 16;
+  const uint64_t m1 = ((uint64_t(1) << b) - 1) * 0x0001000100010001ull;
+  return (v & m1) | ((v >> b) & m1) << 8;
+}
+
 // Bytes [0, nb) of the little-endian 16 bytes (lo, hi) to dst, in the
 // widest stores that dst's alignment allows.
 __device__ __forceinline__ void store_bytes(uint8_t* dst, uint64_t lo,
@@ -251,40 +426,40 @@ __device__ __forceinline__ void store_bytes(uint8_t* dst, uint64_t lo,
   }
 }
 
-struct PackArgs {
-  const uint8_t* data;
+// Where each frame's payload lies, for the pack and the unpack.
+struct Layout {
   uint32_t n, L;   // n ≤ 2^31, L ≤ 2^31
   uint64_t recip;  // UINT64_MAX / L + 1: p / L == umulhi(p, recip), p < 2^32
   const uint8_t* bits;
   const int64_t* offs;  // null in uniform mode
   int fb;
-  uint8_t* values;
 };
 
-// A lane's U input bytes from byte p on (v0: the first 8, v1: the next 8);
-// zeros past the stream's end.
+// The width b and payload bytes [start, end) of the U values from stream
+// byte p < n on: byte (pos/8)·b of the frame's payload, clipped to the
+// frame's frame_bytes(b, count).
 template <int U>
-__device__ __forceinline__ void load_group(const PackArgs& a, uint32_t p,
-                                           uint64_t& v0, uint64_t& v1) {
-  v0 = v1 = 0;
-  const uint32_t n = a.n;
-  if (p + U <= n) {
-    if (U == 16) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(a.data + p));
-      v0 = q.x | uint64_t(q.y) << 32;
-      v1 = q.z | uint64_t(q.w) << 32;
-    } else {
-      v0 = __ldg(reinterpret_cast<const uint64_t*>(a.data + p));
-    }
-  } else {
-    for (int j = 0; j < U && p + j < n; ++j) {
-      if (j < 8)
-        v0 |= uint64_t(a.data[p + j]) << (8 * j);
-      else
-        v1 |= uint64_t(a.data[p + j]) << (8 * (j - 8));
-    }
-  }
+__device__ __forceinline__ void lane_payload(const Layout& g, uint32_t p,
+                                             int& b, uint32_t& start,
+                                             uint32_t& end) {
+  const uint32_t L = g.L;
+  const uint32_t f = static_cast<uint32_t>(__umul64hi(uint64_t(p), g.recip));
+  b = g.offs != nullptr ? min(int(g.bits[f]), 8) : g.fb;
+  const uint32_t base = g.offs != nullptr ? static_cast<uint32_t>(g.offs[f])
+                                          : f * (L / 8 * g.fb);
+  const uint32_t rest = g.n - f * L;
+  const uint32_t nbytes =
+      static_cast<uint32_t>(frame_bytes(b, rest < L ? rest : L));
+  const uint32_t q = (p - f * L) / 8 * b;
+  start = base + q;
+  end = base + (q + U / 8 * b < nbytes ? q + U / 8 * b : nbytes);
 }
+
+struct PackArgs {
+  const uint8_t* data;
+  Layout g;
+  uint8_t* values;
+};
 
 // One warp span: the lanes' packed bytes through the warp's stage to the
 // payload (see above).  A lane writes into the stage only inside the
@@ -296,24 +471,10 @@ __device__ __forceinline__ void pack_span(const PackArgs& a, uint32_t p,
                                           uint8_t* st) {
   constexpr uint32_t kSpan = kWarp * U;
   const int lane = threadIdx.x % kWarp;
-  const uint32_t n = a.n, L = a.L;
-  const bool active = p < n;
+  const bool active = p < a.g.n;
   int b = 0;
   uint32_t start = 0, end = 0;  // this lane's payload bytes [start, end)
-  if (active) {
-    const uint32_t f =
-        static_cast<uint32_t>(__umul64hi(uint64_t(p), a.recip));
-    b = a.offs != nullptr ? min(int(a.bits[f]), 8) : a.fb;
-    const uint32_t base = a.offs != nullptr
-                              ? static_cast<uint32_t>(a.offs[f])
-                              : f * (L / 8 * a.fb);
-    const uint32_t rest = n - f * L;
-    const uint32_t nbytes =
-        static_cast<uint32_t>(frame_bytes(b, rest < L ? rest : L));
-    const uint32_t q = (p - f * L) / 8 * b;
-    start = base + q;
-    end = base + (q + U / 8 * b < nbytes ? q + U / 8 * b : nbytes);
-  }
+  if (active) lane_payload<U>(a.g, p, b, start, end);
   const uint64_t w0 = pack8(v0, b);
   const uint64_t w1 = U == 16 ? pack8(v1, b) : 0;
   // the lane's bytes in order: w0's b bytes, then w1's
@@ -346,13 +507,13 @@ __device__ __forceinline__ void pack_span(const PackArgs& a, uint32_t p,
 // Two spans a step, both loaded before either is packed, so that a lane
 // keeps two 16-byte loads in flight.
 template <int U>
-__global__ void __launch_bounds__(kPackThreads, kPackBlocksPerSm)
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
 pack_kernel(const PackArgs a) {
   constexpr uint32_t kSpan = kWarp * U;
-  __shared__ __align__(16) uint8_t stage[kPackWarps][kPackStage];
+  __shared__ __align__(16) uint8_t stage[kDenseWarps][kPackStage];
   const int lane = threadIdx.x % kWarp;
   uint8_t* st = stage[threadIdx.x / kWarp];
-  const uint32_t spans = (a.n + kSpan - 1) / kSpan;
+  const uint32_t spans = (a.g.n + kSpan - 1) / kSpan;
   const uint32_t stride = static_cast<uint32_t>(warp_stride());
   for (uint32_t sp = static_cast<uint32_t>(global_warp()); sp < spans;
        sp += 2 * stride) {
@@ -360,8 +521,8 @@ pack_kernel(const PackArgs a) {
     const uint32_t p0 = sp * kSpan + lane * U;
     const uint32_t p1 = (sp + stride) * kSpan + lane * U;
     uint64_t x0, x1, y0, y1;
-    load_group<U>(a, p0, x0, x1);
-    if (second) load_group<U>(a, p1, y0, y1);
+    load_group<U>(a.data, a.g.n, p0, x0, x1);
+    if (second) load_group<U>(a.data, a.g.n, p1, y0, y1);
     pack_span<U>(a, p0, x0, x1, st);
     if (second) pack_span<U>(a, p1, y0, y1, st);
   }
@@ -370,71 +531,239 @@ pack_kernel(const PackArgs a) {
 // --------------------------------------------------------------------------
 // Unpack.  Replaces fl_dense_pallas._decode_kernel (window DMA + expansion
 // routing + group unpack) and _uniform_dec_kernel / _uniform_dec_kernel_mr.
-// Reads the payload, writes n bytes.  Lane i decodes values 4i..4i+3 of each
-// 128-value step: value k sits at bit k·b of the frame payload, so the four
-// values lie in a 5-byte little-endian window starting at byte 4i·b/8.
-// Reads stop at values_size; the four bytes are stored as one 32-bit word.
+// Reads the payload, writes n bytes.
+//
+// The pack's span layout, read backwards: a lane owns the U output bytes
+// from p = span·32·U + lane·U on, whose payload is [start, end) by
+// lane_payload, so the warp span's payload is the one contiguous run from
+// lane 0's start to the last lane's end, at most 32·U bytes.  The warp
+// copies that run into its stage, shifted to the run's 16-byte phase in
+// device memory: aligned 16 bytes a lane by cp.async, which holds no
+// register while the copy is in flight, behind a bytewise head and before
+// a bytewise tail; no load reaches values_size.  Each lane then reads its
+// U·b/8 ≤ 16 bytes from the stage as five aligned words and a funnel shift
+// (bytes past the copied run read as zero), spreads each b bytes to eight
+// with unpack8, and stores one 16-byte vector (8 bytes where U = 8),
+// bytewise only past n.  A step takes two spans, each with its own stage,
+// and issues both spans' copies before it unpacks either.
 // --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFrameThreads)
-unpack_kernel(const uint8_t* __restrict__ values, int64_t values_size,
-              int64_t n, int64_t L, int64_t frames,
-              const uint8_t* __restrict__ bits,
-              const int64_t* __restrict__ offs, int fb,
-              uint8_t* __restrict__ out) {
+
+// 16 bytes from device memory into shared memory, both 16-byte aligned,
+// with no register in between; complete after wait_copies().
+__device__ __forceinline__ void copy16_async(uint8_t* smem,
+                                             const uint8_t* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+struct UnpackArgs {
+  const uint8_t* values;
+  uint32_t values_size;  // at most 2^32 - 1: no read reaches it
+  Layout g;
+  uint8_t* out;
+};
+
+// A lane's part of one unpack span: its width and payload bytes [start,
+// end), and the warp's run [lo, lo + run).
+struct UnpackSpan {
+  int b;
+  uint32_t start, end, lo, run;
+};
+
+// The run's 16-byte phase in device memory and its head (bytes before the
+// first 16-byte boundary), body (16-byte vectors) and tail (bytes after).
+struct RunParts {
+  int phase, head, body, tail;
+  __device__ __forceinline__ RunParts(const uint8_t* values, uint32_t lo,
+                                      uint32_t run) {
+    phase = static_cast<int>((reinterpret_cast<uintptr_t>(values) + lo) & 15);
+    head = min(static_cast<int>(run), (16 - phase) & 15);
+    body = (static_cast<int>(run) - head) / 16;
+    tail = static_cast<int>(run) - head - 16 * body;
+  }
+};
+
+template <int U>
+__device__ __forceinline__ void unpack_locate(const UnpackArgs& a,
+                                              uint32_t p, UnpackSpan& s) {
+  constexpr uint32_t kSpan = kWarp * U;
+  const bool active = p < a.g.n;
+  s.b = 0;
+  s.start = s.end = 0;
+  if (active) lane_payload<U>(a.g, p, s.b, s.start, s.end);
+  const int last = 31 - __clz(__ballot_sync(kFullMask, active));
+  s.lo = __shfl_sync(kFullMask, s.start, 0);
+  uint32_t hi = __shfl_sync(kFullMask, s.end, last);
+  hi = hi < a.values_size ? hi : a.values_size;
+  s.run = hi > s.lo ? min(hi - s.lo, kSpan) : 0;
+}
+
+// The run into the stage: its body by cp.async, its head and tail bytes
+// through a register (there are none where the run starts and ends on a
+// 16-byte boundary: at L = 128 a whole frame's payload is 16·b bytes).
+__device__ __forceinline__ void unpack_load(const UnpackArgs& a,
+                                            const UnpackSpan& s,
+                                            uint8_t* st) {
   const int lane = threadIdx.x % kWarp;
-  for (int64_t f = global_warp(); f < frames; f += warp_stride()) {
-    const int64_t count = frame_count(f, n, L);
-    const int b = offs != nullptr ? bits[f] : fb;
-    const int64_t base = offs != nullptr ? offs[f] : f * (L * fb / 8);
-    const uint64_t mask = (1u << b) - 1u;
-    uint8_t* dst = out + f * L;
-    for (int64_t i = 4 * lane; i < count; i += 4 * kWarp) {
-      const int64_t bit = i * b;
-      const int64_t p = base + bit / 8;
-      const int sh = static_cast<int>(bit % 8);
-      uint64_t w = 0;
-#pragma unroll
-      for (int j = 0; j < 5; ++j)
-        if (p + j < values_size)
-          w |= uint64_t(__ldg(values + p + j)) << (8 * j);
-      uint32_t o = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        o |= static_cast<uint32_t>((w >> (sh + k * b)) & mask) << (8 * k);
-      if (i + 4 <= count) {
-        *reinterpret_cast<uint32_t*>(dst + i) = o;
-      } else {
-        for (int k = 0; i + k < count; ++k)
-          dst[i + k] = static_cast<uint8_t>(o >> (8 * k));
-      }
+  const RunParts r(a.values, s.lo, s.run);
+  const uint8_t* src = a.values + s.lo;
+  if (lane < r.body)
+    copy16_async(st + r.phase + r.head + 16 * lane, src + r.head + 16 * lane);
+  if (lane < r.head) st[r.phase + lane] = __ldg(src + lane);
+  const int t = r.head + 16 * r.body + lane;
+  if (lane < r.tail) st[r.phase + t] = __ldg(src + t);
+}
+
+template <int U>
+__device__ __forceinline__ void unpack_store(const UnpackArgs& a,
+                                             uint32_t p, const UnpackSpan& s,
+                                             const uint8_t* st) {
+  if (p >= a.g.n) return;
+  // the lane's bytes that the run holds
+  const uint32_t off = s.start - s.lo;
+  const uint32_t want = s.end - s.start;
+  const uint32_t have =
+      off < s.run ? (want < s.run - off ? want : s.run - off) : 0;
+  uint64_t lo = 0, hi = 0;
+  if (have != 0) {
+    const uint32_t o = RunParts(a.values, s.lo, s.run).phase + off;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(st + (o & ~3u));
+    const unsigned sh = 8 * (o & 3);
+    lo = __funnelshift_r(w[0], w[1], sh) |
+         uint64_t(__funnelshift_r(w[1], w[2], sh)) << 32;
+    if (U == 16)
+      hi = __funnelshift_r(w[2], w[3], sh) |
+           uint64_t(__funnelshift_r(w[3], w[4], sh)) << 32;
+    if (have < 8) {
+      lo &= (uint64_t(1) << (8 * have)) - 1;
+      hi = 0;
+    } else if (have < 16) {
+      hi &= (uint64_t(1) << (8 * (have - 8))) - 1;
     }
+  }
+  const int b = s.b;
+  const uint64_t mb = b == 8 ? ~uint64_t(0) : (uint64_t(1) << (8 * b)) - 1;
+  const uint64_t o0 = unpack8(lo & mb, b);
+  // the second eight values: the lane's bytes b..2b-1
+  const uint64_t w1 =
+      b == 8 ? hi : (b == 0 ? 0 : (lo >> (8 * b) | hi << (64 - 8 * b)) & mb);
+  const uint64_t o1 = U == 16 ? unpack8(w1, b) : 0;
+  uint8_t* dst = a.out + p;
+  if (p + U <= a.g.n) {
+    if (U == 16)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(
+          static_cast<uint32_t>(o0), static_cast<uint32_t>(o0 >> 32),
+          static_cast<uint32_t>(o1), static_cast<uint32_t>(o1 >> 32));
+    else
+      *reinterpret_cast<uint64_t*>(dst) = o0;
+  } else {
+    for (uint32_t j = 0; j < a.g.n - p; ++j)
+      dst[j] = static_cast<uint8_t>(j < 8 ? o0 >> (8 * j)
+                                          : o1 >> (8 * (j - 8)));
   }
 }
 
-int64_t frame_blocks(int64_t frames) {
-  const int64_t blocks = (frames + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  return blocks < kMaxFrameBlocks ? blocks : kMaxFrameBlocks;
+template <int U>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+unpack_kernel(const UnpackArgs a) {
+  constexpr uint32_t kSpan = kWarp * U;
+  __shared__ __align__(16) uint8_t stage[kDenseWarps][2][kUnpackStage];
+  const int lane = threadIdx.x % kWarp;
+  uint8_t* st0 = stage[threadIdx.x / kWarp][0];
+  uint8_t* st1 = stage[threadIdx.x / kWarp][1];
+  const uint32_t spans = (a.g.n + kSpan - 1) / kSpan;
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  for (uint32_t sp = static_cast<uint32_t>(global_warp()); sp < spans;
+       sp += 2 * stride) {
+    const bool second = sp + stride < spans;
+    const uint32_t p0 = sp * kSpan + lane * U;
+    const uint32_t p1 = (sp + stride) * kSpan + lane * U;
+    UnpackSpan x, y;
+    unpack_locate<U>(a, p0, x);
+    if (second) unpack_locate<U>(a, p1, y);
+    unpack_load(a, x, st0);
+    if (second) unpack_load(a, y, st1);
+    wait_copies();
+    __syncwarp();
+    unpack_store<U>(a, p0, x, st0);
+    if (second) unpack_store<U>(a, p1, y, st1);
+    __syncwarp();
+  }
 }
 
 bool bad_geometry(int64_t n, int64_t L) {
   return n < 0 || L <= 0 || L % 8 != 0;
 }
 
-// The grid holds the blocks that the card runs at once (__launch_bounds__
-// keeps kPackBlocksPerSm resident), fewer for a short stream.
-template <int U>
-cudaError_t launch_pack(const PackArgs& a, int device, cudaStream_t stream) {
+// A frame at least as long as the stream is the whole stream: any L ≥ n
+// gives the same single frame, so take one that fits 32 bits.
+int64_t launch_length(int64_t n, int64_t L) {
+  return L < n ? L : (n + 15) / 16 * 16;
+}
+
+Layout make_layout(int64_t n, int64_t L, const void* bits, const void* offs,
+                   int fb) {
+  return Layout{static_cast<uint32_t>(n), static_cast<uint32_t>(L),
+                UINT64_MAX / static_cast<uint64_t>(L) + 1,
+                static_cast<const uint8_t*>(bits),
+                static_cast<const int64_t*>(offs), fb};
+}
+
+// `wanted` blocks, at most the blocks the card holds at once
+// (__launch_bounds__ keeps kDenseBlocksPerSm resident).
+cudaError_t resident_grid(int64_t wanted, int device, unsigned& blocks) {
   int sms = 0;
   const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int64_t resident = int64_t(sms) * kDenseBlocksPerSm;
+  blocks = static_cast<unsigned>(wanted < resident ? wanted : resident);
+  return err;
+}
+
+template <int U>
+cudaError_t launch_widths(WidthsArgs a, int device, cudaStream_t stream) {
+  constexpr int64_t kStep = kWidthsSpans * kWarp * U;
+  const bool spans = kWarp * U % a.L == 0;
+  a.steps = static_cast<uint32_t>((a.n + kStep - 1) / kStep);
+  a.k = spans ? __builtin_ctz(a.L / U) : 0;
+  const int64_t warps = spans ? a.steps : a.frames;
+  unsigned blocks = 0;
+  const cudaError_t err = resident_grid(
+      (warps + kDenseWarps - 1) / kDenseWarps, device, blocks);
   if (err != cudaSuccess) return err;
-  const int64_t spans = (int64_t(a.n) + kWarp * U - 1) / (kWarp * U);
-  const int64_t blocks = (spans + kPackWarps - 1) / kPackWarps;
-  const int64_t resident = int64_t(sms) * kPackBlocksPerSm;
-  pack_kernel<U><<<static_cast<unsigned>(blocks < resident ? blocks
-                                                           : resident),
-                   kPackThreads, 0, stream>>>(a);
+  if (spans)
+    widths_spans_kernel<U><<<blocks, kDenseThreads, 0, stream>>>(a);
+  else
+    widths_frames_kernel<U><<<blocks, kDenseThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// One span per warp a step (two for the unpack), so a warp for each 32·U
+// bytes at most.
+template <int U, typename Args>
+cudaError_t launch_spans(void (*kernel)(Args), const Args& a, uint32_t n,
+                         int device, cudaStream_t stream) {
+  const int64_t spans = (int64_t(n) + kWarp * U - 1) / (kWarp * U);
+  unsigned blocks = 0;
+  const cudaError_t err = resident_grid(
+      (spans + kDenseWarps - 1) / kDenseWarps, device, blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kDenseThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool bad_mode(const void* bits, const void* offs, int fb) {
+  return offs == nullptr ? (fb < 1 || fb > 8) : (fb != 0 || bits == nullptr);
+}
+
+bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
 }  // namespace
@@ -446,25 +775,31 @@ FLRL_API int flrl_frame_widths(const void* data, int64_t n,
                                int64_t frame_length, int fb_expect,
                                void* bits, void* flag, int device,
                                void* stream) {
-  if (bad_geometry(n, frame_length) || fb_expect < 0 || fb_expect > 8)
+  if (bad_geometry(n, frame_length) || n > kDenseMaxBytes ||
+      fb_expect < 0 || fb_expect > 8 || misaligned(data) || misaligned(bits))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t frames = (n + frame_length - 1) / frame_length;
-  if (frames == 0) return cudaSuccess;
-  frame_widths_kernel<<<static_cast<unsigned>(frame_blocks(frames)),
-                        kFrameThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), n, frame_length, frames, fb_expect,
-      static_cast<uint8_t*>(bits), static_cast<int*>(flag));
-  return cudaGetLastError();
+  if (n == 0) return cudaSuccess;
+  const int64_t L = launch_length(n, frame_length);
+  const WidthsArgs a{static_cast<const uint8_t*>(data),
+                     static_cast<uint32_t>(n),
+                     static_cast<uint32_t>(L),
+                     static_cast<uint32_t>((n + L - 1) / L),
+                     0,
+                     0,
+                     fb_expect,
+                     static_cast<uint8_t*>(bits),
+                     static_cast<int*>(flag)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return L % 16 == 0 ? launch_widths<16>(a, device, s)
+                     : launch_widths<8>(a, device, s);
 }
 
 FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
                                 int64_t frame_length, void* offs,
                                 void* scratch, int device, void* stream) {
-  if (bad_geometry(n, frame_length) ||
-      reinterpret_cast<uintptr_t>(offs) % 16 != 0)
+  if (bad_geometry(n, frame_length) || misaligned(offs))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -487,46 +822,42 @@ FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
 FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,
                        const void* bits, const void* offs, int fb,
                        void* values, int device, void* stream) {
-  const bool uniform = offs == nullptr;
-  if (bad_geometry(n, frame_length) || n > kPackMaxBytes ||
-      reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
-      (uniform ? (fb < 1 || fb > 8) : (fb != 0 || bits == nullptr)))
+  if (bad_geometry(n, frame_length) || n > kDenseMaxBytes ||
+      misaligned(data) || bad_mode(bits, offs, fb))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n == 0) return cudaSuccess;
-  // A frame at least as long as the stream is the whole stream: any L ≥ n
-  // packs the same bytes, so take one that fits 32 bits.
-  const int64_t L = frame_length < n ? frame_length : (n + 15) / 16 * 16;
+  const int64_t L = launch_length(n, frame_length);
   const PackArgs a{static_cast<const uint8_t*>(data),
-                   static_cast<uint32_t>(n), static_cast<uint32_t>(L),
-                   UINT64_MAX / static_cast<uint64_t>(L) + 1,
-                   static_cast<const uint8_t*>(bits),
-                   static_cast<const int64_t*>(offs), fb,
+                   make_layout(n, L, bits, offs, fb),
                    static_cast<uint8_t*>(values)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return L % 16 == 0 ? launch_pack<16>(a, device, s)
-                     : launch_pack<8>(a, device, s);
+  return L % 16 == 0
+             ? launch_spans<16>(pack_kernel<16>, a, a.g.n, device, s)
+             : launch_spans<8>(pack_kernel<8>, a, a.g.n, device, s);
 }
 
 FLRL_API int flrl_unpack(const void* values, int64_t values_size, int64_t n,
                          int64_t frame_length, const void* bits,
                          const void* offs, int fb, void* out, int device,
                          void* stream) {
-  const bool uniform = offs == nullptr;
-  if (bad_geometry(n, frame_length) || values_size < 0 ||
-      (uniform ? (fb < 1 || fb > 8) : (fb != 0 || bits == nullptr)))
+  if (bad_geometry(n, frame_length) || n > kDenseMaxBytes ||
+      values_size < 0 || misaligned(out) || bad_mode(bits, offs, fb))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t frames = (n + frame_length - 1) / frame_length;
-  if (frames == 0) return cudaSuccess;
-  unpack_kernel<<<static_cast<unsigned>(frame_blocks(frames)), kFrameThreads,
-                  0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(values), values_size, n, frame_length,
-      frames, static_cast<const uint8_t*>(bits),
-      static_cast<const int64_t*>(offs), fb, static_cast<uint8_t*>(out));
-  return cudaGetLastError();
+  if (n == 0) return cudaSuccess;
+  const int64_t L = launch_length(n, frame_length);
+  const UnpackArgs a{
+      static_cast<const uint8_t*>(values),
+      static_cast<uint32_t>(values_size < UINT32_MAX ? values_size
+                                                     : UINT32_MAX),
+      make_layout(n, L, bits, offs, fb), static_cast<uint8_t*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return L % 16 == 0
+             ? launch_spans<16>(unpack_kernel<16>, a, a.g.n, device, s)
+             : launch_spans<8>(unpack_kernel<8>, a, a.g.n, device, s);
 }
 
 FLRL_API const char* flrl_cuda_error_string(int code) {

@@ -16,10 +16,10 @@
 
 namespace flrl {
 
-// Frame kernels (widths, unpack): one warp per frame, 8 warps per block.
+// The field kernels (fl_fields.cu): one warp per frame, 8 warps per block.
 constexpr int kWarpsPerBlock = 8;
 constexpr int kFrameThreads = kWarpsPerBlock * kWarp;
-// Grid cap for the grid-stride frame loops (a 1 GiB chunk at L = 8 has
+// Grid cap for their grid-stride frame loops (a 1 GiB chunk at L = 8 has
 // 2^27 frames; a capped grid walks them instead of launching 2^24 blocks).
 constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
 
@@ -29,16 +29,21 @@ constexpr int kOffsetsThreads = 256;
 constexpr int kOffsetsItems = 16;
 constexpr int64_t kOffsetsTile = int64_t(kOffsetsThreads) * kOffsetsItems;
 
-// Pack: 8 warps a block, 8 blocks an SM (32 registers a thread); a warp
-// span is 32 lanes × U input bytes (U = 16, or 8 where L % 16 != 0) and
-// stages at most 32·U payload bytes, behind up to 15 bytes that align the
-// span to its 16-byte phase in device memory.  Positions are 32-bit, so a
-// launch packs at most 2^31 bytes.
-constexpr int kPackWarps = 8;
-constexpr int kPackThreads = kPackWarps * kWarp;
-constexpr int kPackBlocksPerSm = 8;
+// Widths, pack and unpack: 8 warps a block, 8 blocks an SM (32 registers
+// a thread), a grid of the blocks the card holds at once.  A warp span is
+// 32 lanes × U stream bytes (U = 16, or 8 where L % 16 != 0).  The widths
+// take kWidthsSpans spans a warp step, loaded before any is reduced.  The
+// pack and unpack stage a span's payload (at most 32·U bytes) behind up to
+// 15 bytes that align it to its 16-byte phase in device memory; the
+// unpack's stage has room for the 20-byte aligned reads of its last lane.
+// Positions are 32-bit, so a launch takes at most 2^31 bytes.
+constexpr int kDenseWarps = 8;
+constexpr int kDenseThreads = kDenseWarps * kWarp;
+constexpr int kDenseBlocksPerSm = 8;
+constexpr int kWidthsSpans = 4;
 constexpr int kPackStage = kWarp * 16 + 16;
-constexpr int64_t kPackMaxBytes = int64_t(1) << 31;
+constexpr int kUnpackStage = kWarp * 16 + 64;
+constexpr int64_t kDenseMaxBytes = int64_t(1) << 31;
 
 // Number of real bytes in frame f of an n-byte stream cut into L-byte frames.
 __host__ __device__ inline int64_t frame_count(int64_t f, int64_t n,
@@ -54,8 +59,11 @@ __host__ __device__ inline int64_t frame_bytes(int b, int64_t count) {
 
 }  // namespace flrl
 
-// Per-frame width max(1, bitlen(max byte)) into bits[F].  fb_expect != 0
-// sets *flag to 1 when any frame's width differs from it (uniform mode).
+// Per-frame width max(1, bitlen(max byte)) into bits[F] of the n ≤
+// kDenseMaxBytes bytes at `data`; `data` and `bits` are 16-byte aligned.
+// fb_expect != 0 sets *flag to 1 when any frame's width differs from it
+// (uniform mode).  The caller zeroes *flag before the launch; the kernel
+// only ever sets it.
 FLRL_API int flrl_frame_widths(const void* data, int64_t n,
                                int64_t frame_length, int fb_expect,
                                void* bits, void* flag, int device,
@@ -69,7 +77,7 @@ FLRL_API int flrl_frame_offsets(const void* bits, int64_t n,
                                 int64_t frame_length, void* offs,
                                 void* scratch, int device, void* stream);
 
-// Pack n ≤ kPackMaxBytes bytes (`data` 16-byte aligned) into the container
+// Pack n ≤ kDenseMaxBytes bytes (`data` 16-byte aligned) into the container
 // payload.
 // General mode: widths `bits` and offsets `offs` (fb = 0).  Uniform mode:
 // fb in 1..8, bits and offs null, frame f at the static offset f·L·fb/8.
@@ -77,7 +85,10 @@ FLRL_API int flrl_pack(const void* data, int64_t n, int64_t frame_length,
                        const void* bits, const void* offs, int fb,
                        void* values, int device, void* stream);
 
-// Inverse of flrl_pack: payload `values` (values_size bytes) → n bytes.
+// Inverse of flrl_pack: payload `values` (values_size bytes, any alignment)
+// → n ≤ kDenseMaxBytes bytes at `out` (16-byte aligned); modes as there.
+// No byte at or past values[values_size] is read: payload bytes the frames
+// need beyond it decode as zeros.
 FLRL_API int flrl_unpack(const void* values, int64_t values_size, int64_t n,
                          int64_t frame_length, const void* bits,
                          const void* offs, int fb, void* out, int device,

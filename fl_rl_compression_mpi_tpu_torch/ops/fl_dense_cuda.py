@@ -250,7 +250,8 @@ def _stream(t: torch.Tensor) -> int:
 def frame_widths(data: torch.Tensor, frame_length: int = FRAME_LENGTH,
                  fb_expect: int = 0):
     """``(bits u8[F], flag i32[1])`` of ``data`` u8[n]; see
-    :func:`frame_widths_ref`."""
+    :func:`frame_widths_ref`.  The kernel takes at most 2^31 bytes a
+    call."""
     check_frame_length(frame_length)
     _check(data, "data", torch.uint8)
     if not 0 <= fb_expect <= 8:
@@ -329,7 +330,8 @@ def unpack(values: torch.Tensor, n: int, frame_length: int = FRAME_LENGTH,
            bits: torch.Tensor | None = None,
            offs: torch.Tensor | None = None, fb: int = 0) -> torch.Tensor:
     """n decoded bytes u8[n] of the payload ``values``; modes as in
-    :func:`pack`.  Reads stop at the payload's end."""
+    :func:`pack`.  Reads stop at the payload's end, which may lie at any
+    alignment.  The kernel takes at most 2^31 bytes a call."""
     check_frame_length(frame_length)
     _check(values, "values", torch.uint8)
     _check_mode(n, frame_length, bits, offs, fb)
