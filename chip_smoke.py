@@ -43,14 +43,26 @@ Phases, each printing a line and failing the run on any error:
               carries (mid-piece, at a cap boundary, on a new value, d0 in
               {254, 255, 256, 2^31 + 7}, a chunk with no natural start);
               the expand on output sizes 1..33, runs of 1, 15, 16, 17 and
-              255, tile outputs at every 16-byte phase, zero counts; timed
-              on the 512 MiB rl_mixed stream.
+              255, tile outputs at every 16-byte phase, zero counts; the
+              run offsets at 4, 8 and 16 tiles a block on run counts around
+              a tile, a group and 40 groups (a look-back past its window),
+              tail tiles of 1 and 4095 runs, random, zero and all-255
+              counts, twenty calls in a row on reused memory, and 2^30 zero
+              counts followed by 2^30 counts of 255; timed on the 512 MiB
+              rl_mixed stream, the run offsets at each group size, beside
+              a yardstick (each whole tile's sum in int64, then cumsum).
               Then the FL field kernels (base and pack-2 mode) the same way:
               widths 1..8, random widths, tails n mod L in {0, 1, 77, L-1},
               L in {8, 24, 64, 128, 512, 1024}, pack-2 at tile_r 16 and 2048
               on width <= 4 streams, a 64 MiB stream; each container from the
-              native host fold equal to fl-cpu's; timed on the 512 MiB mixed
-              (base) and uniform4 (base and pack-2) streams.  Then the
+              native host fold equal to fl-cpu's; the encode on frame counts
+              around a warp step, a block and the resident grid's pass (L =
+              8, 24, 128, 512, 1024; pack-2 packed rows at L = 8, 128, 512),
+              pack-2 tiles at tile_r 16 and 2048 with a width-5 frame in the
+              last tile, every uniform width, 1 GiB at L = 128 in both
+              modes, and the refusal past 2^31 bytes; timed on the 512 MiB
+              mixed (base) and uniform4 (base and pack-2) streams, and the
+              encode in both modes on each part of the mixed stream.  Then the
               constant-stream kernels: c in {0, 1, 3, 15, 255}, c = 0 with
               tails {1, 77, 127}, unaligned starts, the flags on flipped
               input and payload bytes (not on the pad past the payload),
@@ -190,6 +202,7 @@ RUN = 20
 SLEEP_CYCLES = 20_000_000          # about 10 ms of device sleep at 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 DENSE_MAX_BYTES = 1 << 31          # kDenseMaxBytes: the most a launch takes
+HALF_RUNS = 1 << 30                # zero counts, then as many of 255
 
 
 def say(msg: str) -> None:
@@ -383,10 +396,10 @@ def phase_pack_classes(rng) -> int:
     return cases
 
 
-def dense_constant(name: str) -> int:
-    """A constant of csrc/fl_dense.cuh."""
+def dense_constant(name: str, header: str = "fl_dense.cuh") -> int:
+    """A constant of csrc/fl_dense.cuh (or of another header there)."""
     path = os.path.join(REPO, "fl_rl_compression_mpi_tpu_torch", "csrc",
-                        "fl_dense.cuh")
+                        header)
     with open(path) as f:
         return int(re.search(rf"{name} = (\d+);", f.read()).group(1))
 
@@ -784,8 +797,108 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
     moved("fl_fields_encode_p2", words, bits, out)
     moved("fl_fields_decode_p2", out, bits, words)
     del words, bits, out
+    time_fields_parts(staged_words(mixed, L))
     torch.cuda.empty_cache()
     return timings
+
+
+def time_fields_parts(words: torch.Tensor) -> None:
+    """The field encode in both modes on each part of the mixed stream
+    alone, a launch over a run of RUN calls, beside each part's bound (the
+    part's bytes read, its fields written: all of them in base mode, half
+    in pack-2, and its widths)."""
+    L, tr = 128, fl_torch.PACK_TILE_R
+    at = 0
+    for i, (name, mib) in enumerate(MIXED_PARTS):
+        wp = words[at // 4:(at + mib * MIB) // 4]
+        at += mib * MIB
+        n = 4 * wp.numel()
+        base = launch_ms(lambda: fk.encode_fields(wp, L))
+        pack2 = launch_ms(lambda: fk.encode_fields(wp, L, tr))
+        say(f"[kernels] mixed part {i} ({name}, {mib} MiB): fl_fields_encode "
+            f"{base:.4f} ms (bound "
+            f"{(2 * n + n // L) / HBM_BYTES_PER_S * 1e3:.4f}), "
+            f"fl_fields_encode_p2 {pack2:.4f} ms (bound "
+            f"{(n + n // 2 + n // L) / HBM_BYTES_PER_S * 1e3:.4f}) a launch "
+            f"over a run of {RUN}")
+
+
+def check_encode_fields(words: torch.Tensor, L: int, tile_r: int = 0) -> None:
+    """The field encode of one mode against its plain version alone (any
+    widths: pack-2 keeps each field's low 16 bits, as the twin does)."""
+    name = "fl_fields_encode_p2" if tile_r else "fl_fields_encode"
+    bits, out = fk.encode_fields(words, L, tile_r)
+    want_bits, want_out = fk.encode_fields_ref(words, L, tile_r)
+    compare(name, bits, want_bits)
+    compare(name, out, want_out)
+
+
+def phase_fields_encode_classes(rng) -> int:
+    """flrl_fields_encode on the classes of its layout (drawn from a
+    generator of their own).  Frame counts around a base-mode warp step
+    (kFieldsStep bytes), a block's steps and the resident grid's pass at
+    L = 8, 24, 128, 512, 1024 (24 and 1024: a warp a frame), through
+    check_fields; packed rows around a block and a pass in pack-2 mode at
+    L = 8, 128, 512; the pack-2 tiles at tile_r 16 and 2048 with one frame
+    of width 5 in the last tile (against the twin: no container); every
+    uniform width at L = 128 in both modes; 1 GiB at L = 128 in both modes;
+    more than 2^31 bytes refused."""
+    cases = 0
+    warps = (torch.cuda.get_device_properties(DEVICE).multi_processor_count
+             * dense_constant("kDenseBlocksPerSm")
+             * dense_constant("kDenseWarps"))
+    step = dense_constant("kFieldsStep", "fl_fields.cuh")
+    for L in (8, 24, 128, 512, 1024):
+        U = 16 if L % 16 == 0 else 8
+        per_step = step // L if 32 * U % L == 0 else 1
+        frames = {1, per_step - 1, per_step + 1, 8 * per_step + 1,
+                  warps * per_step - 1, warps * per_step,
+                  warps * per_step + 1, 2 * warps * per_step + 1}
+        for F in sorted(frames - {0}):
+            check_fields(random_width_stream(rng, F * L, L), L)
+            cases += 1
+    # pack-2: a warp step is one packed row (512 bytes out, 1 KiB in)
+    for L in (8, 128, 512):
+        for rows in (8, warps - 8, warps + 8, 2 * warps + 24):
+            tr = 16
+            n = -(-rows * 1024 // (tr * 512)) * tr * 512
+            check_fields(random_width_stream(rng, n - L // 2, L, 4), L, tr)
+            cases += 1
+    for L in (8, 16, 32, 64, 128, 256, 512):
+        for tr in (16, fl_torch.PACK_TILE_R):
+            data = random_width_stream(rng, 3 * tr * 512, L, 4)
+            data[-L - 3] = 17                # width 5, in the last tile
+            words = staged_words(data, tr * 512)
+            check_encode_fields(words, L, tr)
+            check_encode_fields(words, L)
+            cases += 1
+    for b in range(1, 9):
+        data = uniform_stream(rng, 3 * MIB + 128 * b, 128, b)
+        check_fields(data, 128)
+        if b <= 4:
+            check_fields(data, 128, fl_torch.PACK_TILE_R)
+        else:
+            check_encode_fields(staged_words(data, fl_torch.PACK_TILE_R * 512),
+                                128, fl_torch.PACK_TILE_R)
+        cases += 1
+    words = widths_stream(1024 * MIB // 128, 128, 0).view(torch.int32)
+    check_encode_fields(words, 128)
+    check_encode_fields(words, 128, fl_torch.PACK_TILE_R)
+    del words
+    torch.cuda.empty_cache()
+    cases += 1
+    # the kernel's 32-bit positions: more than 2^31 bytes must raise
+    big = torch.empty((DENSE_MAX_BYTES + 512) // 4, dtype=torch.int32,
+                      device=DEVICE)
+    try:
+        fk.encode_fields(big, 128)
+    except RuntimeError:
+        cases += 1
+    else:
+        raise AssertionError("flrl_fields_encode took more than 2^31 bytes")
+    del big
+    torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1284,6 +1397,49 @@ def phase_rl_kernels(rng, classes_rng) -> int:
             + phase_rl_expand_classes(classes_rng))
 
 
+def phase_rl_offsets_classes(rng) -> int:
+    """flrl_rl_run_offsets at every group size it takes (4, 8, 16 tiles a
+    block) on R around a tile, a group and 40 groups (a look-back past its
+    32-group window), tail groups whose last tile holds R mod 4096 in
+    {0, 1, 4095} runs, of random, zero and all-255 counts; twenty calls in a
+    row on reused memory (each result freed before the next: the status
+    words are cleared on the stream); and 2^30 zero counts followed by 2^30
+    counts of 255 (positions and sums past 32 bits)."""
+    T = rk.TILE
+    cases = 0
+    saved = rk.RUN_GROUP
+    try:
+        for K in (4, 8, 16):
+            rk.RUN_GROUP = K
+            for R in sorted({0, 1, 15, 17, T - 1, T, T + 1, K * T - 1,
+                             K * T, K * T + 1, 40 * K * T,
+                             (40 * K - 1) * T + 1, (40 * K - 1) * T + T - 1,
+                             (3 * K + 2) * T + 1}):
+                for counts in (rng.integers(0, 256, R, np.uint8),
+                               np.zeros(R, np.uint8),
+                               np.full(R, 255, np.uint8)):
+                    c = torch.from_numpy(counts).cuda()
+                    compare("rl_offsets", rk.run_offsets(c),
+                            rk.run_offsets_ref(c))
+                    cases += 1
+    finally:
+        rk.RUN_GROUP = saved
+    R = 41 * saved * T + 5
+    counts = [torch.from_numpy(rng.integers(0, 256, R, np.uint8)).cuda()
+              for _ in range(20)]
+    wants = [rk.run_offsets_ref(c) for c in counts]
+    for c, want in zip(counts, wants):
+        compare("rl_offsets", rk.run_offsets(c), want)
+    cases += 20
+    del counts, wants
+    big = torch.zeros(2 * HALF_RUNS, dtype=torch.uint8, device=DEVICE)
+    big[HALF_RUNS:] = 255
+    compare("rl_offsets", rk.run_offsets(big), rk.run_offsets_ref(big))
+    del big
+    torch.cuda.empty_cache()
+    return cases + 1
+
+
 ENCODE_TILE_COUNTS = (1, 31, 32, 33, 1024)
 ENCODE_MAX_BYTES = 1 << 30       # kEncodeMaxBytes in csrc/rl.cuh
 
@@ -1400,8 +1556,7 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     moved("rl_encode", x, values, counts)
     moved("rl_offsets", counts, offs)
     moved("rl_expand", counts, values, offs, x)
-    library_ms("rl_offsets",
-               lambda: torch.cumsum(counts, 0, dtype=torch.int64))
+    time_rl_offsets_groups(counts)
     counts64 = counts.to(torch.int64)     # repeat_interleave's repeats type
     library_ms("rl_expand", lambda: torch.repeat_interleave(
         values, counts64, output_size=n))
@@ -1411,6 +1566,36 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     del x
     torch.cuda.empty_cache()
     return timings
+
+
+def time_rl_offsets_groups(counts: torch.Tensor) -> None:
+    """flrl_rl_run_offsets at each group size it takes, a launch over a run
+    of RUN calls, each compared once; and a yardstick, not a library time
+    (no one PyTorch call computes the per-tile scan): the sum of each whole
+    tile of 4096 counts in int64, then its cumsum."""
+    saved = rk.RUN_GROUP
+    times = []
+    try:
+        for K in (4, 8, 16):
+            rk.RUN_GROUP = K
+            compare("rl_offsets", rk.run_offsets(counts),
+                    rk.run_offsets_ref(counts))
+            ms = launch_ms(lambda: rk.run_offsets(counts))
+            times.append(f"{K} tiles {ms:.4f}")
+    finally:
+        rk.RUN_GROUP = saved
+    say(f"[kernels] rl_offsets a block of K tiles (the wrapper takes {saved}): "
+        f"{', '.join(times)} ms a launch over a run of {RUN}")
+    T = counts.numel() // rk.TILE
+    rows = counts[:T * rk.TILE].view(T, rk.TILE)
+
+    def yardstick():
+        return torch.cumsum(rows.sum(1, dtype=torch.int64), 0)
+
+    say(f"[kernels] yardstick torch.cumsum(counts[:T*4096].view(T, 4096)"
+        f".sum(1, dtype=torch.int64), 0) on rl_mixed's {T} whole tiles "
+        f"(two calls): {cuda_ms(yardstick):.3f} ms single (median of 5), "
+        f"{launch_ms(yardstick):.4f} ms a launch over a run of {RUN}")
 
 
 RL_PARTS = ("runs of 1..8", "runs of 200..900", "random bytes", "zeros")
@@ -1754,7 +1939,12 @@ def main() -> int:
     say(f"[build] {os.path.relpath(_build.library_path(), REPO)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "Used" in line or "spill" in line:
+        entry = re.search(r"entry function '.*?([a-z][a-z_]*_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+        if entry:
+            name, arg = entry.groups()
+            say(f"[build] {name}" + (f"<{arg}>" if arg else "") + ":")
+        elif "Used" in line or "spill" in line:
             say(f"[build] {line.strip()}")
     fold = fields.host_fold_kind()
     say(f"[build] host fold: {fold}")
@@ -1800,6 +1990,10 @@ def main() -> int:
     cases = phase_field_kernels(rng)
     say(f"[kernels] {cases} field inputs: kernels equal their plain versions "
         f"byte for byte, host-folded containers equal fl-cpu's")
+    t1 = time.perf_counter()
+    cases = phase_fields_encode_classes(np.random.default_rng(SEED + 4))
+    say(f"[kernels] {cases} field-encode inputs equal their plain version, "
+        f"the containers fl-cpu's ({time.perf_counter() - t1:.1f} s)")
     timings.update(time_field_kernels(mixed, uniform4))
     t_fields = time.perf_counter() - t0
 
@@ -1807,6 +2001,10 @@ def main() -> int:
     cases = phase_rl_kernels(rng, classes_rng)
     say(f"[kernels] {cases} RL inputs: kernels equal their plain versions "
         f"byte for byte")
+    t1 = time.perf_counter()
+    cases = phase_rl_offsets_classes(np.random.default_rng(SEED + 5))
+    say(f"[kernels] {cases} run-offsets inputs equal their plain version "
+        f"({time.perf_counter() - t1:.1f} s)")
     rl_mixed = rl_mixed_stream(rng)
     timings.update(time_rl_kernels(rl_mixed))
     t_rl = time.perf_counter() - t0

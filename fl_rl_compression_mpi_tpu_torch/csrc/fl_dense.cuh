@@ -16,21 +16,15 @@
 
 namespace flrl {
 
-// The field kernels (fl_fields.cu): one warp per frame, 8 warps per block.
-constexpr int kWarpsPerBlock = 8;
-constexpr int kFrameThreads = kWarpsPerBlock * kWarp;
-// Grid cap for their grid-stride frame loops (a 1 GiB chunk at L = 8 has
-// 2^27 frames; a capped grid walks them instead of launching 2^24 blocks).
-constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
-
 // Offsets: a block scans a tile of 256 threads × 16 frames, one 16-byte
 // load of widths a thread.  ops/fl_dense_cuda.py's OFFSETS_TILE must match.
 constexpr int kOffsetsThreads = 256;
 constexpr int kOffsetsItems = 16;
 constexpr int64_t kOffsetsTile = int64_t(kOffsetsThreads) * kOffsetsItems;
 
-// Widths, pack and unpack: 8 warps a block, 8 blocks an SM (32 registers
-// a thread), a grid of the blocks the card holds at once.  A warp span is
+// Widths, pack, unpack and the field encode (fl_fields.cu): 8 warps a
+// block, 8 blocks an SM (32 registers a thread), a grid of the blocks the
+// card holds at once (lane_io.cuh's resident_grid).  A warp span is
 // 32 lanes × U stream bytes (U = 16, or 8 where L % 16 != 0).  The widths
 // take kWidthsSpans spans a warp step, loaded before any is reduced.  The
 // pack and unpack stage a span's payload (at most 32·U bytes) behind up to

@@ -15,39 +15,44 @@
 // segments.  Here a frame's width is an OR of its bytes reduced across the
 // lanes that hold its words (shuffles), and max(1, 32 - clz) of the result.
 //
-// Every launch is a pure stream: encode reads 4 bytes a word and writes 4
-// (base) or 2 (pack-2) bytes a word plus one width byte a frame; decode the
-// reverse.  Lane i takes word i of a warp's 32, so loads and base-mode stores
-// are 128 contiguous bytes a warp; a pack-2 store writes the word's u16 slot,
-// every other u16 of the warp's span.  Fields of width-≤4 frames are below
-// 2^16, so each owns its slot: no read-modify-write, no atomics.
+// Every launch is a pure stream, bound by bytes: encode reads 4 bytes a word
+// and writes 4 (base) or 2 (pack-2) bytes a word plus one width byte a
+// frame; decode the reverse.
+//
+// The encode takes the layout of the dense widths kernel (fl_dense.cu): a
+// lane per U input bytes (U = 16, or 8 where L % 16 == 8) with one vector
+// load, on a grid of the blocks the card holds at once, loop bounds computed
+// by the launcher.  A lane spreads its words in registers and stores its
+// fields as one vector.
+//
+// - Base mode, L dividing a warp span of 32·U bytes (L = 8, 16, ..., 512):
+//   a warp takes kFieldsStep = 1 KiB a step (two spans at U = 16, four at
+//   U = 8), all loaded before any is reduced.  A lane ORs each span's bytes into one byte of a word
+//   (byte j: span j), the L/U lanes of a frame combine the word with
+//   log2(L/U) xor shuffles, and each lane spreads its words at its frame's
+//   width and stores them where they were read.  A step's widths go through
+//   the warp's stage and out as 16-byte vectors (store_widths).
+// - Pack-2 mode (128 % (L/4) == 0): a warp step is one packed row of 128
+//   u32, whose words take rows r and r + tile_r/2 of the input (the low and
+//   the high 16 bits).  A lane loads the same 16-byte column group of both
+//   rows and stores the 16 packed bytes as one vector, so a warp writes
+//   whole 512-byte rows and no sector half.  Both rows' ORs ride in one word
+//   through the shuffles; where a lane holds two frames of a row (L = 8)
+//   each has its own byte.  The input row of a packed row is one
+//   multiply-high a step.
+// - Any other L (24, 40, 136, 1024, ...): a warp a frame with U-byte loads,
+//   one __reduce_or_sync, then a second pass that spreads and stores.
 #include <cuda_runtime.h>
 
 #include "fl_fields.cuh"
+#include "lane_io.cuh"
 
 namespace flrl {
 namespace {
 
+// The decode: a thread a word, on a grid of at most kMaxFrameBlocks blocks.
 constexpr int kWordThreads = 256;
-
-__device__ __forceinline__ int64_t global_warp() {
-  return (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-}
-
-__device__ __forceinline__ int64_t warp_stride() {
-  return int64_t(gridDim.x) * blockDim.x / kWarp;
-}
-
-// OR of a word's four bytes, in the low byte.  bitlen(OR) == bitlen(max).
-__device__ __forceinline__ unsigned byte_or(uint32_t x) {
-  const unsigned o = x | (x >> 16);
-  return (o | (o >> 8)) & 0xffu;
-}
-
-// The reference's width rule, max(1, bitlen(max byte)) (fl_jax.py:27-30).
-__device__ __forceinline__ int width_of(unsigned byte_or_value) {
-  return max(1, 32 - __clz(static_cast<int>(byte_or_value)));
-}
+constexpr int64_t kMaxFrameBlocks = int64_t(1) << 20;
 
 // e0 | e1<<b | e2<<2b | e3<<3b: exact in 32 bits (3b + 8 ≤ 32); b = 8 is
 // the identity.
@@ -62,14 +67,172 @@ __device__ __forceinline__ uint32_t unspread(uint32_t f, int b) {
          (((f >> (3 * b)) & m) << 24);
 }
 
-__device__ __forceinline__ void store_field(uint32_t* out, int64_t w,
-                                            uint32_t f, int tile_r) {
-  if (tile_r == 0)
-    out[w] = f;
-  else
-    reinterpret_cast<uint16_t*>(out)[p2_idx16(w, tile_r)] =
-        static_cast<uint16_t>(f);
+// The OR of a lane's U bytes.
+__device__ __forceinline__ unsigned or_group(const uint4& q) {
+  return or_bytes(q.x | q.y | q.z | q.w);
 }
+
+// A lane's U bytes, spread at width b, to dst.
+template <int U>
+__device__ __forceinline__ void store_fields(uint8_t* dst, const uint4& q,
+                                             int b) {
+  if (U == 16)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(
+        spread(q.x, b), spread(q.y, b), spread(q.z, b), spread(q.w, b));
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(spread(q.x, b),
+                                                spread(q.y, b));
+}
+
+struct EncodeArgs {
+  const uint8_t* words;  // the stream, 16-byte aligned
+  uint32_t n;            // its bytes: 4·nw ≤ 2^31, whole frames
+  uint32_t L;            // frame length in bytes
+  uint32_t frames;
+  uint32_t steps;        // warp steps (span and pack-2 paths)
+  int k;                 // log2 of a frame's lanes (span and pack-2 paths)
+  uint32_t half;         // pack-2: tile_r / 2
+  uint64_t recip;        // pack-2: UINT64_MAX / half + 1 (P / half, P < 2^32)
+  uint8_t* bits;
+  uint8_t* out;
+};
+
+// --------------------------------------------------------------------------
+// Base mode, L divides the span.  Replaces _encode_kernel
+// (fl_pallas.py:121).
+// --------------------------------------------------------------------------
+template <int U>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+encode_spans_kernel(const EncodeArgs a) {
+  constexpr int kSpans = kFieldsStep / (kWarp * U);
+  static_assert(kSpans <= 4, "a lane's span ORs fit one word");
+  constexpr uint32_t kSpan = kWarp * U;
+  constexpr uint32_t kStep = kFieldsStep;
+  __shared__ __align__(16) uint8_t stage[kDenseWarps][kFieldsStage];
+  const int lane = threadIdx.x % kWarp;
+  uint8_t* st = stage[threadIdx.x / kWarp];
+  const int k = a.k;
+  const uint32_t per_span = kWarp >> k;  // frames a span
+  const uint32_t whole = kSpans * per_span;
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  for (uint32_t s = static_cast<uint32_t>(global_warp()); s < a.steps;
+       s += stride) {
+    // n is a multiple of L, so a frame's lanes are all in or all past it
+    const uint32_t p = s * kStep + lane * U;
+    uint4 q[kSpans];
+#pragma unroll
+    for (int j = 0; j < kSpans; ++j)
+      q[j] = p + j * kSpan < a.n ? load_vec<U>(a.words + p + j * kSpan)
+                                 : make_uint4(0, 0, 0, 0);
+    unsigned m = 0;  // byte j: the OR of the lane's bytes of span j
+#pragma unroll
+    for (int j = 0; j < kSpans; ++j) m |= or_group(q[j]) << (8 * j);
+    for (int i = 0; i < k; ++i) m |= __shfl_xor_sync(kFullMask, m, 1 << i);
+#pragma unroll
+    for (int j = 0; j < kSpans; ++j)
+      if (p + j * kSpan < a.n)
+        store_fields<U>(a.out + p + j * kSpan, q[j],
+                        width_of((m >> (8 * j)) & 0xffu));
+    const uint32_t f0 = s * whole;
+    if ((lane & ((1 << k) - 1)) == 0) {  // the first of its frame's lanes
+#pragma unroll
+      for (int j = 0; j < kSpans; ++j) {
+        const uint32_t g = j * per_span + (lane >> k);
+        if (f0 + g < a.frames)
+          st[g] = static_cast<uint8_t>(width_of((m >> (8 * j)) & 0xffu));
+      }
+    }
+    __syncwarp();
+    const uint32_t left = a.frames - f0;
+    store_widths(a.bits + f0, st, left < whole ? left : whole, whole, lane);
+    __syncwarp();
+  }
+}
+
+// --------------------------------------------------------------------------
+// Pack-2 mode.  Replaces _encode_packed_kernel (fl_pallas.py:309).  G: the
+// frames a lane holds in a row (2 at L = 8, else 1; a frame then spans
+// 2^k lanes).  m's byte h·G + i: the OR of frame i of row half h.
+// --------------------------------------------------------------------------
+template <int G>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+encode_pack2_kernel(const EncodeArgs a) {
+  constexpr uint32_t kRow = kPackLanes * 4;  // bytes of a row
+  __shared__ __align__(16) uint8_t stage[kDenseWarps][kFieldsStage];
+  const int lane = threadIdx.x % kWarp;
+  uint8_t* st = stage[threadIdx.x / kWarp];
+  const int k = a.k;
+  const uint32_t per_row = kRow / a.L;  // frames a row
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  for (uint32_t P = static_cast<uint32_t>(global_warp()); P < a.steps;
+       P += stride) {
+    // packed row P of tile P / half holds input rows lo and lo + half
+    const uint32_t tile =
+        static_cast<uint32_t>(__umul64hi(uint64_t(P), a.recip));
+    const uint32_t lo = P + tile * a.half;
+    const uint8_t* src = a.words + lo * kRow + lane * 16;
+    const uint4 x = load_vec<16>(src);
+    const uint4 y = load_vec<16>(src + a.half * kRow);
+    unsigned m;
+    if (G == 2)
+      m = or_bytes(x.x | x.y) | or_bytes(x.z | x.w) << 8 |
+          or_bytes(y.x | y.y) << 16 | or_bytes(y.z | y.w) << 24;
+    else
+      m = or_group(x) | or_group(y) << 8;
+    for (int i = 0; i < k; ++i) m |= __shfl_xor_sync(kFullMask, m, 1 << i);
+    // width of frame i of row half h, per word c of the lane's four
+    const int x0 = width_of(m & 0xffu), y0 = width_of((m >> (8 * G)) & 0xffu);
+    const int x1 = G == 2 ? width_of((m >> 8) & 0xffu) : x0;
+    const int y1 = G == 2 ? width_of(m >> 24) : y0;
+    *reinterpret_cast<uint4*>(a.out + P * kRow + lane * 16) = make_uint4(
+        (spread(x.x, x0) & 0xffffu) | spread(y.x, y0) << 16,
+        (spread(x.y, x0) & 0xffffu) | spread(y.y, y0) << 16,
+        (spread(x.z, x1) & 0xffffu) | spread(y.z, y1) << 16,
+        (spread(x.w, x1) & 0xffffu) | spread(y.w, y1) << 16);
+    if (G == 2) {
+      st[2 * lane] = static_cast<uint8_t>(x0);
+      st[2 * lane + 1] = static_cast<uint8_t>(x1);
+      st[per_row + 2 * lane] = static_cast<uint8_t>(y0);
+      st[per_row + 2 * lane + 1] = static_cast<uint8_t>(y1);
+    } else if ((lane & ((1 << k) - 1)) == 0) {
+      st[lane >> k] = static_cast<uint8_t>(x0);
+      st[per_row + (lane >> k)] = static_cast<uint8_t>(y0);
+    }
+    __syncwarp();
+    store_widths(a.bits + lo * per_row, st, per_row, per_row, lane);
+    store_widths(a.bits + (lo + a.half) * per_row, st + per_row, per_row,
+                 per_row, lane);
+    __syncwarp();
+  }
+}
+
+// --------------------------------------------------------------------------
+// Base mode, any other L (24, 40, 136, 1024, ...): a warp a frame.
+// --------------------------------------------------------------------------
+template <int U>
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+encode_frames_kernel(const EncodeArgs a) {
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t stride = static_cast<uint32_t>(warp_stride());
+  for (uint32_t f = static_cast<uint32_t>(global_warp()); f < a.frames;
+       f += stride) {
+    const uint32_t p0 = f * a.L;
+    const uint32_t end = p0 + a.L;
+    unsigned o = 0;
+    for (uint32_t p = p0 + lane * U; p < end; p += kWarp * U)
+      o |= or_group(load_vec<U>(a.words + p));
+    const int b = width_of(__reduce_or_sync(kFullMask, o));
+    if (lane == 0) a.bits[f] = static_cast<uint8_t>(b);
+    for (uint32_t p = p0 + lane * U; p < end; p += kWarp * U)
+      store_fields<U>(a.out + p, load_vec<U>(a.words + p), b);
+  }
+}
+
+// --------------------------------------------------------------------------
+// Decode: one thread a word; its frame's width from bits, its field from
+// the u32 (base) or its u16 slot (pack-2).  Replaces _decode_kernel and
+// _decode_packed_kernel (fl_pallas.py:152, :331).
+// --------------------------------------------------------------------------
 
 // Frame index of word w; a shift where wpf is a power of two (sh >= 0).
 __device__ __forceinline__ int64_t frame_of(int64_t w, int wpf, int sh) {
@@ -80,64 +243,6 @@ __device__ __forceinline__ int pow2_shift(int wpf) {
   return (wpf & (wpf - 1)) == 0 ? __ffs(wpf) - 1 : -1;
 }
 
-// --------------------------------------------------------------------------
-// Encode, wpf a power of two ≤ 32 (L ∈ {8, 16, 32, 64, 128}): a warp takes
-// 32 consecutive words, 32/wpf whole frames, and reduces each frame's OR with
-// xor shuffles inside its aligned wpf-lane segment.  Replaces _encode_kernel
-// and _encode_packed_kernel (fl_pallas.py:121, :309).
-// --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kWordThreads)
-encode_segments_kernel(const uint32_t* __restrict__ words, int64_t nw,
-                       int wpf, int tile_r, uint8_t* __restrict__ bits,
-                       uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x % kWarp;
-  const int sh = pow2_shift(wpf);
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t w0 = int64_t(blockIdx.x) * blockDim.x + threadIdx.x - lane;
-       w0 < nw; w0 += stride) {
-    // nw is a frame multiple, so a segment is wholly live or wholly past nw
-    const int64_t w = w0 + lane;
-    const bool live = w < nw;
-    const uint32_t x = live ? __ldg(words + w) : 0u;
-    unsigned o = byte_or(x);
-    for (int s = wpf >> 1; s > 0; s >>= 1)
-      o |= __shfl_xor_sync(kFullMask, o, s);
-    const int b = width_of(o);
-    if (live) {
-      if ((lane & (wpf - 1)) == 0)
-        bits[frame_of(w, wpf, sh)] = static_cast<uint8_t>(b);
-      store_field(out, w, spread(x, b), tile_r);
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// Encode, any other wpf (L = 24, 256, 512, 1024, ...): one warp a frame, a
-// strided OR over its words, __reduce_or_sync, then a second strided pass
-// (its words are in L1) that spreads and stores.
-// --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFrameThreads)
-encode_frames_kernel(const uint32_t* __restrict__ words, int64_t frames,
-                     int wpf, int tile_r, uint8_t* __restrict__ bits,
-                     uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x % kWarp;
-  for (int64_t f = global_warp(); f < frames; f += warp_stride()) {
-    const uint32_t* src = words + f * wpf;
-    unsigned o = 0;
-    for (int i = lane; i < wpf; i += kWarp) o |= __ldg(src + i);
-    o = __reduce_or_sync(kFullMask, byte_or(o));
-    const int b = width_of(o);
-    if (lane == 0) bits[f] = static_cast<uint8_t>(b);
-    for (int i = lane; i < wpf; i += kWarp)
-      store_field(out, f * wpf + i, spread(__ldg(src + i), b), tile_r);
-  }
-}
-
-// --------------------------------------------------------------------------
-// Decode: one thread a word; its frame's width from bits, its field from
-// the u32 (base) or its u16 slot (pack-2).  Replaces _decode_kernel and
-// _decode_packed_kernel (fl_pallas.py:152, :331).
-// --------------------------------------------------------------------------
 __global__ void __launch_bounds__(kWordThreads)
 decode_kernel(const uint32_t* __restrict__ in,
               const uint8_t* __restrict__ bits, int64_t nw, int wpf,
@@ -169,6 +274,17 @@ bool bad_fields(int64_t nw, int64_t L, int tile_r) {
   return tile_r != 0 && (tile_r < 0 || tile_r % 16 != 0 || 128 % wpf != 0);
 }
 
+template <typename Kernel>
+cudaError_t launch_encode(Kernel kernel, const EncodeArgs& a, int64_t warps,
+                          int device, cudaStream_t stream) {
+  unsigned blocks = 0;
+  const cudaError_t err = resident_grid(
+      (warps + kDenseWarps - 1) / kDenseWarps, device, blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kDenseThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace flrl
 
@@ -177,26 +293,47 @@ using namespace flrl;
 FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
                                 int64_t frame_length, int tile_r, void* bits,
                                 void* out, int device, void* stream) {
-  if (bad_fields(nw, frame_length, tile_r) ||
-      (tile_r != 0 && nw % (int64_t(tile_r) * 128) != 0))
+  if (bad_fields(nw, frame_length, tile_r) || nw > kDenseMaxBytes / 4 ||
+      (tile_r != 0 && nw % (int64_t(tile_r) * kPackLanes) != 0) ||
+      misaligned(words) || misaligned(bits) || misaligned(out))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nw == 0) return cudaSuccess;
-  const int wpf = static_cast<int>(frame_length / 4);
-  const auto* w = static_cast<const uint32_t*>(words);
-  auto* b = static_cast<uint8_t*>(bits);
-  auto* o = static_cast<uint32_t*>(out);
+  const uint32_t n = static_cast<uint32_t>(4 * nw);
+  const uint32_t L = static_cast<uint32_t>(frame_length);
+  const uint32_t half = static_cast<uint32_t>(tile_r / 2);
+  EncodeArgs a{static_cast<const uint8_t*>(words),
+               n,
+               L,
+               n / L,
+               0,
+               0,
+               half,
+               half ? UINT64_MAX / half + 1 : 0,
+               static_cast<uint8_t*>(bits),
+               static_cast<uint8_t*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wpf <= kWarp && (wpf & (wpf - 1)) == 0) {
-    encode_segments_kernel<<<grid_for(nw, kWordThreads), kWordThreads, 0, s>>>(
-        w, nw, wpf, tile_r, b, o);
-  } else {
-    const int64_t frames = nw / wpf;
-    encode_frames_kernel<<<grid_for(frames, kWarpsPerBlock), kFrameThreads, 0,
-                           s>>>(w, frames, wpf, tile_r, b, o);
+  if (tile_r != 0) {
+    // a packed row a step: its two input rows' 16-byte groups a lane
+    a.steps = static_cast<uint32_t>(nw / (2 * kPackLanes));
+    a.k = L >= 16 ? __builtin_ctz(L / 16) : 0;
+    return L == 8 ? launch_encode(encode_pack2_kernel<2>, a, a.steps, device,
+                                  s)
+                  : launch_encode(encode_pack2_kernel<1>, a, a.steps, device,
+                                  s);
   }
-  return cudaGetLastError();
+  const uint32_t U = L % 16 == 0 ? 16 : 8;
+  if (kWarp * U % L == 0) {
+    a.steps = (n + kFieldsStep - 1) / kFieldsStep;
+    a.k = __builtin_ctz(L / U);
+    return U == 16
+               ? launch_encode(encode_spans_kernel<16>, a, a.steps, device, s)
+               : launch_encode(encode_spans_kernel<8>, a, a.steps, device, s);
+  }
+  return U == 16
+             ? launch_encode(encode_frames_kernel<16>, a, a.frames, device, s)
+             : launch_encode(encode_frames_kernel<8>, a, a.frames, device, s);
 }
 
 FLRL_API int flrl_fields_decode(const void* in, const void* bits, int64_t nw,

@@ -16,10 +16,22 @@
 
 namespace flrl {
 
+// Field encode: a base-mode warp step is kFieldsStep input bytes, 32 a
+// lane: 2 warp spans of 16-byte lanes or 4 of 8-byte lanes (a lane's span
+// ORs share one word).  A warp's stage holds a step's widths (base mode) or
+// a packed row's two input rows' (pack-2, at most 64 each).
+constexpr int kFieldsStep = 1024;
+constexpr int kFieldsStage = 4 * kWarp;
+static_assert(kFieldsStep == 32 * kWarp, "32 bytes a lane");
+static_assert(kFieldsStep / 8 <= kFieldsStage, "a step's widths");
+// Words of a row of the pack-2 layout.
+constexpr int kPackLanes = 128;
+
 // Pack-2 layout (ops/fl_pallas.py:291-296, csrc/flrlio.cpp:110-124): within
 // each tile of tile_r rows of 128 words, packed u32 word r holds the field of
 // row r in its low 16 bits and the field of row r + tile_r/2 in its high 16
-// bits.  Viewed as little-endian u16, field j lives at u16 index p2_idx16(j).
+// bits.  Viewed as little-endian u16, field j lives at u16 index p2_idx16(j)
+// (the decode's per-word lookup; the encode goes by packed row).
 __host__ __device__ inline int64_t p2_idx16(int64_t j, int tile_r) {
   const int64_t row = j >> 7;
   const int64_t tile = row / tile_r;
@@ -32,12 +44,13 @@ __host__ __device__ inline int64_t p2_idx16(int64_t j, int tile_r) {
 
 }  // namespace flrl
 
-// Field encode of nw words (a frame multiple; bytes past the stream's end
-// must be zero: there is no tail mask).  Writes the width of each of the
-// nw/wpf frames to bits.  tile_r == 0: base mode, u32 fields to out[nw].
-// tile_r > 0: pack-2 mode, the low 16 bits of each field to its u16 slot of
-// out[nw/2 u32] (nw a multiple of tile_r·128, tile_r % 16 == 0,
-// 128 % wpf == 0); valid only where every width is ≤ 4.
+// Field encode of nw ≤ kDenseMaxBytes / 4 words (a frame multiple; bytes
+// past the stream's end must be zero: there is no tail mask).  Writes the
+// width of each of the nw/wpf frames to bits.  tile_r == 0: base mode, u32
+// fields to out[nw].  tile_r > 0: pack-2 mode, the low 16 bits of each field
+// to its u16 slot of out[nw/2 u32] (nw a multiple of tile_r·128,
+// tile_r % 16 == 0, 128 % wpf == 0); valid only where every width is ≤ 4.
+// words, bits and out are 16-byte aligned.
 FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
                                 int64_t frame_length, int tile_r, void* bits,
                                 void* out, int device, void* stream);

@@ -35,9 +35,9 @@
 // behind a bytewise head and tail.  The last tile writes R and the start of
 // the chunk's last natural run.
 //
-// Decode is scan -> expand over tiles of kScanTile runs: per-tile sums of
-// the counts and the shared one-block scan give each tile its output
-// offset (flrl_rl_run_offsets).  The expand block loads its counts and
+// Decode is scan -> expand over tiles of kScanTile runs: one single-pass
+// look-back scan of the tiles' sums gives each tile its output offset
+// (flrl_rl_run_offsets, below).  The expand block loads its counts and
 // values as 16-byte vectors and scans the counts.  A tile whose output fits
 // kExpandOut bytes (short runs) writes it run by run into shared memory and
 // stores it as 16-byte vectors; a larger one fills its output range by
@@ -458,30 +458,6 @@ encode_kernel(const EncodeArgs a) {
   store_stage<kEncodeThreads>(a.counts + P, cstage, kHeadRoom - h, cnt);
 }
 
-// A thread's kScanItems (8) counts of a decode tile, as one 8-byte word.
-__device__ __forceinline__ uint64_t load_runs8(const uint8_t* __restrict__ a,
-                                               int64_t R, int64_t r0) {
-  if (r0 + kScanItems <= R)
-    return __ldg(reinterpret_cast<const uint64_t*>(a + r0));
-  uint64_t w = 0;
-  for (int64_t k = 0; r0 + k < R; ++k) w |= uint64_t(a[r0 + k]) << (8 * k);
-  return w;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-run_tile_sums_kernel(const uint8_t* __restrict__ counts, int64_t R,
-                     int64_t* __restrict__ sums) {
-  const int64_t r0 =
-      int64_t(blockIdx.x) * kScanTile + int64_t(threadIdx.x) * kScanItems;
-  const uint64_t c = load_runs8(counts, R, r0);
-  int64_t sum = 0;
-#pragma unroll
-  for (int k = 0; k < kScanItems; ++k) sum += (c >> (8 * k)) & 0xffu;
-  int64_t total;
-  block_exclusive_scan(sum, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
 // The bytes k and up of a 64-bit word (all for k <= 0, none for k >= 8).
 __device__ __forceinline__ uint64_t from_byte(int k) {
   return k <= 0 ? ~0ull : k >= 8 ? 0 : ~0ull << (8 * k);
@@ -491,6 +467,81 @@ __device__ __forceinline__ uint64_t from_byte(int k) {
 __device__ __forceinline__ uint32_t byte_sum(uint32_t w) {
   w = (w & 0x00ff00ffu) + ((w >> 8) & 0x00ff00ffu);
   return (w & 0xffffu) + (w >> 16);
+}
+
+// --------------------------------------------------------------------------
+// Run offsets: offs[t], the output bytes of the tiles of kScanTile runs
+// before tile t, in one launch.  A block takes a group of K consecutive
+// tiles by ticket, a thread one 16-byte load of counts a tile, all K in
+// flight before any is summed.  Each tile's sum is byte_sum and one warp
+// reduction (__reduce_add_sync) a thread, then the block's warp sums; warp
+// 0 scans the K tile totals, finds the group's carry by decoupled look-back
+// over one status word a group (scan.cuh), and writes the K offsets.  Reads
+// R count bytes and writes 8·(T+1) offset bytes, each once.  A tile sums to
+// at most 4096·255 < 2^20, and the 62-bit status value holds any sum.
+// --------------------------------------------------------------------------
+struct RunOffsetsArgs {
+  const uint8_t* counts;  // 16-byte aligned
+  int64_t R;
+  int64_t tiles;          // T
+  int64_t* offs;          // offs[0..T]
+  uint64_t* status;       // a word a group, then the ticket
+  unsigned* ticket;
+};
+
+constexpr int kScanWarps = kScanThreads / kWarp;
+
+template <int K>
+__global__ void __launch_bounds__(kScanThreads)
+run_offsets_kernel(const RunOffsetsArgs a) {
+  __shared__ uint32_t warp_sums[K][kScanWarps];
+  const int lane = threadIdx.x % kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int64_t g = take_tile(a.ticket);
+  const int64_t r0 = g * K * kScanTile + int64_t(threadIdx.x) * kScanItems;
+  uint4 q[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int64_t r = r0 + k * kScanTile;
+    q[k] = r + kScanItems <= a.R
+               ? __ldg(reinterpret_cast<const uint4*>(a.counts + r))
+               : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int64_t r = r0 + k * kScanTile;
+    uint32_t sum = byte_sum(q[k].x) + byte_sum(q[k].y) + byte_sum(q[k].z) +
+                   byte_sum(q[k].w);
+    if (r < a.R && r + kScanItems > a.R)  // the stream's last, cut load
+      for (int64_t i = r; i < a.R; ++i) sum += a.counts[i];
+    sum = __reduce_add_sync(kFullMask, sum);
+    if (lane == 0) warp_sums[k][w] = sum;
+  }
+  __syncthreads();
+  if (w != 0) return;
+  int64_t total = 0;  // lane k: tile g·K + k
+  if (lane < K)
+    for (int i = 0; i < kScanWarps; ++i) total += warp_sums[lane][i];
+  const int64_t inc = warp_inclusive_scan(total, lane);
+  const int64_t group = __shfl_sync(kFullMask, inc, K - 1);
+  int64_t carry = 0;
+  if (g == 0) {
+    if (lane == 0) publish_status(a.status, kStatusPrefix, group);
+  } else {
+    if (lane == 0) publish_status(a.status + g, kStatusAggregate, group);
+    carry = look_back(a.status, g, lane);
+    if (lane == 0) publish_status(a.status + g, kStatusPrefix, carry + group);
+  }
+  const int64_t t = g * K + lane;
+  if (lane < K && t < a.tiles) a.offs[t] = carry + inc - total;
+  if (lane == 0 && g == (a.tiles - 1) / K) a.offs[a.tiles] = carry + group;
+}
+
+template <int K>
+cudaError_t launch_run_offsets(const RunOffsetsArgs& a, cudaStream_t s) {
+  run_offsets_kernel<K><<<static_cast<unsigned>((a.tiles + K - 1) / K),
+                          kScanThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 // The expand stage: each run of the tile as (start << 8 | value), start
@@ -664,22 +715,27 @@ FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
   return cudaGetLastError();
 }
 
-FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, void* offs,
-                                 int device, void* stream) {
-  if (R < 0) return cudaErrorInvalidValue;
+FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, int group,
+                                 void* offs, int device, void* stream) {
+  if (R < 0 || (group != 4 && group != 8 && group != 16) ||
+      misaligned(counts))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = tiles_of(R);
   int64_t* o = static_cast<int64_t*>(offs);
-  if (tiles > 0) {
-    run_tile_sums_kernel<<<static_cast<unsigned>(tiles), kScanThreads, 0,
-                           s>>>(static_cast<const uint8_t*>(counts), R, o);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  scan_carries_kernel<<<1, kScanThreads, 0, s>>>(o, tiles, o + tiles);
-  return cudaGetLastError();
+  if (tiles == 0) return cudaMemsetAsync(o, 0, sizeof(int64_t), s);
+  const int64_t groups = (tiles + group - 1) / group;
+  uint64_t* status = reinterpret_cast<uint64_t*>(o + tiles + 1);
+  // the status words and the ticket start at zero on this stream
+  err = cudaMemsetAsync(status, 0, (groups + 1) * sizeof(uint64_t), s);
+  if (err != cudaSuccess) return err;
+  const RunOffsetsArgs a{static_cast<const uint8_t*>(counts), R, tiles, o,
+                         status, reinterpret_cast<unsigned*>(status + groups)};
+  return group == 4   ? launch_run_offsets<4>(a, s)
+         : group == 8 ? launch_run_offsets<8>(a, s)
+                      : launch_run_offsets<16>(a, s);
 }
 
 FLRL_API int flrl_rl_expand(const void* counts, const void* values,

@@ -1,31 +1,24 @@
 // Block-level int64 scans shared by the FL and RL kernels.
 //
 // Hopper blocks run in no order, so anything that places variable-sized
-// pieces (FL frames, RL pieces) needs a scan across blocks.  Two kinds live
-// here, both in int64 (a 1 GiB chunk has up to 2^30 items):
-//
-// - Two-level (flrl_rl_run_offsets): each block scans its own tile with
-//   block_exclusive_scan and writes the tile's total, one block scans the
-//   totals (scan_carries_kernel), and every item reads its tile's carry.
-// - Single-pass with decoupled look-back (flrl_frame_offsets, the frame
-//   placement of fl_dense_pallas.py:732 and :1074, whose sequential grid
-//   carries a cursor; Merrill & Garland, "Single-pass Parallel Prefix Scan
-//   with Decoupled Look-back", NVIDIA 2016), over a sum or, templated on
-//   its operator, over the run-start operator of flrl_rl_encode (rl.cu).
-//   Bound by bytes: it reads F
-//   widths and writes 8·(F+1) bytes of offsets, each once, where the
-//   two-level scan writes, reads back and writes again the offsets.  A
-//   block takes its tile by ticket (take_tile), scans it,
-//   publishes its aggregate and then its inclusive prefix as one 64-bit
-//   status word each (publish_status), and one warp folds its
-//   predecessors' words until it meets a prefix (look_back).  One launch,
-//   and each item is written once.  The status words and the ticket must
-//   be zero when the kernel starts: the launcher clears them on the
-//   kernel's stream, since a look-back that read a word of an earlier call
-//   (the caching allocator hands the same memory back) would be wrong.
-//   Forward progress: tiles are taken in ticket order, so a block only
-//   ever waits on tiles whose blocks have already started, and tile 0
-//   publishes its prefix without waiting.
+// pieces (FL frames, RL pieces, RL run tiles) needs a scan across blocks.
+// It is single-pass with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA 2016),
+// in int64 (a 1 GiB chunk has up to 2^30 items): flrl_frame_offsets (the
+// frame placement of fl_dense_pallas.py:732 and :1074, whose sequential grid
+// carries a cursor) and flrl_rl_run_offsets over a sum, and, templated on
+// its operator, the run-start operator of flrl_rl_encode (rl.cu).  Bound by
+// bytes: each item is read once and each offset written once.  A block
+// takes its tile by ticket (take_tile), scans it, publishes its aggregate
+// and then its inclusive prefix as one 64-bit status word each
+// (publish_status), and one warp folds its predecessors' words until it
+// meets a prefix (look_back).  The status words and the ticket must be zero
+// when the kernel starts: the launcher clears them on the kernel's stream,
+// since a look-back that read a word of an earlier call (the caching
+// allocator hands the same memory back) would be wrong.  Forward progress:
+// tiles are taken in ticket order, so a block only ever waits on tiles
+// whose blocks have already started, and tile 0 publishes its prefix
+// without waiting.
 #pragma once
 
 #include <cstdint>
@@ -35,9 +28,11 @@ namespace flrl {
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// One scan tile of the two-level scan: 512 threads × 8 items.
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 8;
+// The RL run tile of flrl_rl_run_offsets and flrl_rl_expand: 256 threads ×
+// 16 runs, one 16-byte load of counts a thread.  ops/rl_cuda.py's TILE must
+// match.
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 16;
 constexpr int64_t kScanTile = int64_t(kScanThreads) * kScanItems;
 
 // Status word of a single-pass scan tile: a 2-bit flag over a 62-bit value.
@@ -85,32 +80,6 @@ __device__ int64_t block_exclusive_scan(int64_t v, int64_t* total) {
   *total = warp_sums[kWarps - 1];
   __syncthreads();
   return prefix + inc - v;
-}
-
-// One block: carries[t] <- exclusive scan of the tile totals; *end <- sum.
-__global__ void __launch_bounds__(kScanThreads)
-scan_carries_kernel(int64_t* __restrict__ carries, int64_t tiles,
-                    int64_t* __restrict__ end) {
-  int64_t running = 0;
-  for (int64_t base = 0; base < tiles; base += kScanTile) {
-    const int64_t t0 = base + int64_t(threadIdx.x) * kScanItems;
-    int64_t x[kScanItems];
-    int64_t sum = 0;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      x[i] = t0 + i < tiles ? carries[t0 + i] : 0;
-      sum += x[i];
-    }
-    int64_t total;
-    int64_t pre = running + block_exclusive_scan(sum, &total);
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i) {
-      if (t0 + i < tiles) carries[t0 + i] = pre;
-      pre += x[i];
-    }
-    running += total;
-  }
-  if (threadIdx.x == 0) *end = running;
 }
 
 // Single-pass scan: the block's tile, in the order blocks started.

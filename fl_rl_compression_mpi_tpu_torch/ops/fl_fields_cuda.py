@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from .bitpack import FRAME_LENGTH
-from .fl_dense_cuda import _check, _launch, _on_cuda, _stream
+from .fl_dense_cuda import _aligned, _check, _launch, _on_cuda, _stream
 
 LANES = 128
 
@@ -136,7 +136,8 @@ def encode_fields(words: torch.Tensor, frame_length: int = FRAME_LENGTH,
     """``(bits u8[F], out int32)`` of ``words`` int32[NW] (NW a frame
     multiple; a multiple of tile_r·128 in pack-2 mode); see
     :func:`encode_fields_ref`.  Pack-2 output is valid only where every
-    width is ≤ 4: check ``bits`` first."""
+    width is ≤ 4: check ``bits`` first.  The kernel takes at most 2^29
+    words (2^31 bytes) a call, 16-byte aligned."""
     _check(words, "words", torch.int32)
     nw = words.numel()
     wpf = _check_geometry(nw, frame_length, tile_r)
@@ -145,6 +146,7 @@ def encode_fields(words: torch.Tensor, frame_length: int = FRAME_LENGTH,
                          f"tile_r={tile_r}")
     if not _on_cuda(words):
         return encode_fields_ref(words, frame_length, tile_r)
+    _aligned(words, "words")
     bits = torch.empty(nw // wpf, dtype=torch.uint8, device=words.device)
     out = torch.empty(nw // 2 if tile_r else nw, dtype=torch.int32,
                       device=words.device)

@@ -8,6 +8,7 @@ kernels live in ``csrc/rl.cu``; their wrappers here are
                     start of the natural run its last byte belongs to
                     (one launch, one pass over the chunk)
 ``run_offsets``     per 4096-run tile: its output offset; the output size
+                    (one launch, a single-pass look-back scan)
 ``expand``          counts + values → bytes
 ==================  =================================================
 
@@ -42,6 +43,9 @@ RUN_CAP = 255
 # tile (kScanTile in csrc/scan.cuh).
 ENCODE_TILE = 16384
 TILE = 4096
+# Tiles a block of ``flrl_rl_run_offsets`` takes (4, 8 or 16): the kernel's
+# scratch holds a status word a group of tiles and a ticket.
+RUN_GROUP = 8
 _NONE = torch.iinfo(torch.int64).min   # meta[1]: no natural start in the chunk
 
 LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0}
@@ -152,12 +156,15 @@ def run_offsets(counts: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(counts):
         return run_offsets_ref(counts)
     _aligned(counts, "counts")
-    offs = torch.empty(_tiles(counts.numel()) + 1, dtype=torch.int64,
-                       device=counts.device)
+    T = _tiles(counts.numel())
+    # one allocation: the offsets, then the scan's status words and ticket
+    # (the launcher clears those on the stream)
+    buf = torch.empty(T + 1 + _tiles(T, RUN_GROUP) + 1, dtype=torch.int64,
+                      device=counts.device)
     _launch("flrl_rl_run_offsets", counts.data_ptr(), counts.numel(),
-            offs.data_ptr(), counts.device.index, _stream(counts))
+            RUN_GROUP, buf.data_ptr(), counts.device.index, _stream(counts))
     LAUNCHES["rl_offsets"] += 1
-    return offs
+    return buf[:T + 1]
 
 
 def expand(counts: torch.Tensor, values: torch.Tensor, offs: torch.Tensor,
