@@ -27,10 +27,10 @@
 //
 // - Base mode, L dividing a warp span of 32·U bytes (L = 8, 16, ..., 512):
 //   a warp takes kFieldsStep = 1 KiB a step (two spans at U = 16, four at
-//   U = 8), all loaded before any is reduced.  A lane ORs each span's bytes into one byte of a word
-//   (byte j: span j), the L/U lanes of a frame combine the word with
-//   log2(L/U) xor shuffles, and each lane spreads its words at its frame's
-//   width and stores them where they were read.  A step's widths go through
+//   U = 8), all loaded before any is reduced.  A lane ORs each span's bytes
+//   into one byte of a word (byte j: span j), the L/U lanes of a frame
+//   combine the word with log2(L/U) xor shuffles, and each lane spreads its
+//   words at its frame's width and stores them where they were read.  A step's widths go through
 //   the warp's stage and out as 16-byte vectors (store_widths).
 // - Pack-2 mode (128 % (L/4) == 0): a warp step is one packed row of 128
 //   u32, whose words take rows r and r + tile_r/2 of the input (the low and
