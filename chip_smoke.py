@@ -43,26 +43,17 @@ Phases, each printing a line and failing the run on any error:
               carries (mid-piece, at a cap boundary, on a new value, d0 in
               {254, 255, 256, 2^31 + 7}, a chunk with no natural start);
               the expand on output sizes 1..33, runs of 1, 15, 16, 17 and
-              255, tile outputs at every 16-byte phase, zero counts; the
-              run offsets at 4, 8 and 16 tiles a block on run counts around
-              a tile, a group and 40 groups (a look-back past its window),
-              tail tiles of 1 and 4095 runs, random, zero and all-255
-              counts, twenty calls in a row on reused memory, and 2^30 zero
-              counts followed by 2^30 counts of 255; timed on the 512 MiB
-              rl_mixed stream, the run offsets at each group size, beside
-              a yardstick (each whole tile's sum in int64, then cumsum).
-              Then the FL field kernels (base and pack-2 mode) the same way:
-              widths 1..8, random widths, tails n mod L in {0, 1, 77, L-1},
-              L in {8, 24, 64, 128, 512, 1024}, pack-2 at tile_r 16 and 2048
-              on width <= 4 streams, a 64 MiB stream; each container from the
-              native host fold equal to fl-cpu's; the encode on frame counts
-              around a warp step, a block and the resident grid's pass (L =
-              8, 24, 128, 512, 1024; pack-2 packed rows at L = 8, 128, 512),
-              pack-2 tiles at tile_r 16 and 2048 with a width-5 frame in the
-              last tile, every uniform width, 1 GiB at L = 128 in both
-              modes, and the refusal past 2^31 bytes; timed on the 512 MiB
-              mixed (base) and uniform4 (base and pack-2) streams, and the
-              encode in both modes on each part of the mixed stream.  Then the
+              255, tile outputs at every 16-byte phase, zero counts; timed
+              on the 512 MiB rl_mixed stream, the run offsets beside a
+              yardstick (each whole tile's sum in int64, then cumsum; each
+              of the two calls also timed alone).  Then the FL field kernels
+              (base and pack-2 mode) the same way: widths 1..8, random
+              widths, tails n mod L in {0, 1, 77, L-1}, L in {8, 24, 64, 128,
+              512, 1024}, pack-2 at tile_r 16 and 2048 on width <= 4
+              streams, a 64 MiB stream; each container from the native host
+              fold equal to fl-cpu's; timed on the 512 MiB mixed (base) and
+              uniform4 (base and pack-2) streams, and the encode in both
+              modes on each part of the mixed stream.  Then the
               constant-stream kernels: c in {0, 1, 3, 15, 255}, c = 0 with
               tails {1, 77, 127}, unaligned starts, the flags on flipped
               input and payload bytes (not on the pad past the payload),
@@ -113,6 +104,20 @@ Phases, each printing a line and failing the run on any error:
               chunk cap, against fl-cpu and rl-cpu; the field route's fl on
               512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
               a miss).
+9. classes  — after every timed phase, since their large buffers, freed
+              with empty_cache(), slowed the timed phases that came after
+              them: the run offsets on run counts around a tile, a group of
+              kRunGroup tiles and 40 groups (a look-back past its window),
+              tail tiles of 1 and 4095 runs, random, zero and all-255
+              counts, twenty calls in a row on reused memory, and 2^30 zero
+              counts followed by 2^30 counts of 255; the field encode on
+              frame counts around a warp step, a block and the resident
+              grid's pass (L = 8, 24, 128, 512, 1024; pack-2 packed rows at
+              L = 8, 128, 512), pack-2 tiles at tile_r 16 and 2048 with a
+              width-5 frame in the last tile, every uniform width, 1 GiB at
+              L = 128 in both modes, and the refusal past 2^31 bytes; each
+              against its plain version, byte for byte, drawn from
+              generators of their own.
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -1398,33 +1403,24 @@ def phase_rl_kernels(rng, classes_rng) -> int:
 
 
 def phase_rl_offsets_classes(rng) -> int:
-    """flrl_rl_run_offsets at every group size it takes (4, 8, 16 tiles a
-    block) on R around a tile, a group and 40 groups (a look-back past its
-    32-group window), tail groups whose last tile holds R mod 4096 in
-    {0, 1, 4095} runs, of random, zero and all-255 counts; twenty calls in a
-    row on reused memory (each result freed before the next: the status
-    words are cleared on the stream); and 2^30 zero counts followed by 2^30
-    counts of 255 (positions and sums past 32 bits)."""
-    T = rk.TILE
+    """flrl_rl_run_offsets on R around a tile, a group of RUN_GROUP tiles
+    and 40 groups (a look-back past its 32-group window), tail groups whose
+    last tile holds R mod 4096 in {0, 1, 4095} runs, of random, zero and
+    all-255 counts; twenty calls in a row on reused memory (each result
+    freed before the next: the status words are cleared on the stream); and
+    2^30 zero counts followed by 2^30 counts of 255 (positions and sums past
+    32 bits)."""
+    T, K = rk.TILE, rk.RUN_GROUP
     cases = 0
-    saved = rk.RUN_GROUP
-    try:
-        for K in (4, 8, 16):
-            rk.RUN_GROUP = K
-            for R in sorted({0, 1, 15, 17, T - 1, T, T + 1, K * T - 1,
-                             K * T, K * T + 1, 40 * K * T,
-                             (40 * K - 1) * T + 1, (40 * K - 1) * T + T - 1,
-                             (3 * K + 2) * T + 1}):
-                for counts in (rng.integers(0, 256, R, np.uint8),
-                               np.zeros(R, np.uint8),
-                               np.full(R, 255, np.uint8)):
-                    c = torch.from_numpy(counts).cuda()
-                    compare("rl_offsets", rk.run_offsets(c),
-                            rk.run_offsets_ref(c))
-                    cases += 1
-    finally:
-        rk.RUN_GROUP = saved
-    R = 41 * saved * T + 5
+    for R in sorted({0, 1, 15, 17, T - 1, T, T + 1, K * T - 1, K * T,
+                     K * T + 1, 40 * K * T, (40 * K - 1) * T + 1,
+                     (40 * K - 1) * T + T - 1, (3 * K + 2) * T + 1}):
+        for counts in (rng.integers(0, 256, R, np.uint8),
+                       np.zeros(R, np.uint8), np.full(R, 255, np.uint8)):
+            c = torch.from_numpy(counts).cuda()
+            compare("rl_offsets", rk.run_offsets(c), rk.run_offsets_ref(c))
+            cases += 1
+    R = 41 * K * T + 5
     counts = [torch.from_numpy(rng.integers(0, 256, R, np.uint8)).cuda()
               for _ in range(20)]
     wants = [rk.run_offsets_ref(c) for c in counts]
@@ -1556,7 +1552,7 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     moved("rl_encode", x, values, counts)
     moved("rl_offsets", counts, offs)
     moved("rl_expand", counts, values, offs, x)
-    time_rl_offsets_groups(counts)
+    time_rl_offsets_yardstick(counts)
     counts64 = counts.to(torch.int64)     # repeat_interleave's repeats type
     library_ms("rl_expand", lambda: torch.repeat_interleave(
         values, counts64, output_size=n))
@@ -1568,34 +1564,22 @@ def time_rl_kernels(data: np.ndarray) -> dict:
     return timings
 
 
-def time_rl_offsets_groups(counts: torch.Tensor) -> None:
-    """flrl_rl_run_offsets at each group size it takes, a launch over a run
-    of RUN calls, each compared once; and a yardstick, not a library time
-    (no one PyTorch call computes the per-tile scan): the sum of each whole
-    tile of 4096 counts in int64, then its cumsum."""
-    saved = rk.RUN_GROUP
-    times = []
-    try:
-        for K in (4, 8, 16):
-            rk.RUN_GROUP = K
-            compare("rl_offsets", rk.run_offsets(counts),
-                    rk.run_offsets_ref(counts))
-            ms = launch_ms(lambda: rk.run_offsets(counts))
-            times.append(f"{K} tiles {ms:.4f}")
-    finally:
-        rk.RUN_GROUP = saved
-    say(f"[kernels] rl_offsets a block of K tiles (the wrapper takes {saved}): "
-        f"{', '.join(times)} ms a launch over a run of {RUN}")
+def time_rl_offsets_yardstick(counts: torch.Tensor) -> None:
+    """A yardstick for flrl_rl_run_offsets, not a library time (no one
+    PyTorch call computes the per-tile scan): the sum of each whole tile of
+    4096 counts in int64, then its cumsum; the pair, then each call alone."""
     T = counts.numel() // rk.TILE
     rows = counts[:T * rk.TILE].view(T, rk.TILE)
-
-    def yardstick():
-        return torch.cumsum(rows.sum(1, dtype=torch.int64), 0)
-
+    sums = rows.sum(1, dtype=torch.int64)
+    calls = (("both", lambda: torch.cumsum(rows.sum(1, dtype=torch.int64), 0)),
+             ("the row sums", lambda: rows.sum(1, dtype=torch.int64)),
+             ("the cumsum", lambda: torch.cumsum(sums, 0)))
+    times = [f"{what} {cuda_ms(f):.3f} ms single (median of 5), "
+             f"{launch_ms(f):.4f} ms a launch over a run of {RUN}"
+             for what, f in calls]
     say(f"[kernels] yardstick torch.cumsum(counts[:T*4096].view(T, 4096)"
-        f".sum(1, dtype=torch.int64), 0) on rl_mixed's {T} whole tiles "
-        f"(two calls): {cuda_ms(yardstick):.3f} ms single (median of 5), "
-        f"{launch_ms(yardstick):.4f} ms a launch over a run of {RUN}")
+        f".sum(1, dtype=torch.int64), 0) on rl_mixed's {T} whole tiles: "
+        f"{'; '.join(times)}")
 
 
 RL_PARTS = ("runs of 1..8", "runs of 200..900", "random bytes", "zeros")
@@ -1990,10 +1974,6 @@ def main() -> int:
     cases = phase_field_kernels(rng)
     say(f"[kernels] {cases} field inputs: kernels equal their plain versions "
         f"byte for byte, host-folded containers equal fl-cpu's")
-    t1 = time.perf_counter()
-    cases = phase_fields_encode_classes(np.random.default_rng(SEED + 4))
-    say(f"[kernels] {cases} field-encode inputs equal their plain version, "
-        f"the containers fl-cpu's ({time.perf_counter() - t1:.1f} s)")
     timings.update(time_field_kernels(mixed, uniform4))
     t_fields = time.perf_counter() - t0
 
@@ -2001,10 +1981,6 @@ def main() -> int:
     cases = phase_rl_kernels(rng, classes_rng)
     say(f"[kernels] {cases} RL inputs: kernels equal their plain versions "
         f"byte for byte")
-    t1 = time.perf_counter()
-    cases = phase_rl_offsets_classes(np.random.default_rng(SEED + 5))
-    say(f"[kernels] {cases} run-offsets inputs equal their plain version "
-        f"({time.perf_counter() - t1:.1f} s)")
     rl_mixed = rl_mixed_stream(rng)
     timings.update(time_rl_kernels(rl_mixed))
     t_rl = time.perf_counter() - t0
@@ -2056,6 +2032,19 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_rl_chunks(rng)
     t_rl += time.perf_counter() - t0
+    # after every timed phase: ahead of them, the 1 GiB field encodes and
+    # the plain run offsets' 16 GiB buffer (2^31 counts in int64) slowed
+    # the first Compression stages of the main and field phases
+    t0 = time.perf_counter()
+    cases = phase_fields_encode_classes(np.random.default_rng(SEED + 4))
+    t_fields += time.perf_counter() - t0
+    say(f"[classes] {cases} field-encode inputs equal their plain version, "
+        f"the containers fl-cpu's ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = phase_rl_offsets_classes(np.random.default_rng(SEED + 5))
+    t_rl += time.perf_counter() - t0
+    say(f"[classes] {cases} run-offsets inputs equal their plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
     say(f"[done] field route phases took {t_fields:.1f} s, RL phases "
         f"{t_rl:.1f} s, constant kernels and distribution {t_dist:.1f} s")
 

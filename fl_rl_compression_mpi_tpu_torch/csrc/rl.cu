@@ -471,9 +471,10 @@ __device__ __forceinline__ uint32_t byte_sum(uint32_t w) {
 
 // --------------------------------------------------------------------------
 // Run offsets: offs[t], the output bytes of the tiles of kScanTile runs
-// before tile t, in one launch.  A block takes a group of K consecutive
-// tiles by ticket, a thread one 16-byte load of counts a tile, all K in
-// flight before any is summed.  Each tile's sum is byte_sum and one warp
+// before tile t, in one launch.  A block takes a group of K = kRunGroup
+// consecutive tiles by ticket, a thread one 16-byte load of counts a tile,
+// all K in flight before any is summed.  Each tile's sum is byte_sum and one
+// warp
 // reduction (__reduce_add_sync) a thread, then the block's warp sums; warp
 // 0 scans the K tile totals, finds the group's carry by decoupled look-back
 // over one status word a group (scan.cuh), and writes the K offsets.  Reads
@@ -491,9 +492,9 @@ struct RunOffsetsArgs {
 
 constexpr int kScanWarps = kScanThreads / kWarp;
 
-template <int K>
 __global__ void __launch_bounds__(kScanThreads)
 run_offsets_kernel(const RunOffsetsArgs a) {
+  constexpr int K = kRunGroup;
   __shared__ uint32_t warp_sums[K][kScanWarps];
   const int lane = threadIdx.x % kWarp;
   const int w = threadIdx.x / kWarp;
@@ -535,13 +536,6 @@ run_offsets_kernel(const RunOffsetsArgs a) {
   const int64_t t = g * K + lane;
   if (lane < K && t < a.tiles) a.offs[t] = carry + inc - total;
   if (lane == 0 && g == (a.tiles - 1) / K) a.offs[a.tiles] = carry + group;
-}
-
-template <int K>
-cudaError_t launch_run_offsets(const RunOffsetsArgs& a, cudaStream_t s) {
-  run_offsets_kernel<K><<<static_cast<unsigned>((a.tiles + K - 1) / K),
-                          kScanThreads, 0, s>>>(a);
-  return cudaGetLastError();
 }
 
 // The expand stage: each run of the tile as (start << 8 | value), start
@@ -715,27 +709,25 @@ FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
   return cudaGetLastError();
 }
 
-FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, int group,
-                                 void* offs, int device, void* stream) {
-  if (R < 0 || (group != 4 && group != 8 && group != 16) ||
-      misaligned(counts))
-    return cudaErrorInvalidValue;
+FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, void* offs,
+                                 int device, void* stream) {
+  if (R < 0 || misaligned(counts)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t tiles = tiles_of(R);
   int64_t* o = static_cast<int64_t*>(offs);
   if (tiles == 0) return cudaMemsetAsync(o, 0, sizeof(int64_t), s);
-  const int64_t groups = (tiles + group - 1) / group;
+  const int64_t groups = (tiles + kRunGroup - 1) / kRunGroup;
   uint64_t* status = reinterpret_cast<uint64_t*>(o + tiles + 1);
   // the status words and the ticket start at zero on this stream
   err = cudaMemsetAsync(status, 0, (groups + 1) * sizeof(uint64_t), s);
   if (err != cudaSuccess) return err;
   const RunOffsetsArgs a{static_cast<const uint8_t*>(counts), R, tiles, o,
                          status, reinterpret_cast<unsigned*>(status + groups)};
-  return group == 4   ? launch_run_offsets<4>(a, s)
-         : group == 8 ? launch_run_offsets<8>(a, s)
-                      : launch_run_offsets<16>(a, s);
+  run_offsets_kernel<<<static_cast<unsigned>(groups), kScanThreads, 0, s>>>(
+      a);
+  return cudaGetLastError();
 }
 
 FLRL_API int flrl_rl_expand(const void* counts, const void* values,

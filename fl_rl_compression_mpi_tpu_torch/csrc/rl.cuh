@@ -35,6 +35,11 @@ constexpr int64_t kEncodeMaxBytes = int64_t(1) << 30;
 constexpr int kExpandThreads = 256;
 constexpr int kExpandRuns = 16;
 
+// Run offsets: a block takes a group of kRunGroup tiles of kScanTile runs,
+// one 16-byte load of counts a tile in flight a thread.  ops/rl_cuda.py's
+// RUN_GROUP must match.
+constexpr int kRunGroup = 16;
+
 }  // namespace flrl
 
 // One launch encodes the chunk: values[R] (each piece's byte) and
@@ -51,12 +56,12 @@ FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
 
 // offs[0..T], T = ceil(R / 4096): exclusive scan of the output bytes of
 // each tile of runs; offs[T] = sum of counts.  One launch, a block a group
-// of `group` tiles (4, 8 or 16).  counts is 16-byte aligned; offs holds
-// T + 1 + ceil(T / group) + 1 int64 words, the last ones the groups' status
-// words and the ticket, which the launcher clears on `stream` before the
-// kernel runs.
-FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, int group,
-                                 void* offs, int device, void* stream);
+// of kRunGroup tiles.  counts is 16-byte aligned; offs holds
+// T + 1 + ceil(T / kRunGroup) + 1 int64 words, the last ones the groups'
+// status words and the ticket, which the launcher clears on `stream` before
+// the kernel runs.
+FLRL_API int flrl_rl_run_offsets(const void* counts, int64_t R, void* offs,
+                                 int device, void* stream);
 
 // out[n] = values[j] repeated counts[j] times, j = 0..R-1 (n = offs[T]).
 // counts, values and out are 16-byte aligned.

@@ -43,9 +43,9 @@ RUN_CAP = 255
 # tile (kScanTile in csrc/scan.cuh).
 ENCODE_TILE = 16384
 TILE = 4096
-# Tiles a block of ``flrl_rl_run_offsets`` takes (4, 8 or 16): the kernel's
-# scratch holds a status word a group of tiles and a ticket.
-RUN_GROUP = 8
+# Tiles a block of ``flrl_rl_run_offsets`` takes (kRunGroup in csrc/rl.cuh):
+# the kernel's scratch holds a status word a group of tiles and a ticket.
+RUN_GROUP = 16
 _NONE = torch.iinfo(torch.int64).min   # meta[1]: no natural start in the chunk
 
 LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0}
@@ -162,7 +162,7 @@ def run_offsets(counts: torch.Tensor) -> torch.Tensor:
     buf = torch.empty(T + 1 + _tiles(T, RUN_GROUP) + 1, dtype=torch.int64,
                       device=counts.device)
     _launch("flrl_rl_run_offsets", counts.data_ptr(), counts.numel(),
-            RUN_GROUP, buf.data_ptr(), counts.device.index, _stream(counts))
+            buf.data_ptr(), counts.device.index, _stream(counts))
     LAUNCHES["rl_offsets"] += 1
     return buf[:T + 1]
 

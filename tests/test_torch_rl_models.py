@@ -4,11 +4,12 @@ version (``rl_cuda.run_offsets_ref``) and the host's tile sums
 (``rl_torch._block_ends``).
 
 A CUDA kernel cannot run here, so the model repeats the kernel's
-arithmetic step for step: groups of K tiles of 4096 runs taken by ticket, a
-thread's 16-byte load of counts a tile (none past R; the stream's last,
-cut load summed byte by byte), ``byte_sum``, the warp and block sums, warp
-0's scan of the K tile totals, and the decoupled look-back over one 64-bit
-status word a group, 32 groups a window (``scan.cuh`` ``look_back``).
+arithmetic step for step: groups of K (``kRunGroup`` in ``csrc/rl.cuh``)
+tiles of 4096 runs taken by ticket, a thread's 16-byte load of counts a
+tile (none past R; the stream's last, cut load summed byte by byte),
+``byte_sum``, the warp and block sums, warp 0's scan of the K tile totals,
+and the decoupled look-back over one 64-bit status word a group, 32 groups
+a window (``scan.cuh`` ``look_back``).
 Blocks run in ticket order; a group's prefix may be published late, so
 that later look-backs fold windows of aggregates and step back past them.
 Tolerance: byte equality throughout."""
@@ -40,14 +41,7 @@ AGGREGATE, PREFIX = 1 << 62, 2 << 62
 VALUE = (1 << 62) - 1
 
 
-def _groups_launched() -> set:
-    """The group sizes the launcher instantiates."""
-    with open(os.path.join(CSRC, "rl.cu")) as f:
-        return {int(k) for k in re.findall(r"launch_run_offsets<(\d+)>",
-                                           f.read())}
-
-
-GROUPS = sorted(_groups_launched())
+K = _constant("rl.cuh", "kRunGroup")      # tiles a block
 
 
 def _byte_sum(w: np.ndarray) -> np.ndarray:
@@ -76,7 +70,7 @@ def _look_back(status: list, g: int):
         end -= WARP
 
 
-def _model_run_offsets(counts: np.ndarray, K: int, prefix_every: int = 1):
+def _model_run_offsets(counts: np.ndarray, prefix_every: int = 1):
     """flrl_rl_run_offsets: (offs, the most windows a look-back took).
     Groups j with j % prefix_every != 0 publish their prefix only after
     every group has looked back."""
@@ -140,46 +134,43 @@ def _counts(kind: str, R: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, R, np.uint8)
 
 
-def _sizes(K: int) -> list:
-    """R around a tile, a group and 40 groups, and tail groups whose last
-    tile holds R mod 4096 in {0, 1, 4095} runs."""
-    return sorted({0, 1, ITEMS - 1, ITEMS + 1, TILE - 1, TILE, TILE + 1,
-                   K * TILE - 1, K * TILE, K * TILE + 1, 40 * K * TILE,
-                   (40 * K - 1) * TILE + 1, (40 * K - 1) * TILE + TILE - 1,
-                   (3 * K + 2) * TILE + 1})
-
-
-CASES = [(K, R) for K in GROUPS for R in _sizes(K)]
+# R around a tile, a group, a look-back window (33 and 34 groups) and 40
+# groups, and tail groups whose last tile holds R mod 4096 in {0, 1, 4095}
+# runs.
+SIZES = sorted({0, 1, ITEMS - 1, ITEMS + 1, TILE - 1, TILE, TILE + 1,
+                K * TILE - 1, K * TILE, K * TILE + 1, 32 * K * TILE + 1,
+                33 * K * TILE + 1, 40 * K * TILE, (40 * K - 1) * TILE + 1,
+                (40 * K - 1) * TILE + TILE - 1, (3 * K + 2) * TILE + 1})
 
 
 @pytest.mark.parametrize("kind", ["random", "zeros", "full"])
-@pytest.mark.parametrize("K,R", CASES, ids=[f"K{K}-R{R}" for K, R in CASES])
-def test_model_matches_the_twin_and_the_block_ends(K, R, kind):
+@pytest.mark.parametrize("R", SIZES)
+def test_model_matches_the_twin_and_the_block_ends(R, kind):
     counts = _counts(kind, R, R + K)
-    offs, _ = _model_run_offsets(counts, K)
+    offs, _ = _model_run_offsets(counts)
     want = rl_cuda.run_offsets_ref(torch.from_numpy(counts)).numpy()
     np.testing.assert_array_equal(offs, want)
     if R:
         np.testing.assert_array_equal(offs[1:], rl_torch._block_ends(counts))
 
 
-@pytest.mark.parametrize("K", GROUPS)
-def test_look_back_steps_past_its_window(K):
-    """40 groups whose prefixes come late but for group 0's: the last
-    group folds a whole window of 32 aggregates, steps back, and meets
-    group 0's prefix in the next."""
+@pytest.mark.parametrize("prefix_every,windows",
+                         [(1, 1), (5, 1), (1000, 2)])
+def test_look_back_steps_past_its_window(prefix_every, windows):
+    """40 groups, every group's prefix published at once, every fifth's,
+    or only group 0's: in the last case the last group folds a whole
+    window of 32 aggregates, steps back, and meets group 0's prefix in the
+    next."""
     R = 40 * K * TILE - 77
     counts = _counts("random", R, K)
     want = rl_cuda.run_offsets_ref(torch.from_numpy(counts)).numpy()
-    for prefix_every, windows in ((1, 1), (5, 1), (1000, 2)):
-        offs, most = _model_run_offsets(counts, K, prefix_every)
-        np.testing.assert_array_equal(offs, want)
-        assert most == windows
+    offs, most = _model_run_offsets(counts, prefix_every)
+    np.testing.assert_array_equal(offs, want)
+    assert most == windows
 
 
-def test_wrapper_group_is_instantiated_and_tile_matches():
-    assert GROUPS == [4, 8, 16]
-    assert rl_cuda.RUN_GROUP in GROUPS
+def test_wrapper_group_and_tile_match_the_headers():
+    assert rl_cuda.RUN_GROUP == K
     assert TILE == rl_cuda.TILE
     assert WARPS * WARP == THREADS
 
