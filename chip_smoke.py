@@ -52,8 +52,8 @@ Phases, each printing a line and failing the run on any error:
               512, 1024}, pack-2 at tile_r 16 and 2048 on width <= 4
               streams, a 64 MiB stream; each container from the native host
               fold equal to fl-cpu's; timed on the 512 MiB mixed (base) and
-              uniform4 (base and pack-2) streams, and the encode in both
-              modes on each part of the mixed stream.  Then the
+              uniform4 (base and pack-2) streams, and the encode and the
+              decode in both modes on each part of the mixed stream.  Then the
               constant-stream kernels: c in {0, 1, 3, 15, 255}, c = 0 with
               tails {1, 77, 127}, unaligned starts, the flags on flipped
               input and payload bytes (not on the pad past the payload),
@@ -115,9 +115,15 @@ Phases, each printing a line and failing the run on any error:
               grid's pass (L = 8, 24, 128, 512, 1024; pack-2 packed rows at
               L = 8, 128, 512), pack-2 tiles at tile_r 16 and 2048 with a
               width-5 frame in the last tile, every uniform width, 1 GiB at
-              L = 128 in both modes, and the refusal past 2^31 bytes; each
-              against its plain version, byte for byte, drawn from
-              generators of their own.
+              L = 128 in both modes, and the refusal past 2^31 bytes; the
+              field decode on frame counts around a warp step, a block and
+              the grid's pass (L = 8, 24, 128, 512, 1024), pack-2 streams
+              at L = 8, 128, 512 and tile_r 16 and 2048 that end in the
+              first half of the last tile, mid-row and (L = 8) mid-group,
+              every uniform width, twenty calls on reused memory, 1 GiB at
+              L = 128 in both modes, and the refusals past 2^31 bytes and
+              of a misaligned view; each against its plain version, byte
+              for byte, drawn from generators of their own.
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -808,10 +814,10 @@ def time_field_kernels(mixed: np.ndarray, uniform4: np.ndarray) -> dict:
 
 
 def time_fields_parts(words: torch.Tensor) -> None:
-    """The field encode in both modes on each part of the mixed stream
-    alone, a launch over a run of RUN calls, beside each part's bound (the
-    part's bytes read, its fields written: all of them in base mode, half
-    in pack-2, and its widths)."""
+    """The field encode and decode in both modes on each part of the mixed
+    stream alone, a launch over a run of RUN calls, beside each part's
+    bound (the part's bytes, its fields: all of them in base mode, half in
+    pack-2, and its widths)."""
     L, tr = 128, fl_torch.PACK_TILE_R
     at = 0
     for i, (name, mib) in enumerate(MIXED_PARTS):
@@ -826,6 +832,20 @@ def time_fields_parts(words: torch.Tensor) -> None:
             f"fl_fields_encode_p2 {pack2:.4f} ms (bound "
             f"{(n + n // 2 + n // L) / HBM_BYTES_PER_S * 1e3:.4f}) a launch "
             f"over a run of {RUN}")
+        bits, fields_b = fk.encode_fields(wp, L)
+        _, slots = fk.encode_fields(wp, L, tr)
+        compare("fl_fields_decode", fk.decode_fields(fields_b, bits, L), wp)
+        # the parts with widths above 4 have no valid pack-2 layout: their
+        # pack-2 decode is timed only, not round-tripped
+        base = launch_ms(lambda: fk.decode_fields(fields_b, bits, L))
+        pack2 = launch_ms(lambda: fk.decode_fields(slots, bits, L, tr))
+        say(f"[kernels] mixed part {i} ({name}, {mib} MiB): fl_fields_decode "
+            f"{base:.4f} ms (bound "
+            f"{(2 * n + n // L) / HBM_BYTES_PER_S * 1e3:.4f}), "
+            f"fl_fields_decode_p2 {pack2:.4f} ms (bound "
+            f"{(n // 2 + n + n // L) / HBM_BYTES_PER_S * 1e3:.4f}) a launch "
+            f"over a run of {RUN}")
+        del bits, fields_b, slots
 
 
 def check_encode_fields(words: torch.Tensor, L: int, tile_r: int = 0) -> None:
@@ -903,6 +923,106 @@ def phase_fields_encode_classes(rng) -> int:
         raise AssertionError("flrl_fields_encode took more than 2^31 bytes")
     del big
     torch.cuda.empty_cache()
+    return cases
+
+
+def check_decode(words: torch.Tensor, L: int, tile_r: int,
+                 frames: int) -> None:
+    """The field decode of the first ``frames`` frames of ``words`` (whole
+    tiles in pack-2 mode, every width ≤ 4 there) against its plain version
+    and the words, from the kernel's fields: the field route's last chunk
+    ends mid-tile the same way."""
+    name = "fl_fields_decode_p2" if tile_r else "fl_fields_decode"
+    nw = frames * (L // 4)
+    bits, out = fk.encode_fields(words, L, tile_r)
+    bits = bits[:frames]
+    fields = out[:fk.packed_words(nw, tile_r) if tile_r else nw]
+    back = fk.decode_fields(fields, bits, L, tile_r)
+    compare(name, back, fk.decode_fields_ref(fields, bits, L, tile_r))
+    compare(name, back, words[:nw])
+
+
+def phase_fields_decode_classes(rng) -> int:
+    """flrl_fields_decode on the classes of its layout (drawn from a
+    generator of their own).  Frame counts around a base-mode warp step
+    (kFieldsStep bytes), a block's steps and the resident grid's pass at
+    L = 8, 24, 128, 512, 1024, through check_fields; pack-2 at L = 8, 128,
+    512 and tile_r 16 and 2048 where nw ends in the first half of the last
+    tile, mid-row in either half and (L = 8) mid-group; every uniform width
+    at L = 128 (pack-2 for widths ≤ 4); twenty calls in a row on reused
+    output memory; 1 GiB at L = 128 in both modes; more than 2^31 bytes
+    and a misaligned ``fields`` view refused."""
+    cases = 0
+    warps = (torch.cuda.get_device_properties(DEVICE).multi_processor_count
+             * dense_constant("kDenseBlocksPerSm")
+             * dense_constant("kDenseWarps"))
+    step = dense_constant("kFieldsStep", "fl_fields.cuh")
+    for L in (8, 24, 128, 512, 1024):
+        per_step = max(1, step // L)
+        frames = {1, per_step - 1, per_step + 1, 8 * per_step + 1,
+                  warps * per_step - 1, warps * per_step + 1,
+                  2 * warps * per_step + 3}
+        for F in sorted(frames - {0}):
+            check_fields(random_width_stream(rng, F * L, L), L)
+            cases += 1
+    for L in (8, 128, 512):
+        wpf = L // 4
+        for tr in (16, fl_torch.PACK_TILE_R):
+            tw = tr * 128
+            words = staged_words(random_width_stream(rng, 3 * tw * 4, L, 4),
+                                 tr * 512)
+            ends = [2 * tw + tw // 2 - 3 * 128,      # first half, row end
+                    2 * tw + 5 * 128 + 64,           # mid-row, first half
+                    2 * tw + tw // 2 + 128 + 96]  # mid-row, second half
+            if L == 8:
+                ends.append(2 * tw + 7 * 128 + 42)   # mid-group
+            for nw in ends:
+                check_decode(words, L, tr, nw // wpf)
+                cases += 1
+    for b in range(1, 9):
+        data = uniform_stream(rng, 3 * MIB + 128 * b, 128, b)
+        check_fields(data, 128)
+        if b <= 4:
+            check_decode(staged_words(data, fl_torch.PACK_TILE_R * 512), 128,
+                         fl_torch.PACK_TILE_R, -(-data.size // 128))
+        cases += 1
+    # the allocator hands each call the block the last one freed
+    words = staged_words(random_width_stream(rng, 8 * MIB, 128, 4), MIB)
+    for tr in (0, fl_torch.PACK_TILE_R):
+        bits, out = fk.encode_fields(words, 128, tr)
+        for _ in range(20):
+            back = fk.decode_fields(out, bits, 128, tr)
+            compare("fl_fields_decode_p2" if tr else "fl_fields_decode",
+                    back, words)
+            del back
+        cases += 1
+    del words, bits, out
+    for fb, tr in ((0, 0), (4, fl_torch.PACK_TILE_R)):
+        words = widths_stream(1024 * MIB // 128, 128, fb).view(torch.int32)
+        check_decode(words, 128, tr, words.numel() // 32)
+        del words
+        torch.cuda.empty_cache()
+        cases += 1
+    # the kernel's 32-bit positions: more than 2^31 bytes out must raise
+    F = DENSE_MAX_BYTES // 128 + 1
+    big = torch.empty(F * 32, dtype=torch.int32, device=DEVICE)
+    bits = torch.ones(F, dtype=torch.uint8, device=DEVICE)
+    try:
+        fk.decode_fields(big, bits, 128)
+    except RuntimeError:
+        cases += 1
+    else:
+        raise AssertionError("flrl_fields_decode took more than 2^31 bytes")
+    del big, bits
+    torch.cuda.empty_cache()
+    buf = torch.zeros(4 * 128 + 4, dtype=torch.int32, device=DEVICE)
+    bits = torch.ones(16, dtype=torch.uint8, device=DEVICE)
+    try:
+        fk.decode_fields(buf[1:1 + 4 * 128], bits, 128)
+    except ValueError:
+        cases += 1
+    else:
+        raise AssertionError("flrl_fields_decode took a misaligned view")
     return cases
 
 
@@ -2039,6 +2159,11 @@ def main() -> int:
     cases = phase_fields_encode_classes(np.random.default_rng(SEED + 4))
     t_fields += time.perf_counter() - t0
     say(f"[classes] {cases} field-encode inputs equal their plain version, "
+        f"the containers fl-cpu's ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = phase_fields_decode_classes(np.random.default_rng(SEED + 6))
+    t_fields += time.perf_counter() - t0
+    say(f"[classes] {cases} field-decode inputs equal their plain version, "
         f"the containers fl-cpu's ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     cases = phase_rl_offsets_classes(np.random.default_rng(SEED + 5))

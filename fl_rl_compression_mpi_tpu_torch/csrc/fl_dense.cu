@@ -354,7 +354,7 @@ __device__ __forceinline__ void store_bytes(uint8_t* dst, uint64_t lo,
 // Where each frame's payload lies, for the pack and the unpack.
 struct Layout {
   uint32_t n, L;   // n ≤ 2^31, L ≤ 2^31
-  uint64_t recip;  // UINT64_MAX / L + 1: p / L == umulhi(p, recip), p < 2^32
+  uint64_t recip;  // reciprocal(L): p / L == div_by(p, recip), p < 2^32
   const uint8_t* bits;
   const int64_t* offs;  // null in uniform mode
   int fb;
@@ -368,7 +368,7 @@ __device__ __forceinline__ void lane_payload(const Layout& g, uint32_t p,
                                              int& b, uint32_t& start,
                                              uint32_t& end) {
   const uint32_t L = g.L;
-  const uint32_t f = static_cast<uint32_t>(__umul64hi(uint64_t(p), g.recip));
+  const uint32_t f = div_by(p, g.recip);
   b = g.offs != nullptr ? min(int(g.bits[f]), 8) : g.fb;
   const uint32_t base = g.offs != nullptr ? static_cast<uint32_t>(g.offs[f])
                                           : f * (L / 8 * g.fb);
@@ -635,7 +635,7 @@ int64_t launch_length(int64_t n, int64_t L) {
 Layout make_layout(int64_t n, int64_t L, const void* bits, const void* offs,
                    int fb) {
   return Layout{static_cast<uint32_t>(n), static_cast<uint32_t>(L),
-                UINT64_MAX / static_cast<uint64_t>(L) + 1,
+                reciprocal(static_cast<uint64_t>(L)),
                 static_cast<const uint8_t*>(bits),
                 static_cast<const int64_t*>(offs), fb};
 }

@@ -30,17 +30,12 @@ constexpr int kPackLanes = 128;
 // Pack-2 layout (ops/fl_pallas.py:291-296, csrc/flrlio.cpp:110-124): within
 // each tile of tile_r rows of 128 words, packed u32 word r holds the field of
 // row r in its low 16 bits and the field of row r + tile_r/2 in its high 16
-// bits.  Viewed as little-endian u16, field j lives at u16 index p2_idx16(j)
-// (the decode's per-word lookup; the encode goes by packed row).
-__host__ __device__ inline int64_t p2_idx16(int64_t j, int tile_r) {
-  const int64_t row = j >> 7;
-  const int64_t tile = row / tile_r;
-  const int64_t half = tile_r >> 1;
-  const int64_t r = row - tile * tile_r;
-  const int64_t hi = r >= half;
-  const int64_t prow = tile * half + (hi ? r - half : r);
-  return 2 * (prow * 128 + (j & 127)) + hi;
-}
+// bits.  Both kernels go by packed row: one multiply-high a warp step finds
+// its tile.
+//
+// The pack-2 decode takes kDecodeRows packed rows a warp step, so that a
+// lane has that many 16-byte loads in flight.
+constexpr int kDecodeRows = 2;
 
 }  // namespace flrl
 
@@ -55,9 +50,12 @@ FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
                                 int64_t frame_length, int tile_r, void* bits,
                                 void* out, int device, void* stream);
 
-// Inverse: nw output words (a frame multiple) from the fields `in` (u32[nw],
-// tile_r == 0) or the pack-2 slots of `in` (tile_r > 0) and the widths
-// bits[nw/wpf] (each 1..8).
+// Inverse: nw ≤ kDenseMaxBytes / 4 output words (a frame multiple) from
+// the fields `in` (u32[nw], tile_r == 0) or the pack-2 slots of `in`
+// (tile_r > 0: whole tiles of tile_r·128 words, at most 2^29 words a tile)
+// and the widths bits[nw/wpf] (each 1..8).  No width at or past
+// bits[nw/wpf] is read and no word at or past out[nw] is written.  in and
+// out are 16-byte aligned.
 FLRL_API int flrl_fields_decode(const void* in, const void* bits, int64_t nw,
                                 int64_t frame_length, int tile_r, void* out,
                                 int device, void* stream);

@@ -1,6 +1,7 @@
 // Helpers of the kernels that give a lane U stream bytes (U = 16, or 8 where
 // L % 16 == 8) on a grid of the blocks the card holds at once: the widths,
-// pack and unpack of fl_dense.cu and the field encode of fl_fields.cu.
+// pack and unpack of fl_dense.cu and the field encode and decode of
+// fl_fields.cu.
 //
 // A lane loads its U bytes with one vector load, ORs them into one byte
 // (bitlen(OR of bytes) == bitlen(max byte), so the OR gives the frame's
@@ -59,6 +60,24 @@ __device__ __forceinline__ uint4 load_vec(const uint8_t* src) {
   const uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
   return make_uint4(h.x, h.y, 0, 0);
 }
+
+// The first U bytes of q to dst, U-byte aligned, as one vector store.
+template <int U>
+__device__ __forceinline__ void store_vec(uint8_t* dst, const uint4& q) {
+  if (U == 16)
+    *reinterpret_cast<uint4*>(dst) = q;
+  else
+    *reinterpret_cast<uint2*>(dst) = make_uint2(q.x, q.y);
+}
+
+// p / d for p < 2^32 and 2 ≤ d < 2^32, given recip = reciprocal(d):
+// exact, since e = recip·d − 2^64 < d, so p·e < 2^64 and the error
+// p·e / (d·2^64) stays below the distance 1/d from p/d to the next integer.
+__device__ __forceinline__ uint32_t div_by(uint32_t p, uint64_t recip) {
+  return static_cast<uint32_t>(__umul64hi(uint64_t(p), recip));
+}
+
+inline uint64_t reciprocal(uint64_t d) { return UINT64_MAX / d + 1; }
 
 // The OR of the four bytes of x.
 __device__ __forceinline__ unsigned or_bytes(uint32_t x) {

@@ -162,7 +162,10 @@ def decode_fields(fields: torch.Tensor, bits: torch.Tensor,
                   tile_r: int = 0) -> torch.Tensor:
     """Words int32[F·wpf] of ``fields`` (int32[F·wpf], or in pack-2 mode
     at least ``packed_words(F·wpf, tile_r)`` slots words) and the widths
-    ``bits`` u8[F], each 1..8; see :func:`decode_fields_ref`."""
+    ``bits`` u8[F], each 1..8; see :func:`decode_fields_ref`.  The kernel
+    takes at most 2^29 output words (2^31 bytes) a call, pack-2 tiles of
+    at most 2^29 words, and 16-byte aligned ``fields``; it raises on more
+    (the field route's chunks are at most 1 GiB)."""
     _check(fields, "fields", torch.int32)
     _check(bits, "bits", torch.uint8)
     nw = bits.numel() * (frame_length // 4)
@@ -173,6 +176,7 @@ def decode_fields(fields: torch.Tensor, bits: torch.Tensor,
                          f"frames, got {fields.numel()}")
     if not _on_cuda(fields, bits):
         return decode_fields_ref(fields, bits, frame_length, tile_r)
+    _aligned(fields, "fields")
     out = torch.empty(nw, dtype=torch.int32, device=fields.device)
     _launch("flrl_fields_decode", fields.data_ptr(), bits.data_ptr(), nw,
             frame_length, tile_r, out.data_ptr(), fields.device.index,

@@ -1,16 +1,25 @@
-"""NumPy models of the index math of the field encode kernels
+"""NumPy models of the index math of the field kernels
 (``csrc/fl_fields.cu``: ``encode_spans_kernel``, ``encode_pack2_kernel``,
-``encode_frames_kernel``), held against their plain PyTorch version
-(``fl_fields_cuda.encode_fields_ref``).
+``encode_frames_kernel``, ``decode_lanes_kernel``, ``decode_pack2_kernel``),
+held against their plain PyTorch versions
+(``fl_fields_cuda.encode_fields_ref``, ``decode_fields_ref``).
 
 A CUDA kernel cannot run here, so each model repeats its kernel's
-arithmetic step for step: base mode's lanes of U bytes and warp steps of
-kFieldsStep bytes (32 a lane), the spans' ORs carried in one word through the
-xor-shuffle combine, the spread of each lane's words at its frame's width
-and the widths' stage stored by ``store_widths``; pack-2's packed row a
-step, its two input rows found by multiply-high, both rows' ORs in one word
-(two frames a row at L = 8), and the two-row packed store; any other L a
-warp a frame.  Tolerance: byte equality throughout."""
+arithmetic step for step.  The encode: base mode's lanes of U bytes and
+warp steps of kFieldsStep bytes (32 a lane), the spans' ORs carried in one
+word through the xor-shuffle combine, the spread of each lane's words at
+its frame's width and the widths' stage stored by ``store_widths``;
+pack-2's packed row a step, its two input rows found by multiply-high,
+both rows' ORs in one word (two frames a row at L = 8), and the two-row
+packed store; any other L a warp a frame.  The decode: base mode's flat
+lanes of U bytes for every L, a step of kFieldsStep bytes, the frame by
+shift or multiply-high, one width load a group and the U-byte store;
+pack-2's kDecodeRows packed rows a step, their tile by multiply-high, a
+lane's packed group unspread into both rows, and the stores masked at nw
+(rows past it, the row that holds it, and at L = 8 half a group).  The
+decode models also check that no width at or past F, no slot past the
+packed words and no output word at or past nw is touched.  Tolerance: byte
+equality throughout."""
 
 import os
 import re
@@ -37,6 +46,7 @@ def _constant(name: str) -> int:
 
 STEP = _constant("kFieldsStep")
 PACK_LANES = _constant("kPackLanes")
+DECODE_ROWS = _constant("kDecodeRows")
 ROW = 4 * PACK_LANES                        # bytes of a pack-2 row
 PACK2_LENGTHS = (8, 16, 32, 64, 128, 256, 512)
 
@@ -295,3 +305,201 @@ def test_header_constants_match_the_wrapper():
     assert STEP % (WARP * 16) == 0 and STEP // (WARP * 8) <= 4
     # pack-2's widths of both rows fit the same stage
     assert 2 * ROW // 8 <= _constant("kFieldsStage")
+
+
+# ---------------------------------------------------------------------------
+# The decode
+# ---------------------------------------------------------------------------
+
+def _unspread(f, b) -> np.ndarray:
+    """fl_fields.cu's unspread."""
+    f = np.asarray(f, np.int64)
+    b = np.asarray(b, np.int64)
+    m = (1 << b) - 1
+    return ((f & m) | (((f >> b) & m) << 8) | (((f >> 2 * b) & m) << 16)
+            | (((f >> 3 * b) & m) << 24))
+
+
+def _frame_of(p: np.ndarray, L: int) -> np.ndarray:
+    """decode_lanes_kernel's frame of byte p < 2^32: a shift where L is a
+    power of two, else one multiply-high by reciprocal(L)."""
+    p = np.asarray(p, np.uint64)
+    if L & (L - 1) == 0:
+        return (p >> U64(L.bit_length() - 1)).astype(np.int64)
+    return _umulhi(p, (2**64 - 1) // L + 1).astype(np.int64)
+
+
+def _model_decode_lanes(fields: np.ndarray, bits: np.ndarray, L: int):
+    """Base mode, every L: output words u32[nw] of u32 fields[nw]."""
+    nw = fields.size
+    n = 4 * nw
+    U = _lane_bytes(L)
+    assert L % U == 0 and n % L == 0
+    span = WARP * U
+    groups = STEP // span
+    steps = -(-n // STEP)
+    # byte p of lane `lane`'s group j in warp step s
+    p = (np.arange(steps)[:, None, None] * STEP
+         + np.arange(groups)[None, :, None] * span
+         + np.arange(WARP)[None, None, :] * U).reshape(-1)
+    p = p[p < n]                            # a group is all in or all past
+    f = _frame_of(p, L)
+    np.testing.assert_array_equal(f, p // L)
+    assert f.max(initial=-1) < bits.size    # no width at or past F
+    b = bits.astype(np.int64)[f]            # one width load a group
+    words = fields.astype(np.int64)
+    out = np.zeros(nw, np.int64)
+    written = np.zeros(nw, np.int64)
+    for q in range(U // 4):                 # the U-byte store
+        w = p // 4 + q
+        out[w] = _unspread(words[w], b)
+        written[w] += 1
+    assert (written == 1).all()
+    return out.astype(np.uint32)
+
+
+def _model_decode_pack2(slots: np.ndarray, bits: np.ndarray, L: int,
+                        tile_r: int, rows_a_step: int = DECODE_ROWS):
+    """Pack-2 mode: output words u32[nw] of the u32 slot words."""
+    wpf = L // 4
+    nw = bits.size * wpf
+    half = tile_r // 2
+    G = 2 if L == 8 else 1
+    sh = wpf.bit_length() - 1
+    assert wpf == 1 << sh and half % 8 == 0
+    rows = -(-nw // PACK_LANES)
+    last = (rows - 1) // tile_r
+    prows = last * half + min(rows - last * tile_r, half)
+    steps = -(-prows // rows_a_step)
+    P = np.arange(steps, dtype=np.uint64) * U64(rows_a_step)
+    tile = _umulhi(P, (2**64 - 1) // half + 1)
+    np.testing.assert_array_equal(tile, P // U64(half))
+    P = P.astype(np.int64)
+    lo = P + tile.astype(np.int64) * half
+    apart = half * PACK_LANES
+    lane = np.arange(WARP)
+    x = slots.astype(np.int64)
+    out = np.zeros(nw, np.int64)
+    written = np.zeros(nw, np.int64)
+    touched = []
+    for r in range(rows_a_step):
+        assert ((P + r) // half == P // half).all()   # one tile a step
+        w = ((lo + r)[:, None] * PACK_LANES + 4 * lane[None, :]).reshape(-1)
+        g = ((P + r)[:, None] * PACK_LANES + 4 * lane[None, :]).reshape(-1)
+        load = w < nw
+        assert (g[load] + 4 <= slots.size).all(), "a slot past the layout"
+        for start, half_of in ((w, lambda v: v & 0xFFFF),
+                               (w + apart, lambda v: v >> 16)):
+            keep = start < nw
+            s0, g0 = start[keep], g[keep]
+            f0 = s0 >> sh
+            touched.append(f0)
+            b0 = bits.astype(np.int64)[f0]
+            b1 = b0
+            two = s0 + 2 < nw               # the lane's second frame at L = 8
+            if G == 2:
+                touched.append(f0[two] + 1)
+                b1 = np.where(two, bits.astype(np.int64)[
+                    np.minimum(f0 + 1, bits.size - 1)], 0)
+            words = 4 if G == 1 else np.where(two, 4, 2)
+            for c in range(4):
+                m = c < words
+                bc = b0 if c < 2 else b1
+                wc = (s0 + c)[m]
+                out[wc] = _unspread(half_of(x[g0 + c][m]), np.broadcast_to(
+                    bc, s0.shape)[m])
+                written[wc] += 1
+    assert (written == 1).all(), "a word stored twice, or never"
+    t = np.concatenate(touched) if touched else np.zeros(0, np.int64)
+    assert t.max(initial=-1) < bits.size, "a width at or past F"
+    return out.astype(np.uint32)
+
+
+def _check_decode(fields: np.ndarray, bits: np.ndarray, L: int,
+                  tile_r: int = 0) -> None:
+    got = (_model_decode_pack2(fields, bits, L, tile_r) if tile_r
+           else _model_decode_lanes(fields, bits, L))
+    want = fk.decode_fields_ref(torch.from_numpy(fields.view(np.int32)),
+                                torch.from_numpy(bits), L, tile_r)
+    np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("L", BASE_LENGTHS)
+@pytest.mark.parametrize("i", range(len(BATTERY)))
+def test_base_decode_model_on_the_battery(i, L):
+    bits, out = _model_encode(_padded(BATTERY[i], L), L)
+    _check_decode(out, bits, L)
+
+
+@pytest.mark.parametrize("L", PACK2_LENGTHS)
+@pytest.mark.parametrize("i", range(len(BATTERY)))
+def test_pack2_decode_model_on_the_battery(i, L):
+    """The encode model's pack-2 slots of each battery stream, decoded
+    frame by frame: any width > 4 keeps only its slot's 16 bits, as in
+    the twin."""
+    data = _padded(BATTERY[i], 16 * ROW)
+    bits, slots = _model_encode(data, L, 16)
+    frames = max(1, -(-BATTERY[i].size // L))
+    _check_decode(slots, bits[:frames], L, 16)
+
+
+def _pack2_ends(L: int, tile_r: int) -> dict:
+    """Word counts nw that end a pack-2 stream at the masks' edges."""
+    wpf = L // 4
+    tw = tile_r * PACK_LANES
+    ends = {"whole tiles": 2 * tw,
+            "a whole row": 2 * tw + PACK_LANES,
+            "wpf past a row boundary": 2 * tw + 3 * PACK_LANES + wpf,
+            "first half of the last tile": 2 * tw + tw // 2 - 5 * PACK_LANES,
+            "mid-row in the second half": 2 * tw + tw // 2 + PACK_LANES
+            + PACK_LANES // 2,
+            "mid-row in the first half": 2 * tw + 2 * PACK_LANES + 64,
+            "one frame": wpf}
+    if L == 8:
+        ends["mid-group"] = 2 * tw + 7 * PACK_LANES + 42
+    return {k: v // wpf * wpf for k, v in ends.items()}
+
+
+@pytest.mark.parametrize("tile_r", [16, 2048])
+@pytest.mark.parametrize("L", PACK2_LENGTHS)
+def test_pack2_decode_model_at_its_masks(L, tile_r):
+    """Every end of _pack2_ends on random slot words and widths 1..8
+    (the twin and the kernel take a slot's low or high 16 bits whatever
+    the width)."""
+    g = np.random.default_rng(L * tile_r)
+    for name, nw in _pack2_ends(L, tile_r).items():
+        slots = g.integers(0, 2**32, fk.packed_words(nw, tile_r), np.uint32)
+        bits = g.integers(1, 9, nw // (L // 4), np.uint8)
+        if name == "mid-group":
+            assert nw % 4 == 2 and nw % PACK_LANES
+        _check_decode(slots, bits, L, tile_r)
+
+
+@pytest.mark.parametrize("L", BASE_LENGTHS)
+def test_base_decode_model_around_a_step(L):
+    """Frame counts around a warp step, two steps and a partial last
+    step, on random fields and widths 1..8."""
+    g = np.random.default_rng(L + 1)
+    per_step = max(1, STEP // L)
+    for frames in sorted({1, per_step - 1, per_step, per_step + 1,
+                          2 * per_step + 1} - {0}):
+        nw = frames * L // 4
+        _check_decode(g.integers(0, 2**32, nw, np.uint32),
+                      g.integers(1, 9, frames, np.uint8), L)
+
+
+@pytest.mark.parametrize("L", [24, 40, 136, 1032])
+def test_frame_multiply_high_is_exact(L):
+    """The base decode's p / L by multiply-high equals p // L for every
+    group start p a launch can take (p < 2^31, a multiple of U), at the
+    frame boundaries and on random positions."""
+    U = _lane_bytes(L)
+    top = (1 << 31) - U
+    k = np.arange(1, top // L + 1, max(1, top // L // 200_000),
+                  dtype=np.int64)
+    edges = (k[:, None] * L + np.array([-U, 0, U])[None, :]).reshape(-1)
+    g = np.random.default_rng(L)
+    rand = g.integers(0, top // U + 1, 200_000) * U
+    p = np.concatenate([edges, rand, [0, U, top]])
+    p = p[(p >= 0) & (p <= top)]
+    np.testing.assert_array_equal(_frame_of(p, L), p // L)
