@@ -305,13 +305,14 @@ __device__ __forceinline__ void store_half(uint32_t* out, uint32_t w,
     store_vec<8>(reinterpret_cast<uint8_t*>(out + w), v);
 }
 
-// Pack-2 mode: R packed rows a warp step (half is a multiple of 8, so they
-// lie in one tile).  G: the frames of a lane's four words of a row (2 at
-// L = 8, else 1).  Word positions are 32-bit: the launcher takes at most
-// 2^29 words and tiles of at most 2^29 words.
-template <int G, int R>
+// Pack-2 mode: R = kDecodeRows packed rows a warp step (half is a multiple
+// of 8, so they lie in one tile).  G: the frames of a lane's four words of
+// a row (2 at L = 8, else 1).  Word positions are 32-bit: the launcher
+// takes at most 2^29 words and tiles of at most 2^29 words.
+template <int G>
 __global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
 decode_pack2_kernel(const DecodeArgs a) {
+  constexpr int R = kDecodeRows;
   constexpr uint32_t kRow = kPackLanes * 4;  // bytes of a row
   const int lane = threadIdx.x % kWarp;
   uint32_t* out = reinterpret_cast<uint32_t*>(a.out);
@@ -378,52 +379,6 @@ cudaError_t launch_resident(Kernel kernel, const Args& a, int64_t warps,
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_decode(const void* in, const void* bits, int64_t nw,
-                          int64_t frame_length, int tile_r, void* out,
-                          int device, void* stream) {
-  if (bad_fields(nw, frame_length, tile_r) || nw > kDenseMaxBytes / 4 ||
-      int64_t(tile_r) * kPackLanes > kDenseMaxBytes / 4 || misaligned(in) ||
-      misaligned(out))
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nw == 0) return cudaSuccess;
-  const uint32_t L = static_cast<uint32_t>(frame_length);
-  DecodeArgs a{static_cast<const uint8_t*>(in),
-               static_cast<const uint8_t*>(bits),
-               static_cast<uint32_t>(nw),
-               0,
-               0,
-               0,
-               static_cast<uint32_t>(tile_r / 2),
-               static_cast<uint8_t*>(out)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_r != 0) {
-    // the packed rows whose low row holds a word < nw: whole tiles, then
-    // at most half of the last one
-    const int64_t rows = (nw + kPackLanes - 1) / kPackLanes;
-    const int64_t last = (rows - 1) / tile_r;
-    const int64_t tail = rows - last * tile_r;
-    const int64_t half = a.half;
-    const int64_t prows = last * half + (tail < half ? tail : half);
-    a.steps = static_cast<uint32_t>((prows + R - 1) / R);
-    a.sh = __builtin_ctz(L / 4);
-    a.recip = reciprocal(a.half);
-    return L == 8 ? launch_resident(decode_pack2_kernel<2, R>, a, a.steps,
-                                    device, s)
-                  : launch_resident(decode_pack2_kernel<1, R>, a, a.steps,
-                                    device, s);
-  }
-  a.steps = static_cast<uint32_t>((4 * nw + kFieldsStep - 1) / kFieldsStep);
-  a.sh = (L & (L - 1)) == 0 ? __builtin_ctz(L) : -1;
-  a.recip = reciprocal(L);
-  return L % 16 == 0 ? launch_resident(decode_lanes_kernel<16>, a, a.steps,
-                                       device, s)
-                     : launch_resident(decode_lanes_kernel<8>, a, a.steps,
-                                       device, s);
-}
-
 }  // namespace
 }  // namespace flrl
 
@@ -481,19 +436,44 @@ FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
 FLRL_API int flrl_fields_decode(const void* in, const void* bits, int64_t nw,
                                 int64_t frame_length, int tile_r, void* out,
                                 int device, void* stream) {
-  return launch_decode<kDecodeRows>(in, bits, nw, frame_length, tile_r, out,
-                                    device, stream);
-}
-
-// The decode at 1 or 2 packed rows a warp step, for the sweep that chose
-// kDecodeRows.
-FLRL_API int flrl_fields_decode_rows(const void* in, const void* bits,
-                                     int64_t nw, int64_t frame_length,
-                                     int tile_r, void* out, int rows,
-                                     int device, void* stream) {
-  if (rows != 1 && rows != 2) return cudaErrorInvalidValue;
-  return rows == 1 ? launch_decode<1>(in, bits, nw, frame_length, tile_r, out,
-                                      device, stream)
-                   : launch_decode<2>(in, bits, nw, frame_length, tile_r, out,
-                                      device, stream);
+  if (bad_fields(nw, frame_length, tile_r) || nw > kDenseMaxBytes / 4 ||
+      int64_t(tile_r) * kPackLanes > kDenseMaxBytes / 4 || misaligned(in) ||
+      misaligned(out))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nw == 0) return cudaSuccess;
+  const uint32_t L = static_cast<uint32_t>(frame_length);
+  DecodeArgs a{static_cast<const uint8_t*>(in),
+               static_cast<const uint8_t*>(bits),
+               static_cast<uint32_t>(nw),
+               0,
+               0,
+               0,
+               static_cast<uint32_t>(tile_r / 2),
+               static_cast<uint8_t*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_r != 0) {
+    // the packed rows whose low row holds a word < nw: whole tiles, then
+    // at most half of the last one
+    const int64_t rows = (nw + kPackLanes - 1) / kPackLanes;
+    const int64_t last = (rows - 1) / tile_r;
+    const int64_t tail = rows - last * tile_r;
+    const int64_t half = a.half;
+    const int64_t prows = last * half + (tail < half ? tail : half);
+    a.steps = static_cast<uint32_t>((prows + kDecodeRows - 1) / kDecodeRows);
+    a.sh = __builtin_ctz(L / 4);
+    a.recip = reciprocal(a.half);
+    return L == 8 ? launch_resident(decode_pack2_kernel<2>, a, a.steps,
+                                    device, s)
+                  : launch_resident(decode_pack2_kernel<1>, a, a.steps,
+                                    device, s);
+  }
+  a.steps = static_cast<uint32_t>((4 * nw + kFieldsStep - 1) / kFieldsStep);
+  a.sh = (L & (L - 1)) == 0 ? __builtin_ctz(L) : -1;
+  a.recip = reciprocal(L);
+  return L % 16 == 0 ? launch_resident(decode_lanes_kernel<16>, a, a.steps,
+                                       device, s)
+                     : launch_resident(decode_lanes_kernel<8>, a, a.steps,
+                                       device, s);
 }

@@ -33,9 +33,10 @@ constexpr int kPackLanes = 128;
 // bits.  Both kernels go by packed row: one multiply-high a warp step finds
 // its tile.
 //
-// The pack-2 decode takes kDecodeRows packed rows a warp step, so that a
-// lane has that many 16-byte loads in flight.
-constexpr int kDecodeRows = 2;
+// The pack-2 decode takes kDecodeRows packed rows a warp step, a lane one
+// 16-byte load of each.  One was 1.2–5.2 % faster than two a launch on an
+// H100 at L = 8, 128 and 512 (two spilled at 32 registers; PERF.md §6).
+constexpr int kDecodeRows = 1;
 
 }  // namespace flrl
 

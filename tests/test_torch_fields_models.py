@@ -359,7 +359,7 @@ def _model_decode_lanes(fields: np.ndarray, bits: np.ndarray, L: int):
 
 
 def _model_decode_pack2(slots: np.ndarray, bits: np.ndarray, L: int,
-                        tile_r: int, rows_a_step: int = DECODE_ROWS):
+                        tile_r: int):
     """Pack-2 mode: output words u32[nw] of the u32 slot words."""
     wpf = L // 4
     nw = bits.size * wpf
@@ -370,8 +370,8 @@ def _model_decode_pack2(slots: np.ndarray, bits: np.ndarray, L: int,
     rows = -(-nw // PACK_LANES)
     last = (rows - 1) // tile_r
     prows = last * half + min(rows - last * tile_r, half)
-    steps = -(-prows // rows_a_step)
-    P = np.arange(steps, dtype=np.uint64) * U64(rows_a_step)
+    steps = -(-prows // DECODE_ROWS)
+    P = np.arange(steps, dtype=np.uint64) * U64(DECODE_ROWS)
     tile = _umulhi(P, (2**64 - 1) // half + 1)
     np.testing.assert_array_equal(tile, P // U64(half))
     P = P.astype(np.int64)
@@ -382,7 +382,7 @@ def _model_decode_pack2(slots: np.ndarray, bits: np.ndarray, L: int,
     out = np.zeros(nw, np.int64)
     written = np.zeros(nw, np.int64)
     touched = []
-    for r in range(rows_a_step):
+    for r in range(DECODE_ROWS):
         assert ((P + r) // half == P // half).all()   # one tile a step
         w = ((lo + r)[:, None] * PACK_LANES + 4 * lane[None, :]).reshape(-1)
         g = ((P + r)[:, None] * PACK_LANES + 4 * lane[None, :]).reshape(-1)
