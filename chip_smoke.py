@@ -971,11 +971,11 @@ def phase_fields_decode_classes(rng) -> int:
             tw = tr * 128
             words = staged_words(random_width_stream(rng, 3 * tw * 4, L, 4),
                                  tr * 512)
-            ends = [2 * tw + tw // 2 - 3 * 128,      # first half, row end
-                    2 * tw + 5 * 128 + 64,           # mid-row, first half
-                    2 * tw + tw // 2 + 128 + 96]  # mid-row, second half
+            ends = [2 * tw + tw // 2 - 3 * 128,     # first half, row end
+                    2 * tw + 5 * 128 + 64,          # mid-row, first half
+                    2 * tw + tw // 2 + 128 + 96]    # mid-row, second half
             if L == 8:
-                ends.append(2 * tw + 7 * 128 + 42)   # mid-group
+                ends.append(2 * tw + 7 * 128 + 42)  # mid-group
             for nw in ends:
                 check_decode(words, L, tr, nw // wpf)
                 cases += 1

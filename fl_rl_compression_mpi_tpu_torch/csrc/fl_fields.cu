@@ -432,7 +432,6 @@ FLRL_API int flrl_fields_encode(const void* words, int64_t nw,
                                    device, s);
 }
 
-
 FLRL_API int flrl_fields_decode(const void* in, const void* bits, int64_t nw,
                                 int64_t frame_length, int tile_r, void* out,
                                 int device, void* stream) {
