@@ -21,7 +21,20 @@ with one card); this script runs it at N ranks over NCCL:
    of 0x00 and of 0x0F split over the ranks (bytes exact, flags clean, a
    flipped byte on the last rank trips each flag);
 3. the CLI — ``c fl-dist`` and ``d fl-dist`` at ``--devices N`` on a 64 MiB
-   file: N ranks spawned by the CLI, the container equal to fl-cpu's.
+   file: N ranks spawned by the CLI, the container equal to fl-cpu's;
+4. torchrun — ``python -m torch.distributed.run --standalone
+   --nproc-per-node N`` starts N processes, one a card, each running the
+   CLI with ``--coordinator env://`` (``parallel/multihost.py``) on a
+   ``--torchrun-mib`` (default 2048, the reference matrix's 2048 MB
+   point) file: ``c fl-dist --verify`` and ``d fl-dist`` merged to rank 0
+   and under ``FLRL_SHARED_FS=1``, ``c rl-dist`` and ``d rl-dist``, then
+   ``--rounds`` rounds of each for walls.  The FL containers equal the
+   single-card ``fl`` CLI's container of the same file, the RL container
+   rl-cpu's over the sharded loads, concatenated; every output equals the
+   input and every rank launched its path's kernels.  Beside them, the
+   walls of one card's ``fl``/``rl`` CLI (``--rounds`` rounds) and of the
+   CLI's spawned ``--devices N`` (once) on the same files.  Not run with
+   ``--device cpu``.
 
 Prints ``{"dist": {...}}`` (every wall, host clock, seconds) on the line
 before the last and ``{"ok": true, "device": {...}}`` last.  ``--device
@@ -43,10 +56,11 @@ import numpy as np
 import torch
 
 import chip_smoke as smoke
-from fl_rl_compression_mpi_tpu_torch import cli, compress, decompress
+from fl_rl_compression_mpi_tpu_torch import cli, compress, decompress, fileio
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import fl_constant_cuda as ck
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
+from fl_rl_compression_mpi_tpu_torch.utils import constant_byte_probe
 
 SEED = 2026
 
@@ -185,6 +199,128 @@ def median_range(xs: list) -> str:
     return f"{np.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
 
 
+def timed_cli(*argv: str) -> float:
+    t0 = time.perf_counter()
+    rc = cli.main(list(argv))
+    if rc:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_torchrun(world: int, mib: int, rounds: int) -> dict:
+    """The CLI under torchrun, N processes, one a card, on a ``mib`` MiB FL
+    file and a ``mib`` MiB RL file (chip_smoke.py's mixed and rl_mixed
+    streams, scaled); returns the walls."""
+    saved = smoke.MIB
+    smoke.MIB = (mib << 20) // 512
+    try:
+        rng = np.random.default_rng(SEED + 1)
+        files = {"mixed": smoke.mixed_main_stream(rng),
+                 "rl_mixed": smoke.rl_mixed_stream(rng)}
+    finally:
+        smoke.MIB = saved
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = {name: os.path.join(tmp, f"{name}.bin") for name in files}
+        for name, data in files.items():
+            data.tofile(src[name])
+        one = {"mixed": os.path.join(tmp, "one.fl"),
+               "rl_mixed": os.path.join(tmp, "one.rl")}
+        # one card each round; the spawned ranks once, their spawn alone
+        # takes seconds, and only where shared memory holds the input
+        # they are handed and the container (the input's size again)
+        shm = os.statvfs("/dev/shm")
+        spawn = shm.f_bavail * shm.f_frsize >= 2 * (mib << 20)
+        if not spawn:
+            print(f"[dist] torchrun phase: the spawned --devices {world} CLI "
+                  f"not measured: /dev/shm has "
+                  f"{shm.f_bavail * shm.f_frsize} bytes free", flush=True)
+        for r in range(rounds):
+            for name, method in (("mixed", "fl"), ("rl_mixed", "rl")):
+                for m, extra in ((method, ()),
+                                 (f"{method}-dist", ("--devices",
+                                                     str(world)))):
+                    if m != method and (r or not spawn):
+                        continue
+                    out = os.path.join(tmp, f"w.{m}")
+                    comp = one[name] if m == method else out
+                    walls.setdefault(f"{name} {m} c", []).append(
+                        timed_cli("c", m, src[name], comp, *extra))
+                    walls.setdefault(f"{name} {m} d", []).append(
+                        timed_cli("d", m, comp, out + ".out", *extra))
+        torch.cuda.empty_cache()
+
+        coord = ["--coordinator", "env://"]
+        spec = []
+        for label, env in (("merge", {}), ("sharedfs", {"FLRL_SHARED_FS":
+                                                        "1"})):
+            comp = os.path.join(tmp, f"mh.{label}.fl")
+            spec += [[f"mixed c --verify {label}", [
+                "c", "fl-dist", src["mixed"], comp, "--verify", *coord], env],
+                     [f"mixed d {label}", [
+                         "d", "fl-dist", comp, comp + ".out", *coord], env]]
+        comp = os.path.join(tmp, "mh.rl")
+        spec += [["rl_mixed c", ["c", "rl-dist", src["rl_mixed"], comp,
+                                 *coord], {}],
+                 ["rl_mixed d", ["d", "rl-dist", comp, comp + ".out",
+                                 *coord], {}]]
+        for _ in range(rounds):
+            for label, env in (("merge", {}),
+                               ("sharedfs", {"FLRL_SHARED_FS": "1"})):
+                comp = os.path.join(tmp, f"mh.w.{label}.fl")
+                spec += [[f"mixed c {label}", ["c", "fl-dist", src["mixed"],
+                                              comp, *coord], env],
+                         [f"mixed d {label}", ["d", "fl-dist", comp,
+                                              comp + ".out", *coord], env]]
+            comp = os.path.join(tmp, "mh.w.rl")
+            spec += [["rl_mixed c", ["c", "rl-dist", src["rl_mixed"], comp,
+                                     *coord], {}],
+                     ["rl_mixed d", ["d", "rl-dist", comp, comp + ".out",
+                                     *coord], {}]]
+        ranks, wall = smoke.torchrun(world, spec, tmp, timeout=1800)
+        for i, r in enumerate(ranks):
+            print(f"[dist] torchrun rank {i}: " + ", ".join(
+                f"{x['label']} {x['wall']:.3f} s" for x in r), flush=True)
+        # a rank whose shard is one byte throughout takes the host closed
+        # form and launches no kernel (rl_mixed's last quarter is zeros)
+        plans = {name: dist.plan_shards(x.size, world)
+                 for name, x in files.items()}
+        got = [smoke.check_multihost_calls(r, f"torchrun rank {i}", [
+            name for name, x in files.items() if constant_byte_probe(
+                plans[name].shard(x, i)) is None])
+            for i, r in enumerate(ranks)]
+        for label in ("merge", "sharedfs"):
+            comp = os.path.join(tmp, f"mh.{label}.fl")
+            if not smoke.same_file(comp, one["mixed"]):
+                raise AssertionError(f"torchrun, {label}: the FL container "
+                                     "differs from the fl CLI's")
+            if not smoke.same_file(comp + ".out", src["mixed"]):
+                raise AssertionError(f"torchrun, {label}: d fl-dist did not "
+                                     "restore the input")
+        parts = [CODECS["rl-cpu"].compress(
+            fileio.load_file_sharded(src["rl_mixed"], i, world)[0])
+            for i in range(world)]
+        comp = smoke.load_rl(os.path.join(tmp, "mh.rl"))
+        if not (np.array_equal(comp.counts,
+                               np.concatenate([p.counts for p in parts]))
+                and np.array_equal(comp.values,
+                                   np.concatenate([p.values for p in parts]))
+                and smoke.same_file(os.path.join(tmp, "mh.rl.out"),
+                                    src["rl_mixed"])):
+            raise AssertionError("torchrun: the RL container differs from "
+                                 "rl-cpu's over the sharded loads, or d "
+                                 "rl-dist did not restore the input")
+    for label, ws in got[0].items():
+        if label != "destroy":
+            # each round's wall is rank 0's; the first call of a label is
+            # the checked one (with --verify where the label says so)
+            walls[f"torchrun {label}"] = ws
+    walls["torchrun destroy (max over ranks)"] = [
+        max(g["destroy"][0] for g in got)]
+    walls["torchrun process (whole torchrun call)"] = [wall]
+    return walls
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--devices", type=int, default=None,
@@ -194,6 +330,8 @@ def main() -> int:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--device", default=None,
                    help="'cpu' checks the script on gloo ranks")
+    p.add_argument("--torchrun-mib", type=int, default=2048,
+                   help="file size of the torchrun phase (default 2048)")
     args = p.parse_args()
     on_cpu = args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -265,6 +403,10 @@ def main() -> int:
                                  f"{rc_d}, or container/output differ")
     walls["cli 64MiB fl-dist c"] = [t1 - t0]
     walls["cli 64MiB fl-dist d"] = [t2 - t1]
+    if not on_cpu:
+        walls.update({f"{args.torchrun_mib}MiB {key}": ws for key, ws in
+                      phase_torchrun(world, args.torchrun_mib,
+                                     args.rounds).items()})
 
     for key, ws in walls.items():
         print(f"[dist] wall {key}: {median_range(ws)} s", flush=True)

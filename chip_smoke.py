@@ -85,10 +85,13 @@ Phases, each printing a line and failing the run on any error:
               fl-cpu's and the dense route's, every field kernel launched on
               this route and no dense kernel (and the reverse on the dense
               route's run).  The host fold must be the native one.
-7. dist     — parallel/dist.py: a one-rank NCCL group's set-up time; the
-              CLI's `c --verify` and `d` of fl-dist and fl-ici on the two
-              512 MiB FL files and of rl-dist on rl_mixed at --devices 1 (one
-              NCCL rank in this process): containers equal the main phase's
+7. dist     — parallel/dist.py: the set-up of the one-rank NCCL group
+              that dist.run_collective keeps across calls (init and first
+              collective once a process, destroy at exit); then, in that
+              group, the CLI's `c --verify` and `d` of fl-dist and fl-ici
+              on the two 512 MiB FL files and of rl-dist on rl_mixed at
+              --devices 1 (one NCCL rank in this process): containers equal
+              the main phase's
               (fl-cpu's; rl's, which is rl-cpu's at one shard), round trips
               exact, the path's kernels launched in each run; walls of each
               beside `fl`/`rl`, three rounds; the device-resident constant
@@ -100,6 +103,21 @@ Phases, each printing a line and failing the run on any error:
               group): FL containers equal fl-cpu's, RL equals rl-cpu's
               per-shard containers concatenated, every rank launched its
               kernels.
+   multihost — parallel/multihost.py, right after the dist phase's walls:
+              one process under torchrun running the CLI with
+              `--coordinator env://` on the main phases' 512 MiB files
+              (`c fl-dist --verify` and `d` on mixed and uniform4, `c
+              rl-dist --verify` and `d` on rl_mixed, then three rounds of
+              walls beside phase 7's `fl`/`rl`): containers equal the main
+              phases', outputs the input, every path's kernels launched; one
+              `python -m` run with `--coordinator 127.0.0.1:<port>
+              --num-processes 1 --process-id 0`; `c fl --profile`, whose
+              trace must name a `flrl_` kernel; two gloo processes on card
+              0 over 64 MiB (generator SEED + 7) through the module
+              functions in one spawned group, merged to rank 0 in 1 MiB
+              rounds and then under FLRL_SHARED_FS=1: FL equals fl-cpu's
+              container, RL rl-cpu's per-shard containers concatenated,
+              every rank launched its kernels.
 8. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
               chunk cap, against fl-cpu and rl-cpu; the field route's fl on
               512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
@@ -127,6 +145,9 @@ Phases, each printing a line and failing the run on any error:
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
+
+`python3 chip_smoke.py --torchrun-cli SPEC` is the multihost phase's
+process under torchrun (see `torchrun_child`), not a smoke run.
 """
 
 from __future__ import annotations
@@ -136,6 +157,7 @@ import glob
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -146,7 +168,7 @@ import torch
 
 from fl_rl_compression_mpi_tpu_torch import cli
 from fl_rl_compression_mpi_tpu_torch import compress, decompress
-from fl_rl_compression_mpi_tpu_torch import load_fl, load_rl
+from fl_rl_compression_mpi_tpu_torch import RLCompressed, load_fl, load_rl
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fields
@@ -1822,25 +1844,21 @@ def all_launches() -> dict:
 
 
 def group_setup_seconds() -> tuple:
-    """Wall seconds to make a one-rank NCCL group on card 0, to run its
-    first collective (where NCCL makes its communicator) and to destroy
-    it, as ``dist.run_collective`` does around every call."""
-    backend = "nccl" if DEVICE.type == "cuda" else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        if DEVICE.type == "cuda":
-            torch.cuda.set_device(DEVICE)
-        torch.distributed.init_process_group(
-            backend, init_method="file://" + os.path.join(tmp, "rendezvous"),
-            world_size=1, rank=0)
-        t1 = time.perf_counter()
-        x = torch.zeros(1, device=DEVICE)
-        out = [torch.empty_like(x)]
-        torch.distributed.all_gather(out, x)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        torch.distributed.destroy_process_group()
-        t3 = time.perf_counter()
+    """Wall seconds a process pays for the one-rank NCCL group on card 0
+    that ``dist.run_collective`` keeps across calls: making it and its
+    first collective (where NCCL makes its communicator), once a process,
+    and destroying it, which the exit hook does."""
+    dist.release_kept_group()
+    t0 = time.perf_counter()
+    dist._keep_one_rank_group("nccl", DEVICE)
+    t1 = time.perf_counter()
+    x = torch.zeros(1, device=DEVICE)
+    out = [torch.empty_like(x)]
+    torch.distributed.all_gather(out, x)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dist.release_kept_group()
+    t3 = time.perf_counter()
     return t1 - t0, t2 - t1, t3 - t2
 
 
@@ -1848,19 +1866,19 @@ def median_range(xs: list) -> str:
     return f"{np.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
 
 
-def phase_dist(tmp: str) -> dict:
+def phase_dist(tmp: str) -> tuple:
     """fl-dist, fl-ici and rl-dist through the CLI at --devices 1 (one NCCL
-    rank in this process) on the main phases' 512 MiB files: c --verify and
-    d, each with the counts set to 0 just before and read just after; the
-    containers equal the main phases' (fl-cpu's, and rl's, which is rl-cpu's
-    at one shard).  Then walls, three rounds, each stream's single-device
-    method beside its distributed ones.  Returns the launches of the
-    distributed runs."""
-    for _ in range(3):
-        parts = group_setup_seconds()
-        say(f"[dist] one-rank NCCL group: {sum(parts):.3f} s = init "
-            f"{parts[0]:.3f} + first all_gather {parts[1]:.3f} + destroy "
-            f"{parts[2]:.3f} s")
+    rank in this process, in the group run_collective keeps) on the main
+    phases' 512 MiB files: c --verify and d, each with the counts set to 0
+    just before and read just after; the containers equal the main phases'
+    (fl-cpu's, and rl's, which is rl-cpu's at one shard).  Then walls,
+    three rounds, each stream's single-device method beside its
+    distributed ones.  Returns the launches of the distributed runs and
+    the walls."""
+    parts = group_setup_seconds()
+    say(f"[dist] one-rank NCCL group, kept across calls: init "
+        f"{parts[0]:.3f} + first all_gather {parts[1]:.3f} s once a process, "
+        f"destroy {parts[2]:.3f} s at exit")
     plan = (("mixed", "fl", ("fl-dist", "fl-ici")),
             ("uniform4", "fl", ("fl-dist", "fl-ici")),
             ("rl_mixed", "rl", ("rl-dist",)))
@@ -1909,7 +1927,7 @@ def phase_dist(tmp: str) -> dict:
         say(f"[dist] wall {name} {m}: c {median_range([w[0] for w in ws])} "
             f"s, d {median_range([w[1] for w in ws])} s (median (min-max) "
             f"of 3, host clock)")
-    return launches
+    return launches, walls
 
 
 def two_rank_cases(fl_data, rl_data, *, group=None, device):
@@ -2022,6 +2040,297 @@ def phase_constant_programs() -> dict:
     if missing:
         raise AssertionError(f"constant kernels not launched: {missing}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Multi-process (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+def torchrun(nproc: int, spec: list, tmp: str, timeout: int = 900) -> tuple:
+    """Each of ``nproc`` processes that torchrun starts runs the CLI calls
+    of ``spec`` (``[label, argv, env]`` each) in-process, one after the
+    other (this script's ``--torchrun-cli`` mode).  Returns every rank's
+    results (``torchrun_child``) and torchrun's own wall."""
+    path = os.path.join(tmp, "torchrun.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    # torchrun gives each process one OpenMP thread unless told otherwise
+    env = dict(os.environ,
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // nproc)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), os.path.join(REPO, "chip_smoke.py"),
+         "--torchrun-cli", path], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun --nproc-per-node {nproc} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    ranks = []
+    for rank in range(nproc):
+        with open(f"{path}.{rank}") as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+def torchrun_child(path: str) -> int:
+    """This script as one process of torchrun: every CLI call of the spec
+    at ``path`` in this process, one after the other.  Each call's wall
+    starts at a barrier (but the first's, which makes the group) and its
+    launch counts start at 0; at the end the group's destroy is timed,
+    which the exit hook would do.  Writes this rank's results to
+    ``<path>.<rank>``."""
+    from fl_rl_compression_mpi_tpu_torch.parallel import multihost
+    with open(path) as f:
+        spec = json.load(f)
+    results = []
+    for label, argv, env in spec:
+        saved = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        if torch.distributed.is_initialized():
+            multihost._barrier()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+        results.append({"label": label, "rc": rc, "wall": wall,
+                        "launches": all_launches()})
+        if rc:
+            break
+    rank = torch.distributed.get_rank()
+    t0 = time.perf_counter()
+    torch.distributed.destroy_process_group()
+    results.append({"label": "destroy", "rc": 0,
+                    "wall": time.perf_counter() - t0, "launches": {}})
+    with open(f"{path}.{rank}", "w") as f:
+        json.dump(results, f)
+    return max(r["rc"] for r in results)
+
+
+MULTIHOST_FILES = (("mixed", "fl"), ("uniform4", "fl"), ("rl_mixed", "rl"))
+
+
+def multihost_spec(tmp: str, rounds: int, coordinator: list,
+                   env: dict | None = None, verify: bool = True) -> list:
+    """The torchrun phases' CLI calls: ``c <family>-dist --verify`` and
+    ``d`` on each file (outputs ``<name>.mh.*``), then ``rounds`` rounds
+    of ``c`` and ``d`` for walls."""
+    spec = []
+    env = env or {}
+    for name, family in MULTIHOST_FILES:
+        src = os.path.join(tmp, f"{name}.bin")
+        comp = os.path.join(tmp, f"{name}.mh.{family}")
+        spec.append([f"{name} c --verify", [
+            "c", f"{family}-dist", src, comp, *coordinator,
+            *(["--verify"] if verify else [])], env])
+        spec.append([f"{name} d", ["d", f"{family}-dist", comp,
+                                   comp + ".out", *coordinator], env])
+    for _ in range(rounds):
+        for name, family in MULTIHOST_FILES:
+            src = os.path.join(tmp, f"{name}.bin")
+            comp = os.path.join(tmp, f"{name}.mh.w")
+            spec.append([f"{name} c", ["c", f"{family}-dist", src, comp,
+                                       *coordinator], env])
+            spec.append([f"{name} d", ["d", f"{family}-dist", comp,
+                                       comp + ".out", *coordinator], env])
+    return spec
+
+
+def check_multihost_calls(results: list, where: str,
+                          names=tuple(n for n, _ in MULTIHOST_FILES)) -> dict:
+    """Every call exited 0 and launched its path's kernels (the c and d
+    calls of each file of ``names`` together, a call's label starting
+    with its file's name); returns the walls by label."""
+    walls: dict = {}
+    ran: dict = {}
+    for r in results:
+        if r["rc"] != 0:
+            raise AssertionError(f"{where}: {r['label']} exited {r['rc']}")
+        walls.setdefault(r["label"], []).append(r["wall"])
+        name = r["label"].split()[0]
+        for key, v in r["launches"].items():
+            ran.setdefault(name, {}).setdefault(key, 0)
+            ran[name][key] += v
+    for name in names:
+        missing = [key for key in DIST_EXPECT[name] if ran[name][key] == 0]
+        if missing:
+            raise AssertionError(f"{where}: {name}: kernels not launched: "
+                                 f"{missing}")
+    return walls
+
+
+def multihost_two_ranks(fl_src: str, rl_src: str, out: str, *, group=None,
+                        device):
+    """Rank side of the two-rank module run: compress and decompress both
+    files through the module functions, first merged to rank 0 in rounds
+    of 1 MiB (FLRL_DCN_CHUNK_MB=1), then written by every rank
+    (FLRL_SHARED_FS=1); rank 0's walls and every rank's launches."""
+    from fl_rl_compression_mpi_tpu_torch.parallel import multihost as mh
+    rank = torch.distributed.get_rank(group)
+    opts = {"group": group, "device": device}
+    reset_all_launches()
+    walls = {}
+    for mode, env in (("merge", {"FLRL_DCN_CHUNK_MB": "1"}),
+                      ("shared fs", {"FLRL_SHARED_FS": "1"})):
+        os.environ.update(env)
+        tag = mode.replace(" ", "")
+        steps = (("c fl", mh.compress_fl_file, fl_src, f"{out}.{tag}.fl"),
+                 ("d fl", mh.decompress_fl_file, f"{out}.{tag}.fl",
+                  f"{out}.{tag}.fl.out"),
+                 ("c rl", mh.compress_rl_file, rl_src, f"{out}.{tag}.rl"),
+                 ("d rl", mh.decompress_rl_file, f"{out}.{tag}.rl",
+                  f"{out}.{tag}.rl.out"))
+        try:
+            for label, fn, src, dst in steps:
+                mh._barrier(group)
+                t0 = time.perf_counter()
+                fn(src, dst, **opts)
+                walls[f"{mode} {label}"] = time.perf_counter() - t0
+        finally:
+            for key in env:
+                os.environ.pop(key)
+    counts = [None] * torch.distributed.get_world_size(group)
+    torch.distributed.all_gather_object(counts, all_launches(), group=group)
+    return (walls, counts) if rank == 0 else None
+
+
+def check_trace_names_a_kernel(logdir: str) -> tuple:
+    """The ``--profile`` trace parses as JSON and holds a ``flrl_`` range;
+    returns the ``flrl_`` names and the device kernels it recorded."""
+    traces = glob.glob(os.path.join(logdir, "*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = sorted({e.get("name", "") for e in events
+                    if e.get("name", "").startswith("flrl_")})
+    kernels = sorted({e.get("name", "")[:40] for e in events
+                      if e.get("cat") == "kernel"})
+    if not names:
+        raise AssertionError("the --profile trace names no flrl_ kernel")
+    return names, kernels
+
+
+def phase_multihost(tmp: str, walls: dict) -> None:
+    """parallel/multihost.py on the card, after the timed phases.
+
+    One process under torchrun (``--coordinator env://``), the CLI on the
+    main phases' 512 MiB files: ``c fl-dist --verify`` and ``d fl-dist``
+    on mixed and uniform4, ``c rl-dist --verify`` and ``d rl-dist`` on
+    rl_mixed, then three rounds of walls; the containers equal the main
+    phases', outputs the input, every path's kernels launched.  One run
+    with ``--coordinator 127.0.0.1:<port> --num-processes 1 --process-id
+    0`` through ``python -m``.  ``c fl --profile``: a trace naming a
+    ``flrl_`` kernel.  Two gloo processes on card 0 over 64 MiB (their
+    own generator, SEED + 7) through the module functions in one spawned
+    group, merged in 1 MiB rounds, then under FLRL_SHARED_FS=1: FL equals
+    fl-cpu's container, RL rl-cpu's per-shard containers concatenated,
+    every rank launched its kernels."""
+    ranks, wall = torchrun(1, multihost_spec(tmp, 3, ["--coordinator",
+                                                      "env://"]), tmp)
+    got = check_multihost_calls(ranks[0], "torchrun, one process")
+    for name, family in MULTIHOST_FILES:
+        comp = os.path.join(tmp, f"{name}.mh.{family}")
+        if not same_file(comp, os.path.join(tmp, f"{name}.{family}")):
+            raise AssertionError(f"torchrun: {name} container differs from "
+                                 f"the {family} main phase's")
+        if not same_file(comp + ".out", os.path.join(tmp, f"{name}.bin")):
+            raise AssertionError(f"torchrun: d {family}-dist did not restore "
+                                 f"{name}")
+        base = walls[(name, family)]
+        say(f"[multihost] torchrun, one process, env://, {name}: container "
+            f"equals the main phase's, round trip exact; first c --verify "
+            f"{got[f'{name} c --verify'][0]:.3f} s, d {got[f'{name} d'][0]:.3f}"
+            f" s; walls c {median_range(got[f'{name} c'])} s, d "
+            f"{median_range(got[f'{name} d'][1:])} s (median (min-max) of 3);"
+            f" {family} in phase 7: c {median_range([w[0] for w in base])} s,"
+            f" d {median_range([w[1] for w in base])} s")
+    say(f"[multihost] torchrun: {len(ranks[0]) - 1} CLI calls in one process,"
+        f" group destroy {got['destroy'][0]:.3f} s, torchrun's wall "
+        f"{wall:.1f} s")
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    src = os.path.join(tmp, "mixed.bin")
+    comp = os.path.join(tmp, "mixed.tcp.fl")
+    t0 = time.perf_counter()
+    launches = subprocess_launches(
+        ["c", "fl-dist", src, comp, "--verify", "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"])
+    t1 = time.perf_counter()
+    missing = [key for key in ("fl_frame_widths", "fl_pack", "fl_unpack")
+               if launches[key] == 0]
+    if missing or not same_file(comp, os.path.join(tmp, "mixed.fl")):
+        raise AssertionError(f"--coordinator 127.0.0.1:{port}: kernels not "
+                             f"launched {missing}, or the container differs")
+    say(f"[multihost] python -m ... c fl-dist --verify --coordinator "
+        f"127.0.0.1:{port} --num-processes 1 --process-id 0: container "
+        f"equals the main phase's; {t1 - t0:.3f} s with the process's start")
+
+    logdir = os.path.join(tmp, "profile")
+    run_cli("c", "fl", src, os.path.join(tmp, "mixed.prof.fl"), "--profile",
+            logdir)
+    names, kernels = check_trace_names_a_kernel(logdir)
+    say(f"[multihost] c fl --profile: the trace names {names}; device "
+        f"kernels {kernels}")
+
+    rng = np.random.default_rng(SEED + 7)
+    fl_data = random_width_stream(rng, 64 * MIB + 77, 128)
+    rl_data = rl_mixed_stream(rng, 16 * MIB)
+    fl_src, rl_src = (os.path.join(tmp, f) for f in ("mh2.fl.bin",
+                                                     "mh2.rl.bin"))
+    fl_data.tofile(fl_src)
+    rl_data.tofile(rl_src)
+    out = os.path.join(tmp, "mh2")
+    t0 = time.perf_counter()
+    two_walls, counts = dist.run_collective(
+        multihost_two_ranks, fl_src, rl_src, out, devices=2, device=DEVICE,
+        backend="gloo")
+    t1 = time.perf_counter()
+    ref = CODECS["fl-cpu"].compress(fl_data)
+    plan = dist.plan_shards(rl_data.size, 2)
+    parts = [CODECS["rl-cpu"].compress(plan.shard(rl_data, i))
+             for i in range(2)]
+    want_rl = RLCompressed(np.concatenate([p.counts for p in parts]),
+                           np.concatenate([p.values for p in parts]),
+                           rl_data.size)
+    for tag in ("merge", "sharedfs"):
+        fl = load_fl(f"{out}.{tag}.fl")
+        rl = load_rl(f"{out}.{tag}.rl")
+        if not (np.array_equal(fl.bits, ref.bits)
+                and np.array_equal(fl.values, ref.values)):
+            raise AssertionError(f"two processes, {tag}: FL container "
+                                 "differs from fl-cpu's")
+        if not (np.array_equal(rl.counts, want_rl.counts)
+                and np.array_equal(rl.values, want_rl.values)):
+            raise AssertionError(f"two processes, {tag}: RL container "
+                                 "differs from rl-cpu's per-shard containers")
+        if not (same_file(f"{out}.{tag}.fl.out", fl_src)
+                and same_file(f"{out}.{tag}.rl.out", rl_src)):
+            raise AssertionError(f"two processes, {tag}: a round trip is not "
+                                 "exact")
+    for rank, ran in enumerate(counts):
+        missing = [key for key in DIST_EXPECT["mixed"] + DIST_EXPECT[
+            "rl_mixed"] if ran[key] == 0]
+        if missing:
+            raise AssertionError(f"two processes: rank {rank} did not launch "
+                                 f"{missing}")
+    rounds = -(-(fl_data.size - int(plan.ns[0])) // MIB)
+    say(f"[multihost] two gloo processes on cuda:0, 64 MiB, module "
+        f"functions: merged in 1 MiB rounds ({rounds} rounds of the FL "
+        f"decode) and under FLRL_SHARED_FS=1, FL equals fl-cpu's, RL equals "
+        f"rl-cpu's per-shard containers, round trips exact, every rank "
+        f"launched its kernels; rank 0's walls "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in two_walls.items())
+        + f"; {t1 - t0:.1f} s with the spawn")
 
 
 def main() -> int:
@@ -2137,7 +2446,10 @@ def main() -> int:
         del rl_mixed
         t_rl += time.perf_counter() - t0
         t0 = time.perf_counter()
-        dist_launches = phase_dist(tmp)
+        dist_launches, walls = phase_dist(tmp)
+        t_dist += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_multihost(tmp, walls)
         t_dist += time.perf_counter() - t0
     t0 = time.perf_counter()
     launches.update(phase_constant_programs())
@@ -2192,4 +2504,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-cli"]:
+        sys.exit(torchrun_child(sys.argv[2]))
     sys.exit(main())

@@ -2,16 +2,28 @@
 
 The same surface as ``python -m fl_rl_compression_mpi_tpu``:
 ``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``,
-``--verify`` and ``--devices``.  Methods: ``fl`` and ``rl`` (one CUDA
-device); ``fl-dist``, ``fl-ici`` and ``rl-dist`` (a process group, one CUDA
-device a rank: ``--devices`` ranks, by default every card; see
+``--verify``, ``--devices`` and ``--profile``.  Methods: ``fl`` and ``rl``
+(one CUDA device); ``fl-dist``, ``fl-ici`` and ``rl-dist`` (a process group,
+one CUDA device a rank: ``--devices`` ranks, by default every card; see
 ``parallel/dist.py``); ``fl-cpu`` and ``rl-cpu`` (host).  ``fl-mpi`` and
 ``fl-nccl`` are aliases of ``fl-dist`` and ``fl-ici``; ``fl-shmem`` (an
 enum value with no implementation in the reference) maps to ``fl-dist``
 with a notice, as in the JAX CLI.  RL methods accept ``--frame-length`` and
-ignore it, as the JAX CLI does.  The JAX package's streaming, multi-host
-and profiler flags parse, and then fail with exit code 2 and ``[ERROR]
-<x>: not yet ported to the PyTorch package``.
+ignore it, as the JAX CLI does.
+
+Multi-process runs: every process runs this same CLI with
+``--coordinator``, one process a card, and rank 0 writes the output
+(``parallel/multihost.py``):
+
+    torchrun --nproc-per-node 4 -m fl_rl_compression_mpi_tpu_torch \
+        c fl-dist in.bin out.fl --coordinator env://
+    python -m fl_rl_compression_mpi_tpu_torch c fl in.bin out.fl \
+        --coordinator HOST:PORT --num-processes 2 --process-id 0
+
+The method's family picks the FL or the RL file functions, whatever the
+method; ``--devices`` is ignored there.  ``--stream-chunk-mb`` parses, and
+then fails with exit code 2 and ``[ERROR] --stream-chunk-mb: not yet
+ported to the PyTorch package``.
 """
 
 from __future__ import annotations
@@ -24,14 +36,14 @@ import numpy as np
 
 from .api import load_container, save_container
 from .fileio import load_file, save_file
+from .models import registry
 from .models.registry import resolve
 from .ops.bitpack import FRAME_LENGTH
-from .utils.timers import set_stage_timers, timed
+from .utils.timers import profiler_trace, set_stage_timers, timed
 
 _METHODS = ("fl", "fl-cpu", "fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist",
             "fl-mpi", "fl-nccl", "fl-shmem")
-_NOT_PORTED_FLAGS = ("stream_chunk_mb", "coordinator", "num_processes",
-                     "process_id", "profile")
+_NOT_PORTED_FLAGS = ("stream_chunk_mb",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,13 +68,21 @@ def _parser() -> argparse.ArgumentParser:
                         "byte-compare against the input")
     p.add_argument("--devices", type=int, default=None,
                    help="ranks for the distributed methods, one CUDA device "
-                        "each (default: every card)")
-    # parsed only to be refused: not ported yet
-    p.add_argument("--stream-chunk-mb", type=int, default=None)
-    p.add_argument("--coordinator", default=None)
+                        "each (default: every card; ignored with "
+                        "--coordinator)")
+    p.add_argument("--profile", metavar="LOGDIR", default=None,
+                   help="write a torch.profiler trace of the codec phase to "
+                        "LOGDIR (TensorBoard format)")
+    p.add_argument("--coordinator", metavar="env://|HOST:PORT",
+                   default=None,
+                   help="multi-process mode, one process a card: env:// "
+                        "joins torchrun's rendezvous, HOST:PORT a TCP one "
+                        "(with --num-processes/--process-id, else WORLD_SIZE"
+                        "/RANK)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--profile", default=None)
+    # parsed only to be refused: not ported yet
+    p.add_argument("--stream-chunk-mb", type=int, default=None)
     return p
 
 
@@ -83,7 +103,8 @@ def _method(name: str) -> str:
 
 
 def _compress(args, codec, data: np.ndarray) -> int:
-    with timed("compression", nbytes=data.size, enabled=args.timers):
+    with timed("compression", nbytes=data.size, enabled=args.timers), \
+            profiler_trace(args.profile):
         comp = codec.compress(data, frame_length=args.frame_length,
                               devices=args.devices)
     with timed("saving output", enabled=args.timers):
@@ -112,11 +133,62 @@ def _decompress(args, codec) -> None:
     with timed("loading compressed input", enabled=args.timers):
         comp = load_container(codec.family, args.input)
     with timed("decompression", nbytes=int(comp.input_size),
-               enabled=args.timers):
+               enabled=args.timers), profiler_trace(args.profile):
         out = codec.decompress(comp, frame_length=args.frame_length,
                                devices=args.devices)
     with timed("saving output", nbytes=out.size, enabled=args.timers):
         save_file(args.output, out)
+
+
+def _run_multihost(args) -> int:
+    """Every process runs this same CLI, one process a card (one MPI rank
+    a GPU in the reference); rank 0 writes the output, or every process
+    its own ranges under ``FLRL_SHARED_FS=1``.  See
+    ``parallel/multihost.py``."""
+    import torch
+
+    from .parallel import multihost
+    try:
+        world, rank = multihost.process_layout(args.num_processes,
+                                               args.process_id)
+    except ValueError as e:
+        print(f"[ERROR] --coordinator: {e}", file=sys.stderr)
+        return 2
+    device = registry.default_device()
+    if device.type == "cuda":
+        device = multihost.local_device(rank)
+    multihost.init_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=device)
+    # rank-tagged stage lines (reference: file_io.cu:64, cpu_timer.cu:19-27)
+    set_stage_timers(args.timers, rank=rank)
+    if args.timers:
+        print(f"[INFO] cuda devices={torch.cuda.device_count()} "
+              f"device={device} process={rank}/{world} "
+              f"backend={torch.distributed.get_backend()}", file=sys.stderr)
+    family = resolve(_method(args.method)).family
+    opts = {"group": None, "device": device}
+    if args.operation == "d":
+        if family == "fl":
+            multihost.decompress_fl_file(args.input, args.output,
+                                         args.frame_length, **opts)
+        else:
+            multihost.decompress_rl_file(args.input, args.output, **opts)
+        return 0
+    if family == "fl":
+        multihost.compress_fl_file(args.input, args.output, args.frame_length,
+                                   **opts)
+    else:
+        multihost.compress_rl_file(args.input, args.output, **opts)
+    if args.verify:
+        with timed("verification", enabled=args.timers):
+            ok = multihost.verify_file_roundtrip(
+                args.input, args.output, family, args.frame_length, **opts)
+        if not ok:
+            print("[ERROR] verification failed: round-trip mismatch",
+                  file=sys.stderr)
+            return 1
+        print("[INFO] verification OK", file=sys.stderr)
+    return 0
 
 
 def _launch_counts() -> dict:
@@ -142,6 +214,23 @@ def main(argv=None) -> int:
     if args.devices is not None and args.devices < 1:
         print("[ERROR] --devices must be at least 1", file=sys.stderr)
         return 2
+    if args.timers:
+        before = _launch_counts()
+    try:
+        if args.coordinator is not None:
+            rc = _run_multihost(args)
+        else:
+            rc = _run(args)
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"[ERROR] {e}", file=sys.stderr)
+        return 1
+    if args.timers:
+        ran = {k: v - before[k] for k, v in _launch_counts().items()}
+        print(f"[INFO] kernel launches {json.dumps(ran)}", file=sys.stderr)
+    return rc
+
+
+def _run(args) -> int:
     codec = resolve(_method(args.method))
     if args.timers:
         import torch
@@ -150,23 +239,13 @@ def main(argv=None) -> int:
                 else "none")
         print(f"[INFO] cuda devices={torch.cuda.device_count()} "
               f"device0={name}", file=sys.stderr)
-        before = _launch_counts()
-    try:
-        if args.operation == "c":
-            with timed("loading input", enabled=args.timers) as t:
-                data = load_file(args.input)
-                t.add_transfer_size(data.size)
-            rc = _compress(args, codec, data)
-        else:
-            _decompress(args, codec)
-            rc = 0
-    except (OSError, ValueError, RuntimeError) as e:
-        print(f"[ERROR] {e}", file=sys.stderr)
-        return 1
-    if args.timers:
-        ran = {k: v - before[k] for k, v in _launch_counts().items()}
-        print(f"[INFO] kernel launches {json.dumps(ran)}", file=sys.stderr)
-    return rc
+    if args.operation == "d":
+        _decompress(args, codec)
+        return 0
+    with timed("loading input", enabled=args.timers) as t:
+        data = load_file(args.input)
+        t.add_transfer_size(data.size)
+    return _compress(args, codec, data)
 
 
 if __name__ == "__main__":  # pragma: no cover

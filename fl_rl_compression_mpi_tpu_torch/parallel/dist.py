@@ -37,11 +37,13 @@ Collectives take tensors on :func:`comm_device`: the rank's CUDA device
 under NCCL, the CPU under gloo.  The backend is the group's; nothing
 switches it.  Functions that gather to rank 0 return None on the other
 ranks.  :func:`run_collective` runs one of them on an existing default
-group, or on a local group that it makes and tears down.
+group, on a one-rank group that it makes once and keeps across calls, or
+on spawned ranks.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import os
@@ -437,27 +439,64 @@ def _spawn(fn: Callable, args: tuple, world: int,
     return out
 
 
+# The one-rank default group run_collective keeps across calls: its
+# (backend, device) while it lives.  Making and destroying a one-rank NCCL
+# group cost 0.56-0.91 s a call, 0.47-0.85 s of it the destroy.
+_KEPT: dict = {"key": None, "hooked": False}
+
+
+def _keep_one_rank_group(backend: str, device: torch.device) -> None:
+    """This process as the one rank of a default group on ``device``: made
+    at the first call, reused by later calls with the same backend and
+    device (another pair first destroys it), destroyed at exit.  Its
+    rendezvous is an in-memory store, so nothing outlives the process."""
+    if _KEPT["key"] == (backend, device):
+        return
+    release_kept_group()
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
+                            rank=0)
+    _KEPT["key"] = (backend, device)
+    if not _KEPT["hooked"]:
+        atexit.register(release_kept_group)
+        _KEPT["hooked"] = True
+
+
+def release_kept_group() -> None:
+    """Destroy the one-rank group :func:`run_collective` keeps, if there is
+    one; a default group that anyone else made is left alone."""
+    if _KEPT["key"] is not None:
+        _KEPT["key"] = None
+        dist.destroy_process_group()
+
+
 def run_collective(fn: Callable, *args, devices: int | None = None,
                    device: torch.device | None = None,
                    backend: str | None = None):
     """``fn(*args, group=None, device=<the rank's device>)`` on every rank
     of a process group; returns rank 0's result.
 
-    Where a default process group exists, ``fn`` runs on it in this
+    Where a default process group that a caller (or ``torchrun``, through
+    ``multihost.init_distributed``) made exists, ``fn`` runs on it in this
     process, on ``device`` or else ``cuda:LOCAL_RANK`` (the launcher's
-    variable, else the rank modulo the card count).  Otherwise on a local
-    group of ``devices`` ranks: by default one a CUDA device, or one rank
-    where ``device`` is given.  One rank runs in this process, in a group
-    made and destroyed around the call; more are spawned
-    (``torch.multiprocessing``, spawn start method, a file-store rendezvous
-    in a temporary directory), read the input from shared memory, and rank
-    0's result comes back through a queue.
+    variable, else the rank modulo the card count); the port never
+    destroys such a group.  Otherwise on a local group of ``devices``
+    ranks: by default one a CUDA device, or one rank where ``device`` is
+    given.  One rank runs in this process, in a one-rank group made at the
+    first such call and kept for the next ones with the same backend and
+    device (:func:`release_kept_group`; an exit hook destroys it).  More
+    ranks are spawned (``torch.multiprocessing``, spawn start method, a
+    file-store rendezvous in a temporary directory), after the kept group
+    is destroyed; they read the input from shared memory, and rank 0's
+    result comes back through a queue.
 
     ``device`` None puts rank r on ``cuda:r``; an explicit device (the CPU,
     or one card) serves every rank.  ``backend`` defaults to NCCL on CUDA
     devices and gloo on the CPU; two ranks on one card need gloo, which
     NCCL refuses."""
-    if dist.is_available() and dist.is_initialized():
+    if (dist.is_available() and dist.is_initialized()
+            and _KEPT["key"] is None):
         if devices is not None and devices != dist.get_world_size():
             raise ValueError(f"devices={devices}, but the process group has "
                              f"{dist.get_world_size()} ranks")
@@ -483,10 +522,9 @@ def run_collective(fn: Callable, *args, devices: int | None = None,
         backend = ("gloo" if device is not None and device.type == "cpu"
                    else "nccl")
     if world > 1:
+        release_kept_group()
         return _spawn(fn, args, world, device, backend)
     dev = (torch.device("cuda", torch.cuda.current_device())
-           if device is None else device)
-    with tempfile.TemporaryDirectory() as tmp, \
-            _process_group(backend, os.path.join(tmp, "rendezvous"), 1, 0,
-                          dev):
-        return fn(*args, group=None, device=dev)
+           if device is None else torch.device(device))
+    _keep_one_rank_group(backend, dev)
+    return fn(*args, group=None, device=dev)

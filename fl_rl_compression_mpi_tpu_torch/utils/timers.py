@@ -1,7 +1,7 @@
 """Phase timers + throughput reporting.
 
 Same ``[TIMER] <name>: <ms> ms (<rate>)`` lines and the same
-``Timer``/``timed``/``stage``/``set_stage_timers`` API as
+``Timer``/``timed``/``stage``/``set_stage_timers``/``profiler_trace`` API as
 ``fl_rl_compression_mpi_tpu/utils/timers.py``.  A device stage passes the
 tensors it produced in ``result``; the timer then synchronises the CUDA
 device before it stops, so the stage's time is the device's time and not
@@ -113,3 +113,23 @@ def stage(name: str, nbytes: int = 0, result=None):
     with timed(name, nbytes=nbytes, rank=_STAGE["rank"], enabled=True,
                result=result) as t:
         yield t
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str | None):
+    """Optional ``torch.profiler`` trace around a phase, written to
+    ``logdir`` in TensorBoard's format (the JAX package's ``--profile``
+    writes a ``jax.profiler`` trace there).  CPU activity, and CUDA
+    activity where the machine has a CUDA device; each kernel launch
+    shows as a CPU range named after its C entry point (``flrl_*``)."""
+    if logdir is None:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

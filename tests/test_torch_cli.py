@@ -2,7 +2,9 @@
 device default is patched, since ``fl`` runs only on a CUDA device)."""
 
 import glob
+import json
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ from fl_rl_compression_mpi_tpu import api as jax_api
 from fl_rl_compression_mpi_tpu import container
 from fl_rl_compression_mpi_tpu.models import registry as jax_registry
 from fl_rl_compression_mpi_tpu.cli import main as jax_main
-from fl_rl_compression_mpi_tpu.ops import rl_numpy
+from fl_rl_compression_mpi_tpu.ops import fl_numpy, rl_numpy
 from fl_rl_compression_mpi_tpu_torch.cli import main
 from fl_rl_compression_mpi_tpu_torch.models import registry
 from fl_rl_compression_mpi_tpu_torch.utils.timers import set_stage_timers
@@ -92,15 +94,55 @@ def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys, on_cpu):
     assert _same_file(ours, theirs)
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--stream-chunk-mb", "64"),
-    ("--coordinator", "localhost:1234"), ("--num-processes", "2"),
-    ("--process-id", "0"), ("--profile", "trace")])
+@pytest.mark.parametrize("flag,value", [("--stream-chunk-mb", "64")])
 def test_flags_not_ported_exit_2(flag, value, blob, tmp_path, capsys):
     src, _ = blob
     assert main(["c", "fl", src, str(tmp_path / "x"), flag, value]) == 2
     assert (f"[ERROR] {flag}: not yet ported to the PyTorch package"
             in capsys.readouterr().err)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("flag", ["--coordinator", "--num-processes",
+                                  "--process-id", "--profile"])
+def test_flags_ported_now_run(flag, blob, tmp_path, capsys, on_cpu,
+                              monkeypatch):
+    """The flags the CLI refused with exit 2 until they were ported now
+    run: ``--coordinator`` (one process, a TCP rendezvous; the
+    multi-process cases are in test_torch_multihost.py) and ``--profile``
+    (a trace that parses as JSON); ``--num-processes`` and
+    ``--process-id`` without ``--coordinator`` are ignored, as in the JAX
+    CLI.  The container is fl_numpy's either way."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    src, data = blob
+    out = str(tmp_path / "o.fl")
+    logdir = str(tmp_path / "trace")
+    extra = {"--coordinator": ["--coordinator", f"127.0.0.1:{_free_port()}",
+                               "--num-processes", "1", "--process-id", "0"],
+             "--num-processes": ["--num-processes", "2"],
+             "--process-id": ["--process-id", "1"],
+             "--profile": ["--profile", logdir]}[flag]
+    try:
+        assert main(["c", "fl", src, out, "--verify", *extra]) == 0
+    finally:
+        if flag == "--coordinator" and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert "verification OK" in capsys.readouterr().err
+    comp = flrl.load_fl(out)
+    bits, values = fl_numpy.encode(data)
+    np.testing.assert_array_equal(comp.bits, bits)
+    np.testing.assert_array_equal(comp.values, values)
+    traces = glob.glob(os.path.join(logdir, "*.json"))
+    assert len(traces) == (1 if flag == "--profile" else 0)
+    for path in traces:
+        with open(path) as f:
+            assert "traceEvents" in json.load(f)
 
 
 @pytest.mark.parametrize("method", ["fl-dist", "fl-ici", "rl-dist"])
