@@ -25,8 +25,8 @@ with one card); this script runs it at N ranks over NCCL:
 4. torchrun — ``python -m torch.distributed.run --standalone
    --nproc-per-node N`` starts N processes, one a card, each running the
    CLI with ``--coordinator env://`` (``parallel/multihost.py``) on a
-   ``--torchrun-mib`` (default 2048, the reference matrix's 2048 MB
-   point) file: ``c fl-dist --verify`` and ``d fl-dist`` merged to rank 0
+   2048 MiB file (``TORCHRUN_MIB``, the reference matrix's 2048 MB
+   point): ``c fl-dist --verify`` and ``d fl-dist`` merged to rank 0
    and under ``FLRL_SHARED_FS=1``, ``c rl-dist`` and ``d rl-dist``, then
    ``--rounds`` rounds of each for walls.  The FL containers equal the
    single-card ``fl`` CLI's container of the same file, the RL container
@@ -35,6 +35,12 @@ with one card); this script runs it at N ranks over NCCL:
    walls of one card's ``fl``/``rl`` CLI (``--rounds`` rounds) and of the
    CLI's spawned ``--devices N`` (once) on the same files.  Not run with
    ``--device cpu``.
+
+``--spawn-cli-trees DIR...`` runs phase 3 alone, once from each DIR in the
+order given (a checkout of another commit beside this one, such as
+``parent . . parent``, compares the two in one call): a process started in
+DIR builds its kernels, then times ``c fl-dist`` and ``d fl-dist`` at
+``--devices N`` through ``cli.main`` as phase 3 does.
 
 Prints ``{"dist": {...}}`` (every wall, host clock, seconds) on the line
 before the last and ``{"ok": true, "device": {...}}`` last.  ``--device
@@ -63,6 +69,7 @@ from fl_rl_compression_mpi_tpu_torch.parallel import dist
 from fl_rl_compression_mpi_tpu_torch.utils import constant_byte_probe
 
 SEED = 2026
+TORCHRUN_MIB = 2048    # phase 4's file size
 
 
 def streams(mib: int) -> dict:
@@ -321,6 +328,60 @@ def phase_torchrun(world: int, mib: int, rounds: int) -> dict:
     return walls
 
 
+# phase 3's calls in a process of their own, from the tree it starts in
+_SPAWN_CLI = """
+import json, sys, time
+from fl_rl_compression_mpi_tpu_torch import cli
+from fl_rl_compression_mpi_tpu_torch.ops import _build
+_build.lib()
+src, comp, back, world = sys.argv[1:]
+walls = []
+for argv in (["c", "fl-dist", src, comp], ["d", "fl-dist", comp, back]):
+    t0 = time.perf_counter()
+    if cli.main([*argv, "--devices", world]):
+        sys.exit(1)
+    walls.append(time.perf_counter() - t0)
+print(json.dumps(walls))
+"""
+
+
+def phase_spawn_cli(world: int, trees: list) -> dict:
+    """Phase 3 from each of ``trees`` in turn, on the same 64 MiB file: the
+    container equals fl-cpu's, the output the input; returns the walls by
+    tree."""
+    rng = np.random.default_rng(SEED)
+    small = smoke.random_width_stream(rng, 64 * (1 << 20) + 77, 128)
+    ref = CODECS["fl-cpu"].compress(small)
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, comp_path, back = (os.path.join(tmp, f) for f in
+                                ("in.bin", "out.fl", "out.bin"))
+        small.tofile(src)
+        for tree in trees:
+            for path in (comp_path, back):
+                if os.path.exists(path):
+                    os.remove(path)
+            got = subprocess.run(
+                [sys.executable, "-c", _SPAWN_CLI, src, comp_path, back,
+                 str(world)], cwd=tree, capture_output=True, text=True,
+                timeout=600)
+            if got.returncode:
+                raise AssertionError(f"{tree}: phase 3 exited "
+                                     f"{got.returncode}: {got.stderr[-2000:]}")
+            c, d = json.loads(got.stdout.splitlines()[-1])
+            comp = smoke.load_fl(comp_path)
+            if not (np.array_equal(comp.bits, ref.bits)
+                    and np.array_equal(comp.values, ref.values)
+                    and smoke.same_file(back, src)):
+                raise AssertionError(f"{tree}: CLI fl-dist at {world} ranks: "
+                                     "container or output differs")
+            print(f"[dist] spawned --devices {world} CLI from {tree}: c "
+                  f"{c:.3f} s, d {d:.3f} s", flush=True)
+            walls.setdefault(f"cli 64MiB fl-dist c, {tree}", []).append(c)
+            walls.setdefault(f"cli 64MiB fl-dist d, {tree}", []).append(d)
+    return walls
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--devices", type=int, default=None,
@@ -330,8 +391,9 @@ def main() -> int:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--device", default=None,
                    help="'cpu' checks the script on gloo ranks")
-    p.add_argument("--torchrun-mib", type=int, default=2048,
-                   help="file size of the torchrun phase (default 2048)")
+    p.add_argument("--spawn-cli-trees", nargs="+", metavar="DIR",
+                   default=None,
+                   help="run phase 3 alone, from each DIR in turn")
     args = p.parse_args()
     on_cpu = args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -350,6 +412,13 @@ def main() -> int:
     print(f"[dist] {world} ranks, {kind}, torch {torch.__version__}",
           flush=True)
     t_start = time.perf_counter()
+    if args.spawn_cli_trees:
+        walls = phase_spawn_cli(world, args.spawn_cli_trees)
+        print(json.dumps({"dist": {"ranks": world, "walls": walls}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "cpu" if on_cpu else "gpu", "kind": kind,
+            "count": 0 if on_cpu else torch.cuda.device_count()}}))
+        return 0
 
     data = streams(args.mib)
     walls = {}
@@ -404,8 +473,8 @@ def main() -> int:
     walls["cli 64MiB fl-dist c"] = [t1 - t0]
     walls["cli 64MiB fl-dist d"] = [t2 - t1]
     if not on_cpu:
-        walls.update({f"{args.torchrun_mib}MiB {key}": ws for key, ws in
-                      phase_torchrun(world, args.torchrun_mib,
+        walls.update({f"{TORCHRUN_MIB}MiB {key}": ws for key, ws in
+                      phase_torchrun(world, TORCHRUN_MIB,
                                      args.rounds).items()})
 
     for key, ws in walls.items():

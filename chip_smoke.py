@@ -2117,29 +2117,26 @@ def torchrun_child(path: str) -> int:
 MULTIHOST_FILES = (("mixed", "fl"), ("uniform4", "fl"), ("rl_mixed", "rl"))
 
 
-def multihost_spec(tmp: str, rounds: int, coordinator: list,
-                   env: dict | None = None, verify: bool = True) -> list:
-    """The torchrun phases' CLI calls: ``c <family>-dist --verify`` and
+def multihost_spec(tmp: str, rounds: int, coordinator: list) -> list:
+    """The torchrun phase's CLI calls: ``c <family>-dist --verify`` and
     ``d`` on each file (outputs ``<name>.mh.*``), then ``rounds`` rounds
     of ``c`` and ``d`` for walls."""
     spec = []
-    env = env or {}
     for name, family in MULTIHOST_FILES:
         src = os.path.join(tmp, f"{name}.bin")
         comp = os.path.join(tmp, f"{name}.mh.{family}")
         spec.append([f"{name} c --verify", [
-            "c", f"{family}-dist", src, comp, *coordinator,
-            *(["--verify"] if verify else [])], env])
+            "c", f"{family}-dist", src, comp, *coordinator, "--verify"], {}])
         spec.append([f"{name} d", ["d", f"{family}-dist", comp,
-                                   comp + ".out", *coordinator], env])
+                                   comp + ".out", *coordinator], {}])
     for _ in range(rounds):
         for name, family in MULTIHOST_FILES:
             src = os.path.join(tmp, f"{name}.bin")
             comp = os.path.join(tmp, f"{name}.mh.w")
             spec.append([f"{name} c", ["c", f"{family}-dist", src, comp,
-                                       *coordinator], env])
+                                       *coordinator], {}])
             spec.append([f"{name} d", ["d", f"{family}-dist", comp,
-                                       comp + ".out", *coordinator], env])
+                                       comp + ".out", *coordinator], {}])
     return spec
 
 

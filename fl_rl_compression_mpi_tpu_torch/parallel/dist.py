@@ -39,6 +39,11 @@ switches it.  Functions that gather to rank 0 return None on the other
 ranks.  :func:`run_collective` runs one of them on an existing default
 group, on a one-rank group that it makes once and keeps across calls, or
 on spawned ranks.
+
+The kept group is this process's default group while it lives.  A caller
+that makes its own default group (``torch.distributed.init_process_group``)
+after a call at one rank calls :func:`release_kept_group` first;
+``multihost.init_distributed`` does so itself.
 """
 
 from __future__ import annotations
@@ -465,7 +470,9 @@ def _keep_one_rank_group(backend: str, device: torch.device) -> None:
 
 def release_kept_group() -> None:
     """Destroy the one-rank group :func:`run_collective` keeps, if there is
-    one; a default group that anyone else made is left alone."""
+    one; a default group that anyone else made is left alone.  Public: a
+    caller calls it before making a default group of its own, or to free
+    the group's NCCL resources before exit."""
     if _KEPT["key"] is not None:
         _KEPT["key"] = None
         dist.destroy_process_group()

@@ -430,6 +430,26 @@ def test_callers_group_is_used_and_survives(no_group):
         torch.distributed.destroy_process_group()
 
 
+def test_caller_makes_its_group_after_release(no_group):
+    """After a call on the kept group, a caller that releases it can make
+    its own default group, which the next call then uses."""
+    data, _ = FL["mixed"]
+    dist.run_collective(dist.compress_fl, data, devices=1, device=CPU)
+    assert dist._KEPT["key"] == ("gloo", CPU)
+    dist.release_kept_group()
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.HashStore(), world_size=1, rank=0)
+    try:
+        group = torch.distributed.group.WORLD
+        comp = dist.run_collective(dist.compress_fl, data, devices=1,
+                                   device=CPU)
+        np.testing.assert_array_equal(comp.values, fl_numpy.encode(data)[1])
+        assert torch.distributed.group.WORLD is group
+        assert dist._KEPT["key"] is None
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def test_process_with_a_kept_group_exits(tmp_path):
     """A process that used the kept group exits 0, its exit hook having
     destroyed the group."""
