@@ -85,16 +85,16 @@ Phases, each printing a line and failing the run on any error:
               fl-cpu's and the dense route's, every field kernel launched on
               this route and no dense kernel (and the reverse on the dense
               route's run).  The host fold must be the native one.
-7. dist     — parallel/dist.py: the set-up of the one-rank NCCL group
-              that dist.run_collective keeps across calls (init and first
-              collective once a process, destroy at exit); then, in that
-              group, the CLI's `c --verify` and `d` of fl-dist and fl-ici
-              on the two 512 MiB FL files and of rl-dist on rl_mixed at
-              --devices 1 (one NCCL rank in this process): containers equal
-              the main phase's
-              (fl-cpu's; rl's, which is rl-cpu's at one shard), round trips
-              exact, the path's kernels launched in each run; walls of each
-              beside `fl`/`rl`, three rounds; the device-resident constant
+7. dist     — parallel/dist.py: the CLI's `c --verify` and `d` of fl-dist
+              and fl-ici on the two 512 MiB FL files and of rl-dist on
+              rl_mixed at --devices 1 (one rank in this process, with no
+              process group): containers equal the main phase's (fl-cpu's;
+              rl's, which is rl-cpu's at one shard), round trips exact, the
+              path's kernels launched in each run, no process group left
+              after them; walls of each beside `fl`/`rl`, three rounds; a
+              one-file CLI process (`python -m ... c fl-dist --devices 1`
+              and `c fl` on mixed, a fresh process each, three each, in
+              turns), process start included; the device-resident constant
               programs on 512 MiB of 0x00 and 0x0F at world size 1 (bytes
               exact, flags clean, a flipped byte trips each flag; the only
               launches of the constant kernels counted for the path); two
@@ -122,6 +122,19 @@ Phases, each printing a line and failing the run on any error:
               chunk cap, against fl-cpu and rl-cpu; the field route's fl on
               512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
               a miss).
+   stream   — stream.py through the CLI's --stream-chunk-mb, after the
+              chunk phases, from a generator of its own (SEED + 8): a
+              1.25 GiB + 77 byte file (w4, random widths, zeros, w8, a
+              ragged tail) at 64 and 256 MiB chunks, c and d beside the
+              whole-file c fl / d fl (whose container equals fl-cpu's):
+              every stream container equals the whole-file one on both
+              routes, the decodes restore the input, --verify passes, the
+              dense kernels launched; one pipelined encode and decode of
+              512 MiB in 96 MiB chunks (a uniform hit, the flag's miss,
+              random widths) under torch.cuda.set_sync_debug_mode("error");
+              each copy stage's rate a chunk from a --timers run; the peak
+              RSS of a streaming CLI process (a fresh process a chunk size)
+              after c and d of 384 MiB + 77 bytes, then of the whole file.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -154,6 +167,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import io
 import json
 import os
 import re
@@ -178,6 +192,7 @@ from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
 from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
+from fl_rl_compression_mpi_tpu_torch.utils.timers import set_stage_timers
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "reference")
@@ -1823,6 +1838,226 @@ def phase_rl_chunks(rng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Streaming (stream.py) and the pipelined walk
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNKS_MB = (64, 256)
+# the stream phase's file: past one 1 GiB chunk, with a ragged tail
+STREAM_PARTS_MIB = (("w4", 256), ("random widths", 512), ("zeros", 128),
+                    ("w8", 384))
+STREAM_TAIL = 77
+# the child that reports a streaming CLI process's peak RSS (ru_maxrss,
+# bytes) after `c` and after `d` of each file in turn, at one chunk size
+RSS_CHILD = """
+import resource
+import sys
+from fl_rl_compression_mpi_tpu_torch import cli
+
+
+def peak():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+mb, comp, back, *srcs = sys.argv[1:]
+for src in srcs:
+    peaks = []
+    for argv in (["c", "fl", src, comp], ["d", "fl", comp, back]):
+        if cli.main([*argv, "--stream-chunk-mb", mb]) != 0:
+            sys.exit(1)
+        peaks.append(peak())
+    print("rss", src, *peaks)
+"""
+
+
+def stream_file(rng) -> np.ndarray:
+    """1.25 GiB + 77 bytes: at 256 MiB chunks a uniform-w4 chunk (the
+    speculation's hit), random widths, a chunk of zeros then w8 (the
+    probe sees width 1: a miss), a w8 chunk and the tail; at 64 MiB also
+    constant chunks (the host closed form)."""
+    parts = {"w4": lambda m: uniform_stream(rng, m, 128, 4),
+             "random widths": lambda m: random_width_stream(rng, m, 128),
+             "zeros": lambda m: np.zeros(m, np.uint8),
+             "w8": lambda m: uniform_stream(rng, m, 128, 8)}
+    return np.concatenate([parts[name](mib * MIB)
+                           for name, mib in STREAM_PARTS_MIB]
+                          + [random_width_stream(rng, STREAM_TAIL, 128)])
+
+
+def stream_rss(srcs: list, tmp: str, mb: int) -> list:
+    """Peak RSS of one streaming CLI process at ``mb`` MiB chunks, a fresh
+    process that runs ``c`` then ``d`` of each file of ``srcs`` in turn:
+    ``(c, d)`` for each file, the peak so far after each.  A peak that
+    does not grow from the first file to a larger one is bounded by the
+    chunk, not the file."""
+    back = os.path.join(tmp, "r.out")
+    proc = subprocess.run(
+        [sys.executable, "-c", RSS_CHILD, str(mb), os.path.join(tmp, "r.fl"),
+         back, *srcs], cwd=REPO, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"stream RSS child failed: {proc.stderr}")
+    if not same_file(back, srcs[-1]):
+        raise AssertionError("stream RSS child: d did not restore the input")
+    peaks = [tuple(int(x) for x in line.split()[2:])
+             for line in proc.stdout.splitlines() if line.startswith("rss ")]
+    if len(peaks) != len(srcs) or min(min(p) for p in peaks) <= 0:
+        raise AssertionError(f"stream RSS child: no peaks in {proc.stdout}")
+    return peaks
+
+
+def timer_rates(argv: list) -> dict:
+    """Run the CLI in this process with ``--timers``; each copy stage's
+    rates (GB/s), one a chunk, by stage name."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run_cli(*argv, "--timers")
+    rates = {}
+    for line in out.getvalue().splitlines():
+        got = re.search(r"\[TIMER\] ((?:Copy|Host copy)[^:]*): [0-9.]+ ms "
+                        r"\(([0-9.]+) (GB|MB|KB)/s\)", line)
+        if got:
+            scale = {"GB": 1, "MB": 1e-3, "KB": 1e-6}[got.group(3)]
+            rates.setdefault(got.group(1), []).append(
+                float(got.group(2)) * scale)
+    return rates
+
+
+def phase_stream(tmp: str, rng) -> dict:
+    """The CLI's `--stream-chunk-mb` on a 1.25 GiB + 77 byte file (its own
+    generator): `c` and `d` at 64 and 256 MiB chunks beside the whole-file
+    `c fl` / `d fl`, whose container equals fl-cpu's; every stream
+    container equals the whole-file one on both routes, the decodes
+    restore the input, `--verify` passes; the dense kernels launched.  One
+    pipelined encode and decode through fl_torch's walk under
+    torch.cuda.set_sync_debug_mode("error"), so that a read-back in a
+    submit fails the run (the drain waits on events, which that mode does
+    not watch).  Each copy stage's rates, one a chunk, from a `--timers`
+    run; the peak RSS of a streaming CLI process at both chunk sizes, a
+    process a chunk size, on 384 MiB + 77 bytes and then on the whole
+    file.  Returns the dense kernels' launches."""
+    data = stream_file(rng)
+    src = os.path.join(tmp, "s.bin")
+    data.tofile(src)
+    whole, back = os.path.join(tmp, "s.fl"), os.path.join(tmp, "s.out")
+    t0 = time.perf_counter()
+    run_cli("c", "fl", src, whole)
+    t1 = time.perf_counter()
+    run_cli("d", "fl", whole, back)
+    t2 = time.perf_counter()
+    walls = {"whole": (t1 - t0, t2 - t1)}
+    ref = CODECS["fl-cpu"].compress(data)
+    comp = load_fl(whole)
+    if not (np.array_equal(comp.bits, ref.bits)
+            and np.array_equal(comp.values, ref.values)):
+        raise AssertionError("stream file: the whole-file c fl container "
+                             "differs from fl-cpu's")
+    del ref, comp
+    if not same_file(back, src):
+        raise AssertionError("stream file: d fl did not restore the input")
+    reset_fl_launches()
+    for mb in STREAM_CHUNKS_MB:
+        out = os.path.join(tmp, f"s.{mb}.fl")
+        t0 = time.perf_counter()
+        run_cli("c", "fl", src, out, "--stream-chunk-mb", str(mb))
+        t1 = time.perf_counter()
+        run_cli("d", "fl", out, back, "--stream-chunk-mb", str(mb))
+        t2 = time.perf_counter()
+        walls[mb] = (t1 - t0, t2 - t1)
+        if not same_file(out, whole):
+            raise AssertionError(f"stream {mb} MiB: container differs from "
+                                 "the whole-file c fl's")
+        if not same_file(back, src):
+            raise AssertionError(f"stream {mb} MiB: d did not restore the "
+                                 "input")
+    launches = dict(k.LAUNCHES)
+    check_route({**launches, **fk.LAUNCHES}, "dense", "stream")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"stream: dense kernels not launched: {missing}")
+    run_cli("c", "fl", src, os.path.join(tmp, "s.v.fl"), "--stream-chunk-mb",
+            "256", "--verify")
+    for name, (tc, td) in walls.items():
+        say(f"[stream] {'whole file' if name == 'whole' else f'{name} MiB'}"
+            f": c {tc:.3f} s, d {td:.3f} s ({data.size} bytes, wall, host "
+            f"clock)")
+    say(f"[stream] containers equal the whole-file c fl's (= fl-cpu's) at "
+        f"{STREAM_CHUNKS_MB} MiB, round trips exact, --verify OK; launches "
+        f"{json.dumps(launches)}")
+    with field_route():
+        reset_fl_launches()
+        for mb in STREAM_CHUNKS_MB:
+            out = os.path.join(tmp, f"s.f{mb}.fl")
+            t0 = time.perf_counter()
+            run_cli("c", "fl", src, out, "--stream-chunk-mb", str(mb))
+            t1 = time.perf_counter()
+            if not same_file(out, whole):
+                raise AssertionError(f"field route, stream {mb} MiB: "
+                                     "container differs")
+            say(f"[stream] field route {mb} MiB: container equals the "
+                f"whole-file c fl's; c {t1 - t0:.3f} s")
+        run_cli("d", "fl", whole, back, "--stream-chunk-mb", "256")
+        if not same_file(back, src):
+            raise AssertionError("field route stream: d did not restore the "
+                                 "input")
+        check_route({**k.LAUNCHES, **fk.LAUNCHES}, "fields", "field stream")
+    stream_sync_free(data, whole)
+    for argv in (("c", "fl", src, os.path.join(tmp, "s.t.fl")),
+                 ("d", "fl", whole, back)):
+        rates = timer_rates([*argv, "--stream-chunk-mb", "256"])
+        say(f"[stream] {argv[0]} 256 MiB, copy stages a chunk (GB/s, "
+            f"--timers, each stage synchronised): "
+            + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in rs)
+                        for name, rs in rates.items()))
+    small = os.path.join(tmp, "s.small.bin")
+    data[:3 * 128 * MIB + STREAM_TAIL].tofile(small)
+    del data
+    for mb in STREAM_CHUNKS_MB:
+        peaks = stream_rss([small, src], tmp, mb)
+        say(f"[stream] peak RSS of one streaming CLI process at {mb} MiB "
+            f"chunks (ru_maxrss, MiB): "
+            + "; ".join(f"{os.path.getsize(path)} bytes: after c "
+                        f"{c / (1 << 20):.1f}, after d {d / (1 << 20):.1f}"
+                        for path, (c, d) in zip((small, src), peaks)))
+    return launches
+
+
+def stream_sync_free(data: np.ndarray, whole: str) -> None:
+    """One pipelined encode and decode of the first 512 MiB in 96 MiB
+    chunks (a w4 chunk, a chunk that starts w4 and goes on in random
+    widths: the flag's miss, random widths) under sync-debug "error": any
+    call that waits for the device outside an event wait raises."""
+    n = 512 * MIB
+    step = 96 * MIB
+    head = data[:n]
+    comp = load_fl(whole)
+    frames = n // 128
+    want_bits = comp.bits[:frames]
+    want_values = comp.values[:fl_torch.payload_size(want_bits, n, 128)]
+    set_stage_timers(False)     # a stage timer synchronises the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        parts = [(b, v.copy()) for b, v in fl_torch.encode_chunks(
+            (head[off:off + step] for off in range(0, n, step)),
+            device=DEVICE)]
+        got_bits = np.concatenate([b for b, _ in parts])
+        got_values = np.concatenate([v for _, v in parts])
+        out = np.concatenate([o.copy() for o in fl_torch.decode_chunks(
+            ((min(step, n - off), b, v) for off, (b, v)
+             in zip(range(0, n, step), parts)), device=DEVICE)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (np.array_equal(got_bits, want_bits)
+            and np.array_equal(got_values, want_values)):
+        raise AssertionError("sync-free walk: container differs")
+    if not np.array_equal(out, head):
+        raise AssertionError("sync-free walk: decode did not restore the "
+                             "input")
+    say("[stream] pipelined encode and decode of 512 MiB in 96 MiB chunks "
+        "under set_sync_debug_mode('error'): no read-back in a submit; "
+        "bytes exact")
+
+
+# ---------------------------------------------------------------------------
 # Distribution (parallel/dist.py)
 # ---------------------------------------------------------------------------
 
@@ -1843,23 +2078,31 @@ def all_launches() -> dict:
     return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES}
 
 
-def group_setup_seconds() -> tuple:
-    """Wall seconds a process pays for the one-rank NCCL group on card 0
-    that ``dist.run_collective`` keeps across calls: making it and its
-    first collective (where NCCL makes its communicator), once a process,
-    and destroying it, which the exit hook does."""
-    dist.release_kept_group()
-    t0 = time.perf_counter()
-    dist._keep_one_rank_group("nccl", DEVICE)
-    t1 = time.perf_counter()
-    x = torch.zeros(1, device=DEVICE)
-    out = [torch.empty_like(x)]
-    torch.distributed.all_gather(out, x)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    dist.release_kept_group()
-    t3 = time.perf_counter()
-    return t1 - t0, t2 - t1, t3 - t2
+def cli_process_walls(tmp: str) -> dict:
+    """A one-file CLI process at --devices 1, as a user runs it: ``python
+    -m ... c fl-dist --devices 1`` and ``c fl`` on the 512 MiB mixed file,
+    each in a fresh process, in turns, three times each.  Wall
+    seconds of each run, the process's start included; every container
+    equals the main phase's."""
+    src = os.path.join(tmp, "mixed.bin")
+    walls = {"fl-dist": [], "fl": []}
+    for _ in range(3):
+        for m in walls:
+            out = os.path.join(tmp, f"p.{m}")
+            extra = ["--devices", "1"] if m == "fl-dist" else []
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch",
+                 "c", m, src, out, *extra], cwd=REPO, capture_output=True,
+                text=True)
+            walls[m].append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"python -m ... c {m} failed: "
+                                     f"{proc.stderr}")
+            if not same_file(out, os.path.join(tmp, "mixed.fl")):
+                raise AssertionError(f"python -m ... c {m}: container "
+                                     "differs from the main phase's")
+    return walls
 
 
 def median_range(xs: list) -> str:
@@ -1867,18 +2110,15 @@ def median_range(xs: list) -> str:
 
 
 def phase_dist(tmp: str) -> tuple:
-    """fl-dist, fl-ici and rl-dist through the CLI at --devices 1 (one NCCL
-    rank in this process, in the group run_collective keeps) on the main
-    phases' 512 MiB files: c --verify and d, each with the counts set to 0
-    just before and read just after; the containers equal the main phases'
-    (fl-cpu's, and rl's, which is rl-cpu's at one shard).  Then walls,
-    three rounds, each stream's single-device method beside its
-    distributed ones.  Returns the launches of the distributed runs and
-    the walls."""
-    parts = group_setup_seconds()
-    say(f"[dist] one-rank NCCL group, kept across calls: init "
-        f"{parts[0]:.3f} + first all_gather {parts[1]:.3f} s once a process, "
-        f"destroy {parts[2]:.3f} s at exit")
+    """fl-dist, fl-ici and rl-dist through the CLI at --devices 1 (one rank
+    in this process, with no process group) on the main phases' 512 MiB
+    files: c --verify and d, each with the counts set to 0 just before and
+    read just after; the containers equal the main phases' (fl-cpu's, and
+    rl's, which is rl-cpu's at one shard), and no process group exists
+    after them.  Then walls, three rounds, each stream's single-device
+    method beside its distributed ones, and a one-file CLI process at
+    --devices 1 beside ``c fl``'s.  Returns the launches of the
+    distributed runs and the walls."""
     plan = (("mixed", "fl", ("fl-dist", "fl-ici")),
             ("uniform4", "fl", ("fl-dist", "fl-ici")),
             ("rl_mixed", "rl", ("rl-dist",)))
@@ -1909,6 +2149,9 @@ def phase_dist(tmp: str) -> tuple:
                 f"{json.dumps({key: v for key, v in ran.items() if v})}")
             for key, v in ran.items():
                 launches[key] = launches.get(key, 0) + v
+    if torch.distributed.is_initialized():
+        raise AssertionError("a world-1 call left a process group behind")
+    say("[dist] no process group exists after the world-1 calls")
     walls = {}
     for _ in range(3):
         for name, base, methods in plan:
@@ -1927,6 +2170,11 @@ def phase_dist(tmp: str) -> tuple:
         say(f"[dist] wall {name} {m}: c {median_range([w[0] for w in ws])} "
             f"s, d {median_range([w[1] for w in ws])} s (median (min-max) "
             f"of 3, host clock)")
+    for m, ws in cli_process_walls(tmp).items():
+        say(f"[dist] one-file CLI process, python -m ... c {m} on mixed"
+            f"{' --devices 1' if m == 'fl-dist' else ''}: "
+            f"{median_range(ws)} s (median (min-max) of 3, process start "
+            f"included, host clock)")
     return launches, walls
 
 
@@ -2022,7 +2270,7 @@ def constant_programs(cbyte: int, n: int, *, group=None, device):
 
 
 def phase_constant_programs() -> dict:
-    """The constant programs at world size 1 (one NCCL rank) on 512 MiB of
+    """The constant programs at world size 1 (no process group) on 512 MiB of
     0x00 and of 0x0F; returns their launches."""
     launches = {key: 0 for key in CONST_REPLACES}
     for c in (0x00, 0x0F):
@@ -2033,7 +2281,7 @@ def phase_constant_programs() -> dict:
                                  f"{exact}, flags {flags}")
         for key, v in ran.items():
             launches[key] += v
-        say(f"[dist] constant programs, one NCCL rank, 512 MiB of 0x{c:02X}:"
+        say(f"[dist] constant programs, one rank, 512 MiB of 0x{c:02X}:"
             f" bytes exact, flags clean, a flipped byte trips each flag; "
             f"launches {json.dumps(ran)}")
     missing = [key for key, v in launches.items() if v == 0]
@@ -2461,6 +2709,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_rl_chunks(rng)
     t_rl += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_stream(tmp, np.random.default_rng(SEED + 8))
+    say(f"[stream] phase took {time.perf_counter() - t0:.1f} s")
     # after every timed phase: ahead of them, the 1 GiB field encodes and
     # the plain run offsets' 16 GiB buffer (2^31 counts in int64) slowed
     # the first Compression stages of the main and field phases

@@ -21,9 +21,13 @@ Multi-process runs: every process runs this same CLI with
         --coordinator HOST:PORT --num-processes 2 --process-id 0
 
 The method's family picks the FL or the RL file functions, whatever the
-method; ``--devices`` is ignored there.  ``--stream-chunk-mb`` parses, and
-then fails with exit code 2 and ``[ERROR] --stream-chunk-mb: not yet
-ported to the PyTorch package``.
+method; ``--devices`` is ignored there.
+
+``--stream-chunk-mb N`` compresses or decompresses an FL container in
+chunks of N MiB with bounded host memory (``stream.py``), on the default
+device whatever the FL method; ``--verify`` then round-trips through a
+streamed decode.  RL methods refuse it with exit code 2, as the JAX CLI
+does; ``--coordinator`` takes precedence over it.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ from .utils.timers import profiler_trace, set_stage_timers, timed
 
 _METHODS = ("fl", "fl-cpu", "fl-dist", "fl-ici", "rl", "rl-cpu", "rl-dist",
             "fl-mpi", "fl-nccl", "fl-shmem")
-_NOT_PORTED_FLAGS = ("stream_chunk_mb",)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -81,16 +84,10 @@ def _parser() -> argparse.ArgumentParser:
                         "/RANK)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    # parsed only to be refused: not ported yet
-    p.add_argument("--stream-chunk-mb", type=int, default=None)
+    p.add_argument("--stream-chunk-mb", type=int, default=None,
+                   help="FL only: stream the file in chunks of this many "
+                        "MiB, with bounded host memory")
     return p
-
-
-def _not_ported(args) -> str | None:
-    for flag in _NOT_PORTED_FLAGS:
-        if getattr(args, flag) is not None:
-            return "--" + flag.replace("_", "-")
-    return None
 
 
 def _method(name: str) -> str:
@@ -191,6 +188,38 @@ def _run_multihost(args) -> int:
     return 0
 
 
+def _run_stream(args) -> int:
+    """``--stream-chunk-mb``: the FL stream functions on the default
+    device, whatever the FL method (``stream.py``)."""
+    if resolve(_method(args.method)).family != "fl":
+        print("[ERROR] --stream-chunk-mb supports FL methods only",
+              file=sys.stderr)
+        return 2
+    from . import stream
+    opts = {"device": registry.default_device()}
+    with timed("streaming " + ("compression" if args.operation == "c"
+                               else "decompression"), enabled=args.timers):
+        if args.operation == "c":
+            stream.compress_fl_stream(args.input, args.output,
+                                      args.frame_length, args.stream_chunk_mb,
+                                      **opts)
+        else:
+            stream.decompress_fl_stream(args.input, args.output,
+                                        args.frame_length,
+                                        args.stream_chunk_mb, **opts)
+    if args.operation == "c" and args.verify:
+        with timed("verification", enabled=args.timers):
+            ok = stream.verify_fl_stream(args.input, args.output,
+                                         args.frame_length,
+                                         args.stream_chunk_mb, **opts)
+        if not ok:
+            print("[ERROR] verification failed: round-trip mismatch",
+                  file=sys.stderr)
+            return 1
+        print("[INFO] verification OK", file=sys.stderr)
+    return 0
+
+
 def _launch_counts() -> dict:
     from .ops import fl_constant_cuda, fl_dense_cuda, fl_fields_cuda, rl_cuda
     return {**fl_dense_cuda.LAUNCHES, **fl_fields_cuda.LAUNCHES,
@@ -202,11 +231,6 @@ def main(argv=None) -> int:
     # set unconditionally: in-process callers must not inherit a previous
     # run's switch
     set_stage_timers(args.timers)
-    missing = _not_ported(args)
-    if missing is not None:
-        print(f"[ERROR] {missing}: not yet ported to the PyTorch package",
-              file=sys.stderr)
-        return 2
     if args.frame_length <= 0 or args.frame_length % 8:
         print("[ERROR] --frame-length must be a positive multiple of 8",
               file=sys.stderr)
@@ -219,6 +243,8 @@ def main(argv=None) -> int:
     try:
         if args.coordinator is not None:
             rc = _run_multihost(args)
+        elif args.stream_chunk_mb is not None:
+            rc = _run_stream(args)
         else:
             rc = _run(args)
     except (OSError, ValueError, RuntimeError) as e:

@@ -307,19 +307,34 @@ def _check_mode(n, frame_length, bits, offs, fb) -> None:
 
 def pack(data: torch.Tensor, frame_length: int = FRAME_LENGTH,
          bits: torch.Tensor | None = None, offs: torch.Tensor | None = None,
-         fb: int = 0) -> torch.Tensor:
+         fb: int = 0, size: int | None = None) -> torch.Tensor:
     """Container payload u8[V] of ``data`` u8[n].  General mode: the
     frames' ``bits`` and ``offs``.  Uniform mode: ``fb`` alone, every
     frame at width fb (a frame of another width yields junk — check the
-    widths flag first).  The kernel takes at most 2^31 bytes a call."""
+    widths flag first).  The kernel takes at most 2^31 bytes a call.
+
+    ``size`` (general mode, at least n): return u8[size] whose first V
+    bytes are the payload, the rest unspecified, so that nothing is read
+    back from the device.  V ≤ n, since no frame packs to more bytes than
+    it holds.  Without it the wrapper reads ``offs[-1]`` back, which waits
+    for the device."""
     check_frame_length(frame_length)
     _check(data, "data", torch.uint8)
     n = data.numel()
     _check_mode(n, frame_length, bits, offs, fb)
+    if size is not None and (fb or size < n):
+        raise ValueError(f"size is for general mode and at least n = {n}, "
+                         f"got {size}")
     if not _on_cuda(data, bits, offs):
-        return pack_ref(data, frame_length, bits, offs, fb)
+        values = pack_ref(data, frame_length, bits, offs, fb)
+        if size is None:
+            return values
+        out = torch.zeros(size, dtype=torch.uint8, device=data.device)
+        out[:values.numel()] = values
+        return out
     _aligned(data, "data")
-    size = _uniform_bytes(n, frame_length, fb) if fb else int(offs[-1])
+    if size is None:
+        size = _uniform_bytes(n, frame_length, fb) if fb else int(offs[-1])
     values = torch.empty(size, dtype=torch.uint8, device=data.device)
     _launch("flrl_pack", data.data_ptr(), n, frame_length,
             None if fb else bits.data_ptr(), None if fb else offs.data_ptr(),

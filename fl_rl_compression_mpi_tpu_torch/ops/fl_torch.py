@@ -1,29 +1,36 @@
 """FL codec on one device: the host dispatch around the FL kernels.
 
-Counterpart of ``fl_rl_compression_mpi_tpu/ops/fl_jax.py``.  One dispatch
-chain serves every input size and both device routes:
+Counterpart of ``fl_rl_compression_mpi_tpu/ops/fl_jax.py``.  One walk
+serves every caller (whole-file, a rank's shard, a stream) and both device
+routes: :func:`encode_chunks` and :func:`decode_chunks`, frame-aligned
+chunks of at most ``_device_cap(L)`` bytes, pipelined.  A chunk is
+*submitted* (copied up through a pinned buffer and its kernels launched,
+with nothing read back from the device) and *drained* one chunk later
+(whatever the host must decide after the kernels, and the copy down), so
+that a chunk's copy down and host work overlap the next chunk's copy up
+and kernels, as in the JAX package's ``encode_chunks``/``decode_chunks``:
 
-* encode — constant stream → closed-form container on the host; else a
-  walk over frame-aligned chunks of at most ``_device_cap(L)`` bytes, each
-  copied to the device and encoded by one of two routes:
+* encode — a constant chunk → the closed-form container on the host; else
+  one of two routes:
 
   - the **dense route** (the default, every frame length): widths computed
-    with the uniform-mode flag when the host probe sees a uniform first
-    tile, packed in uniform mode on a clean flag or else through the
-    offsets scan and the general pack, and copied back (the widths and
-    exactly the payload's bytes);
+    with the uniform-mode flag and the uniform pack launched at once when
+    the host probe sees a uniform first tile, else the offsets scan and
+    the general pack; at drain a raised flag re-runs the general pack on
+    the input kept for it, and exactly the payload's bytes, sized from the
+    widths, are copied down;
   - the **field route** (``FLRL_NO_DENSE=1``): the device writes widths and
-    fields, and the host folds the fields into the payload.  Where
-    128 % (L/4) == 0 it first speculates on pack-2 (two 16-bit fields a
-    word, valid when every width is ≤ 4) and re-runs the base field
-    encode on a miss;
+    fields, and the host folds the fields into the payload at drain.
+    Where 128 % (L/4) == 0 it speculates on pack-2 (two 16-bit fields a
+    word, valid when every width is ≤ 4), judged at drain, where a miss
+    re-runs the base field encode on the words kept for it;
 
-* decode — constant container → memset; all-8 widths → the payload is
-  the output; else the same chunk walk: on the dense route a uniform
-  widths header takes uniform mode and any other the offsets scan and
-  general unpack; on the field route the host unfolds the payload into
-  fields (pack-2 where every width of the chunk is ≤ 4) and the device
-  decodes them.
+* decode — a constant container → memset; all-8 widths → the payload is
+  the output; else on the dense route a uniform chunk takes uniform mode
+  and any other the offsets scan and general unpack; on the field route
+  the host unfolds the payload into fields at submit (pack-2 where every
+  width of the chunk is ≤ 4), while the device still decodes the chunk
+  before, and the device decodes them.
 
 The JAX package takes the dense route only on a TPU at L = 128 and the
 field route everywhere else.  Here the dense kernels place bytes for every
@@ -45,9 +52,9 @@ plain PyTorch versions (the tests use it).
 
 from __future__ import annotations
 
-import functools
 import os
 import warnings
+from collections import deque
 
 import numpy as np
 import torch
@@ -174,15 +181,14 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return _host_tensor(a).to(device)
 
 
-def _staged(chunk: np.ndarray, size: int,
-            device: torch.device) -> torch.Tensor:
-    """``chunk`` on the device at the start of a ``size``-byte buffer whose
-    rest is zero: the field encoders carry no tail mask, and a non-zero
-    pad byte would widen the last frame."""
-    buf = torch.empty(size, dtype=torch.uint8, device=device)
-    buf[chunk.size:].zero_()
-    buf[:chunk.size].copy_(_host_tensor(chunk))
-    return buf
+def payload_size(bits: np.ndarray, n: int, frame_length: int) -> int:
+    """Payload bytes of the n-byte stream whose frames have the widths
+    ``bits`` (each 1..8): every frame but the last packs L·b/8 bytes."""
+    if n == 0:
+        return 0
+    tail = n - (bits.size - 1) * frame_length
+    return (frame_length // 8 * int(bits[:-1].sum(dtype=np.int64))
+            + -(-int(bits[-1]) * tail // 8))
 
 
 def encode_fields_device(words: torch.Tensor,
@@ -209,127 +215,343 @@ def decode_fields_device(fields_d: torch.Tensor, bits_d: torch.Tensor,
                                PACK_TILE_R if pack else 0)
 
 
+def _pinned_bytes(nbytes: int) -> torch.Tensor:
+    """Pinned host bytes, at least ``nbytes``, rounded up to a power of two
+    as PyTorch's pinned-memory cache rounds them anyway."""
+    return torch.empty(1 << max(nbytes - 1, 0).bit_length(),
+                       dtype=torch.uint8, pin_memory=True)
+
+
+class _Lanes:
+    """Where a walk's chunks move.  On a CUDA device: an upload stream, the
+    caller's current stream for the kernels, and a download stream, with
+    pinned host buffers that the chunks of one call reuse.  On the CPU
+    none of these: the plain versions run in order.
+
+    Nothing here reads the device back but :meth:`wait` and
+    :meth:`download`, which wait on events, so a walk's submit never
+    waits for the device."""
+
+    def __init__(self, device: torch.device, depth: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.depth = depth
+        self.turn = 0               # the chunk being submitted, modulo depth
+        self._up = {}               # (turn, slot) -> (pinned u8, event)
+        self._down = None           # pinned u8
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(device)
+            self.up_stream = torch.cuda.Stream(device)
+            self.down_stream = torch.cuda.Stream(device)
+
+    def next_chunk(self) -> None:
+        self.turn = (self.turn + 1) % self.depth
+
+    def _pinned(self, key, nbytes: int) -> torch.Tensor:
+        buf, ev = self._up.get(key, (None, None))
+        if ev is not None:
+            ev.synchronize()        # the copy that last read it is done
+        if buf is None or buf.numel() < nbytes:
+            buf = None
+            buf = _pinned_bytes(nbytes)
+        self._up[key] = (buf, None)
+        return buf
+
+    def upload(self, a: np.ndarray, size: int | None = None,
+               slot: int = 0) -> torch.Tensor:
+        """u8[size] on the device, ``a``'s bytes first and zeros after,
+        ordered before the kernels that the caller launches next.  ``a``
+        may be reused by the caller as soon as this returns."""
+        a = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        size = a.size if size is None else size
+        if not self.cuda:
+            t = torch.zeros(size, dtype=torch.uint8)
+            t[:a.size] = _host_tensor(a)
+            return t
+        host = self._pinned((self.turn, slot), a.size)
+        with stage("Host copy to pinned memory", a.size):
+            host.numpy()[:a.size] = a
+        with torch.cuda.stream(self.up_stream):
+            t = torch.empty(size, dtype=torch.uint8, device=self.device)
+            t[:a.size].copy_(host[:a.size], non_blocking=True)
+            t[a.size:].zero_()
+            ev = torch.cuda.Event()
+            ev.record(self.up_stream)
+        self._up[(self.turn, slot)] = (host, ev)
+        self.compute.wait_event(ev)
+        t.record_stream(self.compute)
+        return t
+
+    def to_host_async(self, t: torch.Tensor) -> torch.Tensor:
+        """A pinned host copy of the small tensor ``t``, complete once the
+        next :meth:`fence` has passed."""
+        if not self.cuda:
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    def fence(self):
+        """An event after everything launched so far (None on the CPU)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.compute)
+        return ev
+
+    @staticmethod
+    def wait(ev) -> None:
+        if ev is not None:
+            ev.synchronize()
+
+    def download(self, t: torch.Tensor,
+                 dest: np.ndarray | None = None) -> np.ndarray:
+        """``t``'s bytes on the host, after the kernels launched so far:
+        copied into ``dest`` where it is given, else into a pinned buffer
+        whose view is valid until the next download."""
+        t = t.reshape(-1).view(torch.uint8)
+        if not self.cuda:
+            if dest is None:
+                return t.numpy()
+            dest[...] = t.numpy()
+            return dest
+        if dest is None:
+            if self._down is None or self._down.numel() < t.numel():
+                self._down = None
+                self._down = _pinned_bytes(t.numel())
+            host = self._down[:t.numel()]
+        else:
+            host = _host_tensor(dest)
+        self.down_stream.wait_stream(self.compute)
+        with torch.cuda.stream(self.down_stream):
+            host.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.down_stream)
+        ev.synchronize()
+        return host.numpy() if dest is None else dest
+
+
+class _Chunk:
+    """One submitted chunk, waiting for its drain."""
+
+    def __init__(self, n: int, **fields):
+        self.n = n
+        self.ready = None           # the host result, where no device ran
+        self.__dict__.update(fields)
+
+
+def _pipeline(items, submit, drain, depth: int):
+    """Submit each item, and drain each entry ``depth`` - 1 submits later
+    (at once at depth 1), in order."""
+    if depth < 1:
+        raise ValueError(f"depth must be at least 1, got {depth}")
+    pending = deque()
+    for item in items:
+        pending.append(submit(item))
+        if len(pending) >= depth:
+            yield drain(pending.popleft())
+    while pending:
+        yield drain(pending.popleft())
+
+
 def encode(data, frame_length: int = FRAME_LENGTH, *,
            device: str | torch.device):
     """u8 bytes → ``(bits u8[F], values u8[V])``, byte-identical to
     ``fl_numpy.encode`` and to the reference binary's containers."""
     kern.check_frame_length(frame_length)
     data = np.asarray(data, np.uint8).reshape(-1)
-    n = data.size
-    if n == 0:
-        return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
-    c = constant_byte_probe(data)
-    if c is not None:
-        with stage("Compression", n):
-            return _constant_container(c, n, frame_length)
     return encode_walk(data, frame_length, device)
 
 
 def encode_walk(data: np.ndarray, frame_length: int,
                 device: str | torch.device, to_host: bool = True):
-    """The chunk walk of :func:`encode`, with no host closed form: ``data``
-    in frame-aligned chunks of at most ``_device_cap(L)`` bytes, each through
-    the route ``FLRL_NO_DENSE`` selects.  Returns ``(bits, values)`` as NumPy
-    arrays, or with ``to_host=False`` as u8 tensors on ``device`` (the dense
-    route's stay where the kernels wrote them; the field route's payload,
-    folded on the host, is copied up)."""
-    device = torch.device(device)
+    """:func:`encode_chunks` over ``data``, which it splits in
+    frame-aligned chunks of at most ``_device_cap(L)`` bytes.  Returns
+    ``(bits, values)`` as NumPy arrays, or with ``to_host=False`` as u8
+    tensors on ``device``."""
     n = data.size
+    parts = encode_chunks([data], frame_length, device=device,
+                          to_host=to_host)
+    if not to_host:
+        bits, values = zip(*parts)
+        if len(bits) == 1:
+            return bits[0], values[0]
+        return torch.cat(bits), torch.cat(values)
+    if n <= _device_cap(frame_length):
+        return next(parts)          # one chunk: its arrays as they are
+    bits, values, pos = [], np.empty(n, np.uint8), 0
+    for b, v in parts:              # v is valid until the walk advances
+        bits.append(b)
+        values[pos:pos + v.size] = v
+        pos += v.size
+    return np.concatenate(bits), values[:pos]
+
+
+def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
+                  device: str | torch.device, depth: int = 2,
+                  to_host: bool = True):
+    """The FL encode walk, pipelined: yields ``(bits, values)`` for each u8
+    chunk of ``chunks``, in order, byte-identical to :func:`encode` of
+    their concatenation (every chunk but the last must be frame-aligned;
+    one above ``_device_cap(L)`` is split, with a pair for each piece).
+    ``values`` is valid until the generator advances; ``bits`` is the
+    caller's.  With ``to_host=False`` both are u8 tensors on ``device``.
+
+    Each chunk is *submitted* (the host closed form of a constant chunk,
+    else copied up through a pinned buffer and its kernels launched on the
+    route ``FLRL_NO_DENSE`` selects, with no wait on the device) and
+    *drained* ``depth`` - 1 chunks later (the uniform flag or the pack-2
+    miss judged, a miss re-run on the device words kept for it, the
+    payload's size taken from the widths on the host, exactly that many
+    bytes copied down, and the field route's host fold), so that a chunk's
+    drain overlaps the next one's copy up and kernels.  The JAX package's
+    ``fl_jax.encode_chunks`` does the same at depth 2."""
+    kern.check_frame_length(frame_length)
+    L = frame_length
+    lanes = _Lanes(torch.device(device), depth)
+    dense = _use_dense()
+
+    def submit(data):
+        n = data.size
+        if n == 0:
+            return _Chunk(0, ready=(np.zeros(0, np.uint8),
+                                    np.zeros(0, np.uint8)))
+        c = constant_byte_probe(data)
+        if c is not None:
+            with stage("Compression", n):
+                return _Chunk(n, ready=_constant_container(c, n, L))
+        chunk = (_submit_dense if dense else _submit_fields)(lanes, data, L)
+        lanes.next_chunk()
+        return chunk
+
+    def drain(chunk):
+        if chunk.ready is not None:
+            bits, values = chunk.ready
+        elif dense:
+            return _drain_dense(lanes, chunk, L, to_host)
+        else:
+            bits, values = _drain_fields(lanes, chunk, L)
+        if to_host:
+            return bits, values
+        return _to_device(bits, lanes.device), _to_device(values,
+                                                          lanes.device)
+
+    yield from _pipeline(_aligned_chunks(chunks, L), submit, drain, depth)
+
+
+def _aligned_chunks(chunks, frame_length: int):
+    """``chunks`` as u8 arrays, those above the device cap split
+    frame-aligned; a non-frame-aligned chunk that is not the last one is
+    rejected, since it would change the container."""
     cap = _device_cap(frame_length)
-    if _use_dense():
-        chunk_fn = _encode_chunk if to_host else _encode_chunk_device
-    else:
-        chunk_fn = _encode_fields_chunk
-    parts = [chunk_fn(data[off:off + cap], frame_length, device)
-             for off in range(0, n, cap)]
-    if to_host:
-        if len(parts) == 1:
-            return parts[0]
-        if not parts:
-            return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
-        return (np.concatenate([b for b, _ in parts]),
-                np.concatenate([v for _, v in parts]))
-    parts = [tuple(x if isinstance(x, torch.Tensor) else _to_device(x, device)
-                   for x in part) for part in parts]
-    if len(parts) == 1:
-        return parts[0]
-    empty = [torch.zeros(0, dtype=torch.uint8, device=device)]
-    return (torch.cat([b for b, _ in parts] + empty),
-            torch.cat([v for _, v in parts] + empty))
+    ragged = False
+    for data in chunks:
+        data = np.asarray(data, np.uint8).reshape(-1)
+        if ragged:
+            raise ValueError("encode_chunks: a non-frame-aligned chunk must "
+                             "be the last one")
+        ragged = data.size % frame_length != 0
+        for off in range(0, max(data.size, 1), cap):
+            yield data[off:off + cap]
 
 
-def _encode_chunk_device(chunk: np.ndarray, frame_length: int,
-                         device: torch.device):
-    """The dense route's encode of one chunk, left on the device:
-    ``(bits_d u8[F], values_d u8[V])``."""
-    n = chunk.size
+def _submit_dense(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
+    """The dense route's submit: widths (with the uniform flag where the
+    host probe sees a uniform first tile) and the pack, the uniform one
+    speculatively, the input kept for a miss."""
+    n = data.size
+    fb = kern.host_probe_uniform_b(data, L) or 0
     h2d = []
     with stage("Copy input data to device", n, result=h2d):
-        x = _to_device(chunk, device)
+        x = lanes.upload(data)
         h2d.append(x)
-    fb = kern.host_probe_uniform_b(chunk, frame_length) or 0
     krn = []
     with stage("Compression", n, result=krn):
-        bits_d, flag = kern.frame_widths(x, frame_length, fb_expect=fb)
-        if fb and int(flag.item()) == 0:
-            values_d = kern.pack(x, frame_length, fb=fb)
+        bits_d, flag = kern.frame_widths(x, L, fb_expect=fb)
+        if fb:
+            values_d = kern.pack(x, L, fb=fb)
         else:
-            offs = kern.frame_offsets(bits_d, n, frame_length)
-            values_d = kern.pack(x, frame_length, bits=bits_d, offs=offs)
+            offs = kern.frame_offsets(bits_d, n, L)
+            values_d = kern.pack(x, L, bits=bits_d, offs=offs, size=n)
         krn += [bits_d, values_d]
-    return bits_d, values_d
+    return _Chunk(n, x=x if fb else None, bits_d=bits_d, values_d=values_d,
+                  bits_h=lanes.to_host_async(bits_d),
+                  flag_h=lanes.to_host_async(flag) if fb else None,
+                  done=lanes.fence())
 
 
-def _encode_chunk(chunk: np.ndarray, frame_length: int,
-                  device: torch.device):
-    bits_d, values_d = _encode_chunk_device(chunk, frame_length, device)
-    with stage("Copy results to CPU") as t:
-        bits = bits_d.cpu().numpy()
-        values = values_d.cpu().numpy()
-        if t:
-            t.add_transfer_size(bits.size + values.size)
-    return bits, values
+def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
+    n = chunk.n
+    lanes.wait(chunk.done)
+    values_d = chunk.values_d
+    if chunk.flag_h is not None and int(chunk.flag_h.numpy()[0]) != 0:
+        # the uniform speculation missed: the general pack of the kept input
+        krn = []
+        with stage("Compression", n, result=krn):
+            offs = kern.frame_offsets(chunk.bits_d, n, L)
+            values_d = kern.pack(chunk.x, L, bits=chunk.bits_d, offs=offs,
+                                 size=n)
+            krn.append(values_d)
+    bits = chunk.bits_h.numpy().copy()
+    values_d = values_d[:payload_size(bits, n, L)]
+    if not to_host:
+        return chunk.bits_d, values_d
+    with stage("Copy results to CPU", values_d.numel()):
+        return bits, lanes.download(values_d)
 
 
-def _encode_fields_chunk(chunk: np.ndarray, frame_length: int,
-                         device: torch.device):
-    """The field route's encode of one chunk: pack-2 speculation where the
-    layout allows, else (or on a miss) the base field encode; then the host
-    fold."""
-    n = chunk.size
-    L = frame_length
+def _submit_fields(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
+    """The field route's submit: the pack-2 field encode where the layout
+    allows (the words kept for a miss), else the base one."""
+    n = data.size
     wpf = L // 4
     frames = -(-n // L)
     pack = _use_pack2(L)
+    # the field encoders carry no tail mask: the pad must be zero
     unit = PACK_TILE_R * fkern.LANES * 4 if pack else L
     h2d = []
     with stage("Copy input data to device", n, result=h2d):
-        buf = _staged(chunk, -(-n // unit) * unit, device)
+        buf = lanes.upload(data, -(-n // unit) * unit)
         h2d.append(buf)
     words = buf.view(torch.int32)
-    if pack:
-        krn = []
-        with stage("Compression", n, result=krn):
-            bits_d, packed_d = encode_fields_device(words, L, pack=True)
-            krn += [bits_d, packed_d]
-        bits = bits_d[:frames].cpu().numpy()
-        if int(bits.max()) <= 4:
-            need = fkern.packed_words(frames * wpf, PACK_TILE_R)
-            with stage("Copy results to CPU", frames + need * 4):
-                packed = packed_d[:need].cpu().numpy().view(np.uint32)
-            with stage("Host fold (ragged placement)", n):
-                return bits, fold_p2(packed, bits, n, L, PACK_TILE_R)
-        # speculation miss (some width > 4): the base encode of the words
-        # still on the device
     krn = []
     with stage("Compression", n, result=krn):
-        bits_d, fields_d = encode_fields_device(words[:frames * wpf], L)
+        if pack:
+            bits_d, fields_d = encode_fields_device(words, L, pack=True)
+        else:
+            bits_d, fields_d = encode_fields_device(words[:frames * wpf], L)
         krn += [bits_d, fields_d]
-    with stage("Copy results to CPU", frames + frames * wpf * 4):
-        bits = bits_d.cpu().numpy()
-        fields_h = fields_d.cpu().numpy().view(np.uint32)
+    return _Chunk(n, pack=pack, words=words if pack else None,
+                  fields_d=fields_d, bits_h=lanes.to_host_async(
+                      bits_d[:frames]), done=lanes.fence())
+
+
+def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
+    n = chunk.n
+    wpf = L // 4
+    frames = -(-n // L)
+    lanes.wait(chunk.done)
+    bits = chunk.bits_h.numpy().copy()
+    if chunk.pack:
+        if int(bits.max()) <= 4:
+            need = fkern.packed_words(frames * wpf, PACK_TILE_R)
+            with stage("Copy results to CPU", need * 4):
+                packed = lanes.download(chunk.fields_d[:need])
+            with stage("Host fold (ragged placement)", n):
+                return bits, fold_p2(packed.view(np.uint32), bits, n, L,
+                                     PACK_TILE_R)
+        # the pack-2 speculation missed (a width > 4): the base encode of
+        # the words kept on the device
+        krn = []
+        with stage("Compression", n, result=krn):
+            _, fields_d = encode_fields_device(chunk.words[:frames * wpf], L)
+            krn.append(fields_d)
+    else:
+        fields_d = chunk.fields_d
+    with stage("Copy results to CPU", frames * wpf * 4):
+        fields_h = lanes.download(fields_d)
     with stage("Host fold (ragged placement)", n):
-        return bits, fold(fields_h, bits, n, L)
+        return bits, fold(fields_h.view(np.uint32), bits, n, L)
 
 
 def decode(output_size: int, bits, values,
@@ -347,7 +569,7 @@ def decode(output_size: int, bits, values,
     out = decode_closed_form(n, bits, values, frame_length)
     if out is not None:
         return out
-    widths, voffs = container_layout(n, bits, values, frame_length)
+    widths, voffs = container_layout(n, bits, values.size, frame_length)
     return decode_walk(n, widths, values, voffs, frame_length, device)
 
 
@@ -373,12 +595,12 @@ def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
     return None
 
 
-def container_layout(n: int, bits: np.ndarray, values: np.ndarray,
+def container_layout(n: int, bits: np.ndarray, values_size: int,
                      frame_length: int):
     """``(widths u8[F], voffs i64[F+1])``: the widths of the frames of an
-    n-byte stream and the exclusive scan of their payload bytes.  Raises
-    on a width byte outside 1..8 or a payload shorter than the widths
-    imply."""
+    n-byte stream (n > 0) and the exclusive scan of their payload bytes.
+    Raises on a width byte outside 1..8 or a payload of ``values_size``
+    bytes, shorter than the widths imply."""
     frames = -(-n // frame_length)
     widths = bits[:frames]
     lo, hi = int(widths.min()), int(widths.max())
@@ -390,71 +612,148 @@ def container_layout(n: int, bits: np.ndarray, values: np.ndarray,
         n - np.arange(frames, dtype=np.int64) * frame_length, frame_length)
     voffs = np.zeros(frames + 1, np.int64)
     np.cumsum((widths.astype(np.int64) * counts + 7) // 8, out=voffs[1:])
-    if values.size < voffs[-1]:
+    if values_size < voffs[-1]:
         raise ValueError(
             "fl decode: corrupt container (payload shorter than the "
-            f"widths imply: {values.size} < {int(voffs[-1])})")
+            f"widths imply: {values_size} < {int(voffs[-1])})")
     return widths, voffs
 
 
 def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
                 voffs: np.ndarray, frame_length: int,
                 device: str | torch.device) -> np.ndarray:
-    """The chunk walk of :func:`decode`, with no host closed form: the n
-    bytes of the frames ``widths`` (each 1..8) whose payload starts at
-    ``values[voffs[f]]``, decoded chunk by chunk on the route
-    ``FLRL_NO_DENSE`` selects."""
+    """:func:`decode_chunks` over the n bytes of the frames ``widths``
+    (each 1..8) whose payload starts at ``values[voffs[f]]``, in chunks of
+    at most ``_device_cap(L)`` bytes, each copied straight into the
+    output."""
     out = np.empty(n, np.uint8)
-    if n == 0:
-        return out
-    lo, hi = int(widths.min()), int(widths.max())
-    chunk_fn = (functools.partial(_decode_chunk, fb=lo if lo == hi else 0)
-                if _use_dense() else _decode_fields_chunk)
-    device = torch.device(device)
     cap = _device_cap(frame_length)
     fpc = cap // frame_length
-    frames = widths.size
-    for off in range(0, n, cap):
-        f0 = off // frame_length
-        f1 = min(f0 + fpc, frames)
-        chunk_fn(out[off:off + cap], widths[f0:f1],
-                 values[voffs[f0]:voffs[f1]], frame_length, device)
+
+    def parts():
+        for off in range(0, n, cap):
+            f0 = off // frame_length
+            f1 = min(f0 + fpc, widths.size)
+            yield (min(cap, n - off), widths[f0:f1],
+                   values[voffs[f0]:voffs[f1]])
+
+    for _ in decode_chunks(parts(), frame_length, device=device, out=out):
+        pass
     return out
 
 
-def _decode_chunk(out: np.ndarray, bits: np.ndarray, values: np.ndarray,
-                  frame_length: int, device: torch.device, fb: int) -> None:
-    """Decode one chunk's container into ``out`` (its bytes of the
-    output), copying from the device straight into it."""
-    n = out.size
+def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
+                  device: str | torch.device, depth: int = 2,
+                  out: np.ndarray | None = None):
+    """The FL decode walk, pipelined: for each ``(n, widths, values)`` of
+    ``parts`` (an n-byte frame-aligned piece of the stream, its widths,
+    each 1..8, and exactly its payload; one above ``_device_cap(L)`` is
+    split), yields its n decoded bytes, in order.  With ``out`` they are
+    copied into ``out`` one part after another and the yielded array is
+    that slice of it; else it is valid until the generator advances.
+
+    Each part is *submitted* (the host closed forms of a constant or
+    all-8 part, else its payload, and on the general path its widths,
+    copied up through pinned buffers and its kernels launched on the route
+    ``FLRL_NO_DENSE`` selects, the field route's host unfold first) and
+    *drained* ``depth`` - 1 parts later (its bytes copied down)."""
+    kern.check_frame_length(frame_length)
+    L = frame_length
+    lanes = _Lanes(torch.device(device), depth)
+    dense = _use_dense()
+    pos = 0
+
+    def submit(part):
+        n, bits, values = part
+        if n == 0:
+            return _Chunk(0, ready=np.zeros(0, np.uint8))
+        closed = decode_closed_form(n, bits, values, L)
+        if closed is not None:
+            return _Chunk(n, ready=closed)
+        chunk = (_submit_decode if dense else _submit_decode_fields)(
+            lanes, n, bits[:-(-n // L)], values, L)
+        lanes.next_chunk()
+        return chunk
+
+    def drain(chunk):
+        nonlocal pos
+        dest = None if out is None else out[pos:pos + chunk.n]
+        pos += chunk.n
+        if chunk.ready is not None:
+            if dest is None:
+                return chunk.ready
+            dest[...] = chunk.ready
+            return dest
+        with stage("Copy results to CPU", chunk.n):
+            return lanes.download(chunk.out_d, dest)
+
+    yield from _pipeline(_capped_parts(parts, L), submit, drain, depth)
+
+
+def _capped_parts(parts, frame_length: int):
+    """``parts`` with those above the device cap split frame-aligned by
+    their widths."""
+    cap = _device_cap(frame_length)
+    fpc = cap // frame_length
+    for n, bits, values in parts:
+        n = int(n)
+        bits = np.asarray(bits, np.uint8).reshape(-1)
+        values = np.asarray(values, np.uint8).reshape(-1)
+        if n <= cap:
+            yield n, bits, values
+            continue
+        frames = -(-n // frame_length)
+        _, voffs = container_layout(n, bits, values.size, frame_length)
+        for off in range(0, n, cap):
+            f0 = off // frame_length
+            f1 = min(f0 + fpc, frames)
+            yield (min(cap, n - off), bits[f0:f1],
+                   values[voffs[f0]:voffs[f1]])
+
+
+def _check_part(n: int, bits: np.ndarray, values: np.ndarray,
+                L: int) -> tuple[int, int]:
+    """The part's least and greatest width; raises where a width lies
+    outside 1..8 or the payload is not the size the widths imply, which
+    the kernels would read past."""
+    lo, hi = int(bits.min()), int(bits.max())
+    if lo < 1 or hi > 8 or values.size != payload_size(bits, n, L):
+        raise ValueError("fl decode: corrupt part (widths outside 1..8 or "
+                         "a payload of another size than they imply)")
+    return lo, hi
+
+
+def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
+                   values: np.ndarray, L: int) -> _Chunk:
+    """The dense route's submit: uniform mode where every width of the
+    part is one, else the offsets scan and the general unpack."""
+    lo, hi = _check_part(n, bits, values, L)
+    fb = lo if lo == hi else 0
     h2d = []
     with stage("Copy input to device", values.size + bits.size, result=h2d):
-        v = _to_device(values, device)
-        b = None if fb else _to_device(bits, device)
+        v = lanes.upload(values)
+        b = None if fb else lanes.upload(bits, slot=1)
         h2d.append(v)
     krn = []
     with stage("Decompression", n, result=krn):
         if fb:
-            out_d = kern.unpack(v, n, frame_length, fb=fb)
+            out_d = kern.unpack(v, n, L, fb=fb)
         else:
-            offs = kern.frame_offsets(b, n, frame_length)
-            out_d = kern.unpack(v, n, frame_length, bits=b, offs=offs)
+            offs = kern.frame_offsets(b, n, L)
+            out_d = kern.unpack(v, n, L, bits=b, offs=offs)
         krn.append(out_d)
-    with stage("Copy results to CPU", n):
-        torch.from_numpy(out).copy_(out_d)
+    return _Chunk(n, out_d=out_d)
 
 
-def _decode_fields_chunk(out: np.ndarray, bits: np.ndarray,
-                         values: np.ndarray, frame_length: int,
-                         device: torch.device) -> None:
-    """The field route's decode of one chunk into ``out``: the host unfolds
-    the payload into fields (the pack-2 layout where the layout allows and
-    every width of the chunk is ≤ 4), the device decodes them, and the
-    result is copied straight into ``out``."""
-    n = out.size
-    L = frame_length
+def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
+                          values: np.ndarray, L: int) -> _Chunk:
+    """The field route's submit: the host unfolds the payload into fields
+    (the pack-2 layout where the layout allows and every width of the part
+    is ≤ 4), while the device still works on the part before; the device
+    decodes them."""
+    _, hi = _check_part(n, bits, values, L)
     nw = bits.size * (L // 4)
-    pack = _use_pack2(L) and int(bits.max()) <= 4
+    pack = _use_pack2(L) and hi <= 4
     with stage("Host unfold (ragged placement)", n):
         if pack:
             fields_h = unfold_p2(values, bits, n, L, PACK_TILE_R,
@@ -464,12 +763,11 @@ def _decode_fields_chunk(out: np.ndarray, bits: np.ndarray,
     h2d = []
     with stage("Copy input to device", fields_h.nbytes + bits.size,
                result=h2d):
-        f = _to_device(fields_h.view(np.int32), device)
-        b = _to_device(bits, device)
+        f = lanes.upload(fields_h).view(torch.int32)
+        b = lanes.upload(bits, slot=1)
         h2d += [f, b]
     krn = []
     with stage("Decompression", n, result=krn):
         out_d = decode_fields_device(f, b, L, pack=pack)
         krn.append(out_d)
-    with stage("Copy results to CPU", n):
-        torch.from_numpy(out).copy_(out_d.view(torch.uint8)[:n])
+    return _Chunk(n, out_d=out_d.view(torch.uint8)[:n])

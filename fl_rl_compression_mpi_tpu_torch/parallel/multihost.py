@@ -57,10 +57,7 @@ from ..utils.timers import stage, stage_timers_enabled
 from . import dist
 
 
-def _rank_world(group=None) -> tuple[int, int]:
-    if not (tdist.is_available() and tdist.is_initialized()):
-        return 0, 1
-    return tdist.get_rank(group), tdist.get_world_size(group)
+_rank_world = dist._rank_world
 
 
 def _load_shard_timed(input_path: str, pid: int, nproc: int,
@@ -183,13 +180,11 @@ def init_distributed(coordinator_address: str | None = None,
     ``process_id`` of ``num_processes``, each taken from ``RANK`` /
     ``WORLD_SIZE`` where it is not given.  NCCL where ``device`` is a CUDA
     device, gloo on the CPU.  A default group that exists with the same
-    world size and rank is used as it is; one that conflicts raises.  The
-    one-rank group ``dist.run_collective`` keeps is destroyed first.  A
+    world size and rank is used as it is; one that conflicts raises.  A
     group made here is destroyed at exit."""
     if coordinator_address is None:
         return
     world, rank = process_layout(num_processes, process_id)
-    dist.release_kept_group()
     if tdist.is_initialized():
         have = (tdist.get_world_size(), tdist.get_rank())
         if have != (world, rank):
@@ -215,8 +210,6 @@ def init_distributed(coordinator_address: str | None = None,
 def _process_allgather(values, group=None) -> np.ndarray:
     """i64[world, len(values)]: every process's small integer ``values``
     in rank order.  One process: ``values[None]``."""
-    if _rank_world(group)[1] == 1:
-        return np.asarray(values, np.int64)[None]
     return dist._all_gather_ints([int(v) for v in values], group)
 
 

@@ -94,14 +94,6 @@ def test_methods_not_ported_exit_2(method, blob, tmp_path, capsys, on_cpu):
     assert _same_file(ours, theirs)
 
 
-@pytest.mark.parametrize("flag,value", [("--stream-chunk-mb", "64")])
-def test_flags_not_ported_exit_2(flag, value, blob, tmp_path, capsys):
-    src, _ = blob
-    assert main(["c", "fl", src, str(tmp_path / "x"), flag, value]) == 2
-    assert (f"[ERROR] {flag}: not yet ported to the PyTorch package"
-            in capsys.readouterr().err)
-
-
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -109,15 +101,18 @@ def _free_port() -> int:
 
 
 @pytest.mark.parametrize("flag", ["--coordinator", "--num-processes",
-                                  "--process-id", "--profile"])
+                                  "--process-id", "--profile",
+                                  "--stream-chunk-mb"])
 def test_flags_ported_now_run(flag, blob, tmp_path, capsys, on_cpu,
                               monkeypatch):
     """The flags the CLI refused with exit 2 until they were ported now
     run: ``--coordinator`` (one process, a TCP rendezvous; the
     multi-process cases are in test_torch_multihost.py) and ``--profile``
-    (a trace that parses as JSON); ``--num-processes`` and
-    ``--process-id`` without ``--coordinator`` are ignored, as in the JAX
-    CLI.  The container is fl_numpy's either way."""
+    (a trace that parses as JSON), ``--stream-chunk-mb`` (the streamed
+    encode and its streamed verify; the stream cases are in
+    test_torch_stream.py); ``--num-processes`` and ``--process-id``
+    without ``--coordinator`` are ignored, as in the JAX CLI.  The
+    container is fl_numpy's either way."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
     src, data = blob
@@ -127,7 +122,8 @@ def test_flags_ported_now_run(flag, blob, tmp_path, capsys, on_cpu,
                                "--num-processes", "1", "--process-id", "0"],
              "--num-processes": ["--num-processes", "2"],
              "--process-id": ["--process-id", "1"],
-             "--profile": ["--profile", logdir]}[flag]
+             "--profile": ["--profile", logdir],
+             "--stream-chunk-mb": ["--stream-chunk-mb", "0"]}[flag]
     try:
         assert main(["c", "fl", src, out, "--verify", *extra]) == 0
     finally:

@@ -267,7 +267,9 @@ def test_no_pack2_layout_takes_the_base_kernels(field_route, monkeypatch):
 @pytest.mark.parametrize("L", [64, 128])
 def test_chunk_walk_hit_then_miss(L, field_route, monkeypatch):
     """A shrunk chunk cap: a width <= 4 chunk (pack-2 hit), a mixed chunk
-    (miss, base re-run) and a tail; each chunk decodes in its own mode."""
+    (miss, base re-run) and a tail; each chunk decodes in its own mode.
+    The walk is pipelined at depth 2: the second chunk's miss is judged at
+    its drain, after the tail has been submitted."""
     cap = 4096 * L
     data = np.concatenate([_stream(6, cap, L, 4), _stream(7, cap, L, 8),
                            _stream(8, 5 * L + 3, L, 4)])
@@ -278,7 +280,7 @@ def test_chunk_walk_hit_then_miss(L, field_route, monkeypatch):
     np.testing.assert_array_equal(chunked[0], whole[0])
     np.testing.assert_array_equal(chunked[1], whole[1])
     assert calls == [("encode_fields", TR), ("encode_fields", TR),
-                     ("encode_fields", 0), ("encode_fields", TR),
+                     ("encode_fields", TR), ("encode_fields", 0),
                      ("decode_fields", TR), ("decode_fields", 0),
                      ("decode_fields", TR)]
 

@@ -117,15 +117,17 @@ def test_dispatch_uniform_stream_takes_uniform_mode(monkeypatch):
 
 
 def test_dispatch_flag_miss_takes_general_mode(monkeypatch):
-    """A uniform first tile makes the host speculate; the widths flag
-    catches the wider frame later on and the general pack runs."""
+    """A uniform first tile makes the host speculate: the uniform pack is
+    launched with the widths, before the flag is read; the flag, read at
+    the chunk's drain, catches the wider frame later on and the general
+    pack runs."""
     g = np.random.default_rng(5)
     data = g.integers(0, 16, 600_000, np.uint8)
     data[::128] = 15
     data[590_000] = 255
     calls = _spy(monkeypatch)
     bits, values = _enc(data)
-    assert calls == [("frame_widths", 4), ("frame_offsets", 0),
+    assert calls == [("frame_widths", 4), ("pack", 4), ("frame_offsets", 0),
                      ("pack", 0)]
     bg, vg = fl_numpy.encode(data)
     np.testing.assert_array_equal(values, vg)

@@ -12,7 +12,7 @@ codecs.  Tolerance: byte equality throughout.
   shards, which is what the JAX module computes with one chip a process;
 * the CLI in processes of its own, under ``torchrun`` (``env://``) and
   with a TCP rendezvous (``HOST:PORT``);
-* the one-rank group ``dist.run_collective`` keeps across calls."""
+* one-rank ``dist.run_collective`` calls, which make no process group."""
 
 import os
 import socket
@@ -84,7 +84,6 @@ def _rl_sharded_container(path: str, world: int) -> bytes:
 
 @pytest.fixture
 def no_group():
-    dist.release_kept_group()
     assert not torch.distributed.is_initialized()
 
 
@@ -381,12 +380,12 @@ def test_cli_coordinator_needs_the_process_layout(root, tmp_path,
 
 
 # ---------------------------------------------------------------------------
-# The one-rank group kept across calls
+# One-rank calls make no process group
 # ---------------------------------------------------------------------------
 
 def test_one_rank_group_is_made_once(monkeypatch, no_group):
-    """Two world-1 calls make one group; a two-rank call after them
-    destroys it and spawns; the next world-1 call makes it again."""
+    """World-1 calls never call init_process_group and leave no default
+    group; a two-rank spawn after them still gives fl-cpu's bytes."""
     made = []
     init = torch.distributed.init_process_group
 
@@ -397,19 +396,15 @@ def test_one_rank_group_is_made_once(monkeypatch, no_group):
     monkeypatch.setattr(torch.distributed, "init_process_group", counting)
     data, _ = FL["mixed"]
     want = fl_numpy.encode(data)
-    for _ in range(2):
-        comp = dist.run_collective(dist.compress_fl, data, devices=1,
-                                   device=CPU)
+    for fn in (dist.compress_fl, dist.compress_fl_ici, dist.compress_fl):
+        comp = dist.run_collective(fn, data, devices=1, device=CPU)
+        np.testing.assert_array_equal(comp.bits, want[0])
         np.testing.assert_array_equal(comp.values, want[1])
-    assert made == [1] and dist._KEPT["key"] == ("gloo", CPU)
+        assert not torch.distributed.is_initialized()
+    assert made == []
     comp = dist.run_collective(dist.compress_fl, data, devices=2, device=CPU)
     np.testing.assert_array_equal(comp.bits, want[0])
     np.testing.assert_array_equal(comp.values, want[1])
-    assert dist._KEPT["key"] is None
-    assert not torch.distributed.is_initialized()
-    dist.run_collective(dist.compress_fl, data, devices=1, device=CPU)
-    assert made == [1, 1]
-    dist.release_kept_group()
     assert not torch.distributed.is_initialized()
 
 
@@ -423,20 +418,18 @@ def test_callers_group_is_used_and_survives(no_group):
                                    device=CPU)
         np.testing.assert_array_equal(comp.values, fl_numpy.encode(data)[1])
         assert torch.distributed.group.WORLD is group
-        assert dist._KEPT["key"] is None
         dist.release_kept_group()
         assert torch.distributed.is_initialized()
+        assert torch.distributed.group.WORLD is group
     finally:
         torch.distributed.destroy_process_group()
 
 
 def test_caller_makes_its_group_after_release(no_group):
-    """After a call on the kept group, a caller that releases it can make
-    its own default group, which the next call then uses."""
+    """Right after a world-1 call, with no release, a caller makes its own
+    default group, which the next call then uses."""
     data, _ = FL["mixed"]
     dist.run_collective(dist.compress_fl, data, devices=1, device=CPU)
-    assert dist._KEPT["key"] == ("gloo", CPU)
-    dist.release_kept_group()
     torch.distributed.init_process_group(
         "gloo", store=torch.distributed.HashStore(), world_size=1, rank=0)
     try:
@@ -445,14 +438,13 @@ def test_caller_makes_its_group_after_release(no_group):
                                    device=CPU)
         np.testing.assert_array_equal(comp.values, fl_numpy.encode(data)[1])
         assert torch.distributed.group.WORLD is group
-        assert dist._KEPT["key"] is None
     finally:
         torch.distributed.destroy_process_group()
 
 
 def test_process_with_a_kept_group_exits(tmp_path):
-    """A process that used the kept group exits 0, its exit hook having
-    destroyed the group."""
+    """A process that made two world-1 calls exits 0 and holds no
+    group."""
     script = tmp_path / "kept.py"
     script.write_text(
         "import numpy as np, torch\n"
@@ -461,12 +453,12 @@ def test_process_with_a_kept_group_exits(tmp_path):
         "for _ in range(2):\n"
         "    dist.run_collective(dist.compress_fl, x, devices=1,\n"
         "                        device=torch.device('cpu'))\n"
-        "print('kept', dist._KEPT['key'])\n")
+        "print('initialized', torch.distributed.is_initialized())\n")
     proc = subprocess.run([sys.executable, str(script)], env=_env(),
                           capture_output=True, text=True,
                           timeout=SUBPROCESS_S)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "kept ('gloo', device(type='cpu'))" in proc.stdout
+    assert "initialized False" in proc.stdout
 
 
 def test_no_jax_in_the_rank_side_modules():

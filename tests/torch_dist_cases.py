@@ -117,8 +117,7 @@ def _constant_programs(group, device, world, rank):
 def run_cases(*, group=None, device):
     """Every case on this rank; rank 0 returns the results by key, the
     other ranks None."""
-    rank = torch.distributed.get_rank(group)
-    world = torch.distributed.get_world_size(group)
+    rank, world = dist._rank_world(group)
     saved = os.environ.get("FLRL_NO_DENSE")
     out = {}
     try:
@@ -156,6 +155,8 @@ def run_cases(*, group=None, device):
 def _broadcast_rl(comp, group):
     """Rank 0's RL container on every rank (compress_rl returns it on rank 0
     only)."""
+    if dist._rank_world(group)[1] == 1:
+        return comp
     box = [None if comp is None else (comp.counts, comp.values,
                                       comp.input_size)]
     torch.distributed.broadcast_object_list(

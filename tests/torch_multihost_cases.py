@@ -17,6 +17,7 @@ import time
 import numpy as np
 import torch
 
+from fl_rl_compression_mpi_tpu_torch.parallel import dist
 from fl_rl_compression_mpi_tpu_torch.parallel import multihost as mh
 
 CHUNK = 4096              # bytes a round: dozens of rounds on these inputs
@@ -87,7 +88,10 @@ def env(**values):
 
 def _everyone(value, group):
     """Every rank's ``value``, in rank order."""
-    out = [None] * torch.distributed.get_world_size(group)
+    world = dist._rank_world(group)[1]
+    if world == 1:
+        return [value]
+    out = [None] * world
     torch.distributed.all_gather_object(out, value, group=group)
     return out
 
@@ -141,7 +145,7 @@ def _corrupt_containers(root: str, out: str, group, device) -> dict:
         "rl-sizes": ("rl", (rn, rc, rv - 1), 1),
         "rl-sum": ("rl", (rn + 5, rc, rv), 0),
     }
-    rank = torch.distributed.get_rank(group)
+    rank = dist._rank_world(group)[0]
     paths = {}
     for name, (family, fields, cut) in bad.items():
         paths[name] = os.path.join(out, f"{name}.bad")
@@ -196,7 +200,7 @@ def _slow_rank0_writes(root: str, out: str, group, device) -> None:
         time.sleep(0.1)
         write(fd, off, data)
 
-    if torch.distributed.get_rank(group) == 0:
+    if dist._rank_world(group)[0] == 0:
         mh._pwrite = slow
     try:
         src = os.path.join(root, "runs.rl.bin")
@@ -210,8 +214,7 @@ def _slow_rank0_writes(root: str, out: str, group, device) -> None:
 def run_cases(root: str, *, group=None, device):
     """Every case on this rank; rank 0 returns the per-rank results by
     key, the other ranks None."""
-    rank = torch.distributed.get_rank(group)
-    world = torch.distributed.get_world_size(group)
+    rank, world = dist._rank_world(group)
     out = os.path.join(root, f"w{world}")
     if rank == 0:
         os.makedirs(out, exist_ok=True)
