@@ -91,7 +91,7 @@ Phases, each printing a line and failing the run on any error:
               process group): containers equal the main phase's (fl-cpu's;
               rl's, which is rl-cpu's at one shard), round trips exact, the
               path's kernels launched in each run, no process group left
-              after them; walls of each beside `fl`/`rl`, three rounds; a
+              after them; walls of each beside `fl`/`rl`, two rounds; a
               one-file CLI process (`python -m ... c fl-dist --devices 1`
               and `c fl` on mixed, a fresh process each, three each, in
               turns), process start included; the device-resident constant
@@ -107,7 +107,7 @@ Phases, each printing a line and failing the run on any error:
               one process under torchrun running the CLI with
               `--coordinator env://` on the main phases' 512 MiB files
               (`c fl-dist --verify` and `d` on mixed and uniform4, `c
-              rl-dist --verify` and `d` on rl_mixed, then three rounds of
+              rl-dist --verify` and `d` on rl_mixed, then two rounds of
               walls beside phase 7's `fl`/`rl`): containers equal the main
               phases', outputs the input, every path's kernels launched; one
               `python -m` run with `--coordinator 127.0.0.1:<port>
@@ -132,9 +132,10 @@ Phases, each printing a line and failing the run on any error:
               dense kernels launched; one pipelined encode and decode of
               512 MiB in 96 MiB chunks (a uniform hit, the flag's miss,
               random widths) under torch.cuda.set_sync_debug_mode("error");
-              each copy stage's rate a chunk from a --timers run; the peak
-              RSS of a streaming CLI process (a fresh process a chunk size)
-              after c and d of 384 MiB + 77 bytes, then of the whole file.
+              each copy stage's rate a chunk from a --timers run; the
+              resident memory of a streaming CLI process (a fresh process a
+              chunk size): its base, then its peak during c and d of
+              384 MiB + 77 bytes, then of the whole file.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -1846,26 +1847,53 @@ STREAM_CHUNKS_MB = (64, 256)
 STREAM_PARTS_MIB = (("w4", 256), ("random widths", 512), ("zeros", 128),
                     ("w8", 384))
 STREAM_TAIL = 77
-# the child that reports a streaming CLI process's peak RSS (ru_maxrss,
-# bytes) after `c` and after `d` of each file in turn, at one chunk size
+# the child that reports a streaming CLI process's resident memory: after
+# the CUDA context and the kernels are up (its base), then the peak that a
+# thread sampling /proc/self/statm every 2 ms saw during `c` and during `d`
+# of each file in turn, at one chunk size, in bytes.  (ru_maxrss read
+# 17,248 MiB in every such process on the card's machine, whatever the
+# chunk and the file: a peak of the CUDA start-up, not of the stream.)
 RSS_CHILD = """
-import resource
+import os
 import sys
+import threading
+
+import torch
+
 from fl_rl_compression_mpi_tpu_torch import cli
+from fl_rl_compression_mpi_tpu_torch.ops import _build
+
+PAGE = os.sysconf("SC_PAGE_SIZE")
 
 
-def peak():
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE
 
 
+peak = [0]
+done = threading.Event()
+
+
+def sample():
+    while not done.wait(0.002):
+        peak[0] = max(peak[0], rss())
+
+
+torch.zeros(1, device="cuda")
+_build.lib()
+print("base", rss())
+threading.Thread(target=sample, daemon=True).start()
 mb, comp, back, *srcs = sys.argv[1:]
 for src in srcs:
     peaks = []
     for argv in (["c", "fl", src, comp], ["d", "fl", comp, back]):
+        peak[0] = rss()
         if cli.main([*argv, "--stream-chunk-mb", mb]) != 0:
             sys.exit(1)
-        peaks.append(peak())
+        peaks.append(max(peak[0], rss()))
     print("rss", src, *peaks)
+done.set()
 """
 
 
@@ -1883,12 +1911,13 @@ def stream_file(rng) -> np.ndarray:
                           + [random_width_stream(rng, STREAM_TAIL, 128)])
 
 
-def stream_rss(srcs: list, tmp: str, mb: int) -> list:
-    """Peak RSS of one streaming CLI process at ``mb`` MiB chunks, a fresh
-    process that runs ``c`` then ``d`` of each file of ``srcs`` in turn:
-    ``(c, d)`` for each file, the peak so far after each.  A peak that
-    does not grow from the first file to a larger one is bounded by the
-    chunk, not the file."""
+def stream_rss(srcs: list, tmp: str, mb: int) -> tuple:
+    """Resident memory of one streaming CLI process at ``mb`` MiB chunks, a
+    fresh process that runs ``c`` then ``d`` of each file of ``srcs`` in
+    turn: its base (the CUDA context and kernels up), and the peak during
+    ``c`` and during ``d`` of each file.  A peak that does not grow from
+    the first file to a larger one is bounded by the chunk, not the
+    file."""
     back = os.path.join(tmp, "r.out")
     proc = subprocess.run(
         [sys.executable, "-c", RSS_CHILD, str(mb), os.path.join(tmp, "r.fl"),
@@ -1897,11 +1926,14 @@ def stream_rss(srcs: list, tmp: str, mb: int) -> list:
         raise AssertionError(f"stream RSS child failed: {proc.stderr}")
     if not same_file(back, srcs[-1]):
         raise AssertionError("stream RSS child: d did not restore the input")
+    lines = proc.stdout.splitlines()
+    base = [int(line.split()[1]) for line in lines
+            if line.startswith("base ")]
     peaks = [tuple(int(x) for x in line.split()[2:])
-             for line in proc.stdout.splitlines() if line.startswith("rss ")]
-    if len(peaks) != len(srcs) or min(min(p) for p in peaks) <= 0:
+             for line in lines if line.startswith("rss ")]
+    if len(base) != 1 or len(peaks) != len(srcs):
         raise AssertionError(f"stream RSS child: no peaks in {proc.stdout}")
-    return peaks
+    return base[0], peaks
 
 
 def timer_rates(argv: list) -> dict:
@@ -1931,9 +1963,9 @@ def phase_stream(tmp: str, rng) -> dict:
     torch.cuda.set_sync_debug_mode("error"), so that a read-back in a
     submit fails the run (the drain waits on events, which that mode does
     not watch).  Each copy stage's rates, one a chunk, from a `--timers`
-    run; the peak RSS of a streaming CLI process at both chunk sizes, a
-    process a chunk size, on 384 MiB + 77 bytes and then on the whole
-    file.  Returns the dense kernels' launches."""
+    run; the resident memory of a streaming CLI process at both chunk
+    sizes, a process a chunk size, on 384 MiB + 77 bytes and then on the
+    whole file.  Returns the dense kernels' launches."""
     data = stream_file(rng)
     src = os.path.join(tmp, "s.bin")
     data.tofile(src)
@@ -2011,11 +2043,12 @@ def phase_stream(tmp: str, rng) -> dict:
     data[:3 * 128 * MIB + STREAM_TAIL].tofile(small)
     del data
     for mb in STREAM_CHUNKS_MB:
-        peaks = stream_rss([small, src], tmp, mb)
-        say(f"[stream] peak RSS of one streaming CLI process at {mb} MiB "
-            f"chunks (ru_maxrss, MiB): "
-            + "; ".join(f"{os.path.getsize(path)} bytes: after c "
-                        f"{c / (1 << 20):.1f}, after d {d / (1 << 20):.1f}"
+        base, peaks = stream_rss([small, src], tmp, mb)
+        say(f"[stream] resident memory of one streaming CLI process at {mb} "
+            f"MiB chunks (MiB, /proc/self/statm sampled every 2 ms): base "
+            f"{base / (1 << 20):.1f}; "
+            + "; ".join(f"{os.path.getsize(path)} bytes: peak during c "
+                        f"{c / (1 << 20):.1f}, during d {d / (1 << 20):.1f}"
                         for path, (c, d) in zip((small, src), peaks)))
     return launches
 
@@ -2115,7 +2148,7 @@ def phase_dist(tmp: str) -> tuple:
     files: c --verify and d, each with the counts set to 0 just before and
     read just after; the containers equal the main phases' (fl-cpu's, and
     rl's, which is rl-cpu's at one shard), and no process group exists
-    after them.  Then walls, three rounds, each stream's single-device
+    after them.  Then walls, two rounds, each stream's single-device
     method beside its distributed ones, and a one-file CLI process at
     --devices 1 beside ``c fl``'s.  Returns the launches of the
     distributed runs and the walls."""
@@ -2153,7 +2186,7 @@ def phase_dist(tmp: str) -> tuple:
         raise AssertionError("a world-1 call left a process group behind")
     say("[dist] no process group exists after the world-1 calls")
     walls = {}
-    for _ in range(3):
+    for _ in range(2):
         for name, base, methods in plan:
             src = os.path.join(tmp, f"{name}.bin")
             for m in (base, *methods):
@@ -2169,7 +2202,7 @@ def phase_dist(tmp: str) -> tuple:
     for (name, m), ws in walls.items():
         say(f"[dist] wall {name} {m}: c {median_range([w[0] for w in ws])} "
             f"s, d {median_range([w[1] for w in ws])} s (median (min-max) "
-            f"of 3, host clock)")
+            f"of 2, host clock)")
     for m, ws in cli_process_walls(tmp).items():
         say(f"[dist] one-file CLI process, python -m ... c {m} on mixed"
             f"{' --devices 1' if m == 'fl-dist' else ''}: "
@@ -2469,7 +2502,7 @@ def phase_multihost(tmp: str, walls: dict) -> None:
     One process under torchrun (``--coordinator env://``), the CLI on the
     main phases' 512 MiB files: ``c fl-dist --verify`` and ``d fl-dist``
     on mixed and uniform4, ``c rl-dist --verify`` and ``d rl-dist`` on
-    rl_mixed, then three rounds of walls; the containers equal the main
+    rl_mixed, then two rounds of walls; the containers equal the main
     phases', outputs the input, every path's kernels launched.  One run
     with ``--coordinator 127.0.0.1:<port> --num-processes 1 --process-id
     0`` through ``python -m``.  ``c fl --profile``: a trace naming a
@@ -2478,7 +2511,7 @@ def phase_multihost(tmp: str, walls: dict) -> None:
     group, merged in 1 MiB rounds, then under FLRL_SHARED_FS=1: FL equals
     fl-cpu's container, RL rl-cpu's per-shard containers concatenated,
     every rank launched its kernels."""
-    ranks, wall = torchrun(1, multihost_spec(tmp, 3, ["--coordinator",
+    ranks, wall = torchrun(1, multihost_spec(tmp, 2, ["--coordinator",
                                                       "env://"]), tmp)
     got = check_multihost_calls(ranks[0], "torchrun, one process")
     for name, family in MULTIHOST_FILES:
@@ -2494,7 +2527,7 @@ def phase_multihost(tmp: str, walls: dict) -> None:
             f"equals the main phase's, round trip exact; first c --verify "
             f"{got[f'{name} c --verify'][0]:.3f} s, d {got[f'{name} d'][0]:.3f}"
             f" s; walls c {median_range(got[f'{name} c'])} s, d "
-            f"{median_range(got[f'{name} d'][1:])} s (median (min-max) of 3);"
+            f"{median_range(got[f'{name} d'][1:])} s (median (min-max) of 2);"
             f" {family} in phase 7: c {median_range([w[0] for w in base])} s,"
             f" d {median_range([w[1] for w in base])} s")
     say(f"[multihost] torchrun: {len(ranks[0]) - 1} CLI calls in one process,"
