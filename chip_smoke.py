@@ -133,9 +133,9 @@ Phases, each printing a line and failing the run on any error:
               512 MiB in 96 MiB chunks (a uniform hit, the flag's miss,
               random widths) under torch.cuda.set_sync_debug_mode("error");
               each copy stage's rate a chunk from a --timers run; the
-              resident memory of a streaming CLI process (a fresh process a
-              chunk size): its base, then its peak during c and d of
-              384 MiB + 77 bytes, then of the whole file.
+              resident memory of a streaming CLI process (a fresh process
+              for each chunk size and file): its base, and its peak during
+              c and during d, on 384 MiB + 77 bytes and on the whole file.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -1850,9 +1850,10 @@ STREAM_TAIL = 77
 # the child that reports a streaming CLI process's resident memory: after
 # the CUDA context and the kernels are up (its base), then the peak that a
 # thread sampling /proc/self/statm every 2 ms saw during `c` and during `d`
-# of each file in turn, at one chunk size, in bytes.  (ru_maxrss read
-# 17,248 MiB in every such process on the card's machine, whatever the
-# chunk and the file: a peak of the CUDA start-up, not of the stream.)
+# of one file at one chunk size, in bytes.  (ru_maxrss read 17,248 MiB in
+# every such process on the card's machine, whatever the chunk and the
+# file: a peak of the CUDA start-up, not of the stream.)  A fresh process
+# for each file and chunk size: freed host memory stays in the process.
 RSS_CHILD = """
 import os
 import sys
@@ -1884,16 +1885,15 @@ torch.zeros(1, device="cuda")
 _build.lib()
 print("base", rss())
 threading.Thread(target=sample, daemon=True).start()
-mb, comp, back, *srcs = sys.argv[1:]
-for src in srcs:
-    peaks = []
-    for argv in (["c", "fl", src, comp], ["d", "fl", comp, back]):
-        peak[0] = rss()
-        if cli.main([*argv, "--stream-chunk-mb", mb]) != 0:
-            sys.exit(1)
-        peaks.append(max(peak[0], rss()))
-    print("rss", src, *peaks)
+mb, src, comp, back = sys.argv[1:]
+peaks = []
+for argv in (["c", "fl", src, comp], ["d", "fl", comp, back]):
+    peak[0] = rss()
+    if cli.main([*argv, "--stream-chunk-mb", mb]) != 0:
+        sys.exit(1)
+    peaks.append(max(peak[0], rss()))
 done.set()
+print("rss", *peaks)
 """
 
 
@@ -1911,29 +1911,26 @@ def stream_file(rng) -> np.ndarray:
                           + [random_width_stream(rng, STREAM_TAIL, 128)])
 
 
-def stream_rss(srcs: list, tmp: str, mb: int) -> tuple:
-    """Resident memory of one streaming CLI process at ``mb`` MiB chunks, a
-    fresh process that runs ``c`` then ``d`` of each file of ``srcs`` in
-    turn: its base (the CUDA context and kernels up), and the peak during
-    ``c`` and during ``d`` of each file.  A peak that does not grow from
-    the first file to a larger one is bounded by the chunk, not the
-    file."""
+def stream_rss(src: str, tmp: str, mb: int) -> tuple:
+    """Resident memory of a streaming CLI process that runs ``c`` then
+    ``d`` of ``src`` at ``mb`` MiB chunks, in a fresh process: ``(base,
+    peak during c, peak during d)``, in bytes.  A peak that does not grow
+    with the file is bounded by the chunk."""
     back = os.path.join(tmp, "r.out")
     proc = subprocess.run(
-        [sys.executable, "-c", RSS_CHILD, str(mb), os.path.join(tmp, "r.fl"),
-         back, *srcs], cwd=REPO, capture_output=True, text=True)
+        [sys.executable, "-c", RSS_CHILD, str(mb), src,
+         os.path.join(tmp, "r.fl"), back], cwd=REPO, capture_output=True,
+        text=True)
     if proc.returncode != 0:
         raise AssertionError(f"stream RSS child failed: {proc.stderr}")
-    if not same_file(back, srcs[-1]):
+    if not same_file(back, src):
         raise AssertionError("stream RSS child: d did not restore the input")
-    lines = proc.stdout.splitlines()
-    base = [int(line.split()[1]) for line in lines
-            if line.startswith("base ")]
-    peaks = [tuple(int(x) for x in line.split()[2:])
-             for line in lines if line.startswith("rss ")]
-    if len(base) != 1 or len(peaks) != len(srcs):
+    got = {line.split()[0]: [int(x) for x in line.split()[1:]]
+           for line in proc.stdout.splitlines()
+           if line.startswith(("base ", "rss "))}
+    if len(got.get("base", ())) != 1 or len(got.get("rss", ())) != 2:
         raise AssertionError(f"stream RSS child: no peaks in {proc.stdout}")
-    return base[0], peaks
+    return got["base"][0], *got["rss"]
 
 
 def timer_rates(argv: list) -> dict:
@@ -1964,8 +1961,8 @@ def phase_stream(tmp: str, rng) -> dict:
     submit fails the run (the drain waits on events, which that mode does
     not watch).  Each copy stage's rates, one a chunk, from a `--timers`
     run; the resident memory of a streaming CLI process at both chunk
-    sizes, a process a chunk size, on 384 MiB + 77 bytes and then on the
-    whole file.  Returns the dense kernels' launches."""
+    sizes on 384 MiB + 77 bytes and on the whole file, a fresh process
+    each.  Returns the dense kernels' launches."""
     data = stream_file(rng)
     src = os.path.join(tmp, "s.bin")
     data.tofile(src)
@@ -2043,13 +2040,13 @@ def phase_stream(tmp: str, rng) -> dict:
     data[:3 * 128 * MIB + STREAM_TAIL].tofile(small)
     del data
     for mb in STREAM_CHUNKS_MB:
-        base, peaks = stream_rss([small, src], tmp, mb)
-        say(f"[stream] resident memory of one streaming CLI process at {mb} "
-            f"MiB chunks (MiB, /proc/self/statm sampled every 2 ms): base "
-            f"{base / (1 << 20):.1f}; "
-            + "; ".join(f"{os.path.getsize(path)} bytes: peak during c "
-                        f"{c / (1 << 20):.1f}, during d {d / (1 << 20):.1f}"
-                        for path, (c, d) in zip((small, src), peaks)))
+        for path in (small, src):
+            base, c, d = (x / (1 << 20) for x in stream_rss(path, tmp, mb))
+            say(f"[stream] resident memory of a streaming CLI process, "
+                f"{os.path.getsize(path)} bytes at {mb} MiB chunks (MiB, "
+                f"/proc/self/statm sampled every 2 ms): base {base:.1f}, "
+                f"peak during c {c:.1f} (+{c - base:.1f}), during d "
+                f"{d:.1f} (+{d - base:.1f})")
     return launches
 
 

@@ -595,27 +595,37 @@ def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
     return None
 
 
-def container_layout(n: int, bits: np.ndarray, values_size: int,
-                     frame_length: int):
-    """``(widths u8[F], voffs i64[F+1])``: the widths of the frames of an
-    n-byte stream (n > 0) and the exclusive scan of their payload bytes.
-    Raises on a width byte outside 1..8 or a payload of ``values_size``
-    bytes, shorter than the widths imply."""
-    frames = -(-n // frame_length)
-    widths = bits[:frames]
+def check_widths(n: int, bits: np.ndarray, values_size: int,
+                 frame_length: int) -> np.ndarray:
+    """The widths u8[F] of the frames of an n-byte stream (n > 0), with no
+    array as large as they are made.  Raises on a width byte outside 1..8
+    or a payload of ``values_size`` bytes, shorter than the widths imply
+    (the caller has checked that ``bits`` holds F widths)."""
+    widths = bits[:-(-n // frame_length)]
     lo, hi = int(widths.min()), int(widths.max())
     if lo < 1 or hi > 8:
         raise ValueError(
             "fl decode: corrupt container (width byte outside 1..8: "
             f"{lo if lo < 1 else hi})")
-    counts = np.minimum(
-        n - np.arange(frames, dtype=np.int64) * frame_length, frame_length)
-    voffs = np.zeros(frames + 1, np.int64)
-    np.cumsum((widths.astype(np.int64) * counts + 7) // 8, out=voffs[1:])
-    if values_size < voffs[-1]:
+    need = payload_size(widths, n, frame_length)
+    if values_size < need:
         raise ValueError(
             "fl decode: corrupt container (payload shorter than the "
-            f"widths imply: {values_size} < {int(voffs[-1])})")
+            f"widths imply: {values_size} < {need})")
+    return widths
+
+
+def container_layout(n: int, bits: np.ndarray, values_size: int,
+                     frame_length: int):
+    """``(widths u8[F], voffs i64[F+1])``: the checked widths
+    (:func:`check_widths`) and the exclusive scan of their payload
+    bytes."""
+    widths = check_widths(n, bits, values_size, frame_length)
+    counts = np.minimum(
+        n - np.arange(widths.size, dtype=np.int64) * frame_length,
+        frame_length)
+    voffs = np.zeros(widths.size + 1, np.int64)
+    np.cumsum((widths.astype(np.int64) * counts + 7) // 8, out=voffs[1:])
     return widths, voffs
 
 

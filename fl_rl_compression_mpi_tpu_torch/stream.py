@@ -155,20 +155,20 @@ def decompress_fl_stream(input_path: str, output_path: str,
         # the payload the file holds, past its header and widths
         held = min(values_size,
                    os.fstat(fin.fileno()).st_size - _HEADER.size - bits_size)
-        widths, voffs = fl_torch.container_layout(input_size, bits_all,
-                                                  held, frame_length)
+        widths = fl_torch.check_widths(input_size, bits_all, held,
+                                       frame_length)
         fpc = chunk // frame_length
-        edges = voffs[np.append(np.arange(0, frames, fpc), frames)]
-        buf = np.empty(int(np.diff(edges).max()), np.uint8)
+        # a chunk's payload is at most its bytes (no frame packs to more)
+        buf = np.empty(min(chunk, input_size), np.uint8)
 
         def parts():
             for off in range(0, input_size, chunk):
-                f0 = off // frame_length
-                f1 = min(f0 + fpc, frames)
-                size = int(voffs[f1] - voffs[f0])
+                n = min(chunk, input_size - off)
+                w = widths[off // frame_length:][:fpc]
+                size = fl_torch.payload_size(w, n, frame_length)
                 if _read_full(fin, buf[:size]) != size:
                     raise IOError("[FileIO] container truncated")
-                yield min(chunk, input_size - off), widths[f0:f1], buf[:size]
+                yield n, w, buf[:size]
 
         with open(output_path, "wb") as fout:
             for out in fl_torch.decode_chunks(parts(), frame_length,
