@@ -258,17 +258,20 @@ class _Lanes:
         return buf
 
     def upload(self, a: np.ndarray, size: int | None = None,
-               slot: int = 0) -> torch.Tensor:
+               slot: int = 0, reserve: int = 0) -> torch.Tensor:
         """u8[size] on the device, ``a``'s bytes first and zeros after,
         ordered before the kernels that the caller launches next.  ``a``
-        may be reused by the caller as soon as this returns."""
+        may be reused by the caller as soon as this returns.  The pinned
+        buffer holds at least ``reserve`` bytes, the most that this slot
+        takes for a chunk of this size: buffers regrown to each payload's
+        size would leave one cached block a size class."""
         a = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
         size = a.size if size is None else size
         if not self.cuda:
             t = torch.zeros(size, dtype=torch.uint8)
             t[:a.size] = _host_tensor(a)
             return t
-        host = self._pinned((self.turn, slot), a.size)
+        host = self._pinned((self.turn, slot), max(a.size, reserve))
         with stage("Host copy to pinned memory", a.size):
             host.numpy()[:a.size] = a
         with torch.cuda.stream(self.up_stream):
@@ -304,11 +307,12 @@ class _Lanes:
         if ev is not None:
             ev.synchronize()
 
-    def download(self, t: torch.Tensor,
-                 dest: np.ndarray | None = None) -> np.ndarray:
+    def download(self, t: torch.Tensor, dest: np.ndarray | None = None,
+                 reserve: int = 0) -> np.ndarray:
         """``t``'s bytes on the host, after the kernels launched so far:
         copied into ``dest`` where it is given, else into a pinned buffer
-        whose view is valid until the next download."""
+        (of at least ``reserve`` bytes, as :meth:`upload`'s) whose view is
+        valid until the next download."""
         t = t.reshape(-1).view(torch.uint8)
         if not self.cuda:
             if dest is None:
@@ -318,7 +322,7 @@ class _Lanes:
         if dest is None:
             if self._down is None or self._down.numel() < t.numel():
                 self._down = None
-                self._down = _pinned_bytes(t.numel())
+                self._down = _pinned_bytes(max(t.numel(), reserve))
             host = self._down[:t.numel()]
         else:
             host = _host_tensor(dest)
@@ -497,7 +501,7 @@ def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
     if not to_host:
         return chunk.bits_d, values_d
     with stage("Copy results to CPU", values_d.numel()):
-        return bits, lanes.download(values_d)
+        return bits, lanes.download(values_d, reserve=n)
 
 
 def _submit_fields(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
@@ -536,7 +540,8 @@ def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
         if int(bits.max()) <= 4:
             need = fkern.packed_words(frames * wpf, PACK_TILE_R)
             with stage("Copy results to CPU", need * 4):
-                packed = lanes.download(chunk.fields_d[:need])
+                packed = lanes.download(chunk.fields_d[:need],
+                                        reserve=frames * L)
             with stage("Host fold (ragged placement)", n):
                 return bits, fold_p2(packed.view(np.uint32), bits, n, L,
                                      PACK_TILE_R)
@@ -549,7 +554,7 @@ def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
     else:
         fields_d = chunk.fields_d
     with stage("Copy results to CPU", frames * wpf * 4):
-        fields_h = lanes.download(fields_d)
+        fields_h = lanes.download(fields_d, reserve=frames * L)
     with stage("Host fold (ragged placement)", n):
         return bits, fold(fields_h.view(np.uint32), bits, n, L)
 
@@ -741,7 +746,8 @@ def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
     fb = lo if lo == hi else 0
     h2d = []
     with stage("Copy input to device", values.size + bits.size, result=h2d):
-        v = lanes.upload(values)
+        # a part's payload is at most its n bytes
+        v = lanes.upload(values, reserve=n)
         b = None if fb else lanes.upload(bits, slot=1)
         h2d.append(v)
     krn = []
@@ -773,7 +779,7 @@ def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
     h2d = []
     with stage("Copy input to device", fields_h.nbytes + bits.size,
                result=h2d):
-        f = lanes.upload(fields_h).view(torch.int32)
+        f = lanes.upload(fields_h, reserve=bits.size * L).view(torch.int32)
         b = lanes.upload(bits, slot=1)
         h2d += [f, b]
     krn = []
