@@ -285,6 +285,29 @@ class _Lanes:
         t.record_stream(self.compute)
         return t
 
+    def keep(self, a: np.ndarray) -> np.ndarray:
+        """A copy of ``a`` in a host buffer of this chunk's turn, reused by
+        later chunks like the upload slots, so that a walk of host-only
+        chunks does not allocate one array a chunk."""
+        if not self.cuda:
+            return a.copy()
+        host = self._pinned((self.turn, "keep"), a.size).numpy()[:a.size]
+        host[...] = a
+        return host
+
+    def fill(self, n: int, c: int, dest: np.ndarray | None) -> np.ndarray:
+        """n bytes of ``c``: in ``dest`` where it is given, else in the
+        download buffer (valid until the next download or fill)."""
+        if dest is None:
+            if not self.cuda:
+                return np.full(n, c, np.uint8)
+            if self._down is None or self._down.numel() < n:
+                self._down = None
+                self._down = _pinned_bytes(n)
+            dest = self._down[:n].numpy()
+        dest[...] = c
+        return dest
+
     def to_host_async(self, t: torch.Tensor) -> torch.Tensor:
         """A pinned host copy of the small tensor ``t``, complete once the
         next :meth:`fence` has passed."""
@@ -341,6 +364,7 @@ class _Chunk:
     def __init__(self, n: int, **fields):
         self.n = n
         self.ready = None           # the host result, where no device ran
+        self.fill = None            # the byte of a constant decode
         self.__dict__.update(fields)
 
 
@@ -578,12 +602,12 @@ def decode(output_size: int, bits, values,
     return decode_walk(n, widths, values, voffs, frame_length, device)
 
 
-def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
-                       frame_length: int) -> np.ndarray | None:
-    """The host closed forms of decode, tried before any device work: the
-    constant container becomes a memset, all-8 widths mean the payload is
-    the output.  Returns the n decoded bytes, or None.  Raises when the
-    widths array is shorter than the frame count."""
+def _closed_form(n: int, bits: np.ndarray, values: np.ndarray,
+                 frame_length: int):
+    """Which host closed form decodes the container: ``("constant", c)``,
+    ``("identity", None)`` (all-8 widths: the payload is the output) or
+    None.  Raises when the widths array is shorter than the frame
+    count."""
     frames = -(-n // frame_length)
     if bits.size < frames:
         raise ValueError(
@@ -591,13 +615,25 @@ def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
             f"frame count: {bits.size} < {frames})")
     c = host_constant_decode_probe(bits, values, n, frame_length)
     if c is not None:
-        with stage("Decompression", n):
-            return np.full(n, c, np.uint8)
-    out8 = host_identity_decode_probe(bits, values, n, frame_length)
-    if out8 is not None:
-        with stage("Decompression", n):
-            return out8
+        return "constant", c
+    if frames and values.size >= n and bool((bits[:frames] == 8).all()):
+        return "identity", None
     return None
+
+
+def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
+                       frame_length: int) -> np.ndarray | None:
+    """The host closed forms of decode, tried before any device work: the
+    constant container becomes a memset, all-8 widths mean the payload is
+    the output.  Returns the n decoded bytes, or None.  Raises when the
+    widths array is shorter than the frame count."""
+    closed = _closed_form(n, bits, values, frame_length)
+    if closed is None:
+        return None
+    with stage("Decompression", n):
+        if closed[0] == "constant":
+            return np.full(n, closed[1], np.uint8)
+        return values[:n].copy()
 
 
 def check_widths(n: int, bits: np.ndarray, values_size: int,
@@ -682,11 +718,16 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
         n, bits, values = part
         if n == 0:
             return _Chunk(0, ready=np.zeros(0, np.uint8))
-        closed = decode_closed_form(n, bits, values, L)
-        if closed is not None:
-            return _Chunk(n, ready=closed)
-        chunk = (_submit_decode if dense else _submit_decode_fields)(
-            lanes, n, bits[:-(-n // L)], values, L)
+        closed = _closed_form(n, bits, values, L)
+        if closed is None:
+            chunk = (_submit_decode if dense else _submit_decode_fields)(
+                lanes, n, bits[:-(-n // L)], values, L)
+        elif closed[0] == "constant":
+            chunk = _Chunk(n, fill=closed[1])   # filled at drain
+        else:
+            # ``values`` may be the caller's reused buffer: keep its bytes
+            with stage("Decompression", n):
+                chunk = _Chunk(n, ready=lanes.keep(values[:n]))
         lanes.next_chunk()
         return chunk
 
@@ -694,6 +735,9 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
         nonlocal pos
         dest = None if out is None else out[pos:pos + chunk.n]
         pos += chunk.n
+        if chunk.fill is not None:
+            with stage("Decompression", chunk.n):
+                return lanes.fill(chunk.n, chunk.fill, dest)
         if chunk.ready is not None:
             if dest is None:
                 return chunk.ready

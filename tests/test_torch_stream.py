@@ -165,11 +165,12 @@ def test_stream_cli_verify(tmp_path, capsys, on_cpu):
 @pytest.mark.parametrize("route", ROUTES)
 def test_pipelined_chunk_codec_dense_paths(monkeypatch, route, depth):
     """The pipelined walk over the chunk classes: constant (host closed
-    form at submit), uniform (speculative pack, flag read at drain),
-    uniform-miss (head uniform, tail frame not: the general pack re-run at
-    drain), mixed and a ragged tail; on the field route, pack-2 hits and a
-    miss re-run on the kept words.  The bytes are fl_numpy's at every
-    depth."""
+    form), uniform (speculative pack, flag read at drain), uniform-miss
+    (head uniform, tail frame not: the general pack re-run at drain),
+    mixed, width 8 (the decode's identity) and a ragged tail; on the
+    field route, pack-2 hits and misses re-run on the kept words.  The
+    bytes are fl_numpy's at every depth, also when the decode's parts
+    come from one reused buffer, as the stream's do."""
     _route(monkeypatch, route)
     # a probe tile of 4 KiB, so that an 8 KiB chunk takes the speculation
     monkeypatch.setattr(fl_dense_cuda, "DENSE_UNIFORM_TILE_R", 8)
@@ -194,8 +195,9 @@ def test_pipelined_chunk_codec_dense_paths(monkeypatch, route, depth):
     # a random width a frame
     mixed = (rng.integers(0, 256, ck, np.uint16)
              >> rng.integers(0, 8, 64).repeat(128)).astype(np.uint8)
+    w8 = rng.integers(0, 256, ck, np.uint8) | 128      # the decode's identity
     tail = rng.integers(0, 64, 777, np.uint8)
-    chunks = [const, uni, miss, mixed, tail]
+    chunks = [const, uni, miss, mixed, w8, const, w8, tail]
     data = np.concatenate(chunks)
     parts = [(b, v.copy()) for b, v in fl_torch.encode_chunks(
         iter(chunks), device=CPU, depth=depth)]
@@ -203,16 +205,27 @@ def test_pipelined_chunk_codec_dense_paths(monkeypatch, route, depth):
     np.testing.assert_array_equal(np.concatenate([p[0] for p in parts]), bg)
     np.testing.assert_array_equal(np.concatenate([p[1] for p in parts]), vg)
     if route == "dense":
-        assert calls == {("frame_widths", 4): 2, ("frame_widths", 0): 2,
-                         ("pack", 4): 2, ("frame_offsets", 0): 3,
+        assert calls == {("frame_widths", 4): 2, ("frame_widths", 8): 2,
+                         ("frame_widths", 0): 2, ("pack", 4): 2,
+                         ("pack", 8): 2, ("frame_offsets", 0): 3,
                          ("pack", 0): 3}
-    else:                               # mixed and the tail miss pack-2
-        assert calls == {("encode_fields", fl_torch.PACK_TILE_R): 4,
-                         ("encode_fields", 0): 2}
+    else:                   # mixed, w8 and the tail miss pack-2
+        assert calls == {("encode_fields", fl_torch.PACK_TILE_R): 6,
+                         ("encode_fields", 0): 4}
     # the decode: each chunk's widths and payload
     dparts = [(c.size, b, v) for c, (b, v) in zip(chunks, parts)]
     outs = [o.copy() for o in fl_torch.decode_chunks(
         iter(dparts), device=CPU, depth=depth)]
+    np.testing.assert_array_equal(np.concatenate(outs), data)
+    reused = np.empty(ck, np.uint8)
+
+    def from_one_buffer():
+        for n, b, v in dparts:
+            reused[:v.size] = v
+            yield n, b, reused[:v.size]
+
+    outs = [o.copy() for o in fl_torch.decode_chunks(
+        from_one_buffer(), device=CPU, depth=depth)]
     np.testing.assert_array_equal(np.concatenate(outs), data)
     out = np.empty(data.size, np.uint8)
     for _ in fl_torch.decode_chunks(iter(dparts), device=CPU, depth=depth,
