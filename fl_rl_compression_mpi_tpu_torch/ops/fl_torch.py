@@ -286,12 +286,12 @@ class _Lanes:
         return t
 
     def keep(self, a: np.ndarray) -> np.ndarray:
-        """A copy of ``a`` in a host buffer of this chunk's turn, reused by
-        later chunks like the upload slots, so that a walk of host-only
-        chunks does not allocate one array a chunk."""
+        """A copy of ``a`` in this chunk's first upload slot, which a
+        host-only chunk does not use otherwise, so that such chunks take
+        no memory of their own; valid until the walk advances."""
         if not self.cuda:
             return a.copy()
-        host = self._pinned((self.turn, "keep"), a.size).numpy()[:a.size]
+        host = self._pinned((self.turn, 0), a.size).numpy()[:a.size]
         host[...] = a
         return host
 
