@@ -132,7 +132,9 @@ Phases, each printing a line and failing the run on any error:
               dense kernels launched; one pipelined encode and decode of
               512 MiB in 96 MiB chunks (a uniform hit, the flag's miss,
               random widths) under torch.cuda.set_sync_debug_mode("error");
-              each copy stage's rate a chunk from a --timers run; the
+              each copy stage's rate a chunk from a --timers run, and a
+              torch.profiler trace of c and d at 256 MiB (the device's busy
+              time, its copies and kernels, and their overlap); the
               resident memory of a streaming CLI process (a fresh process
               for each chunk size and file): its base, and its peak during
               c and during d, on 384 MiB + 77 bytes and on the whole file.
@@ -1950,6 +1952,64 @@ def timer_rates(argv: list) -> dict:
     return rates
 
 
+def _union(spans: list) -> list:
+    """The union of [start, end) spans, as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(spans: list) -> float:
+    return sum(b - a for a, b in spans)
+
+
+def _meet(x: list, y: list) -> float:
+    """The length of the intersection of two unions of spans."""
+    total, i, j = 0.0, 0, 0
+    while i < len(x) and j < len(y):
+        total += max(0.0, min(x[i][1], y[j][1]) - max(x[i][0], y[j][0]))
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_trace(argv: list) -> str:
+    """One CLI run under torch.profiler: its wall, and from the device's
+    own events (ms) the time the device was busy, the copies up, the
+    copies down, the kernels, and how much the copies up and down, and
+    the copies and the kernels, overlapped."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_cli(*argv)
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = {"up": [], "down": [], "kernels": [], "other": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("up" if "HtoD" in e.name else "down" if "DtoH" in e.name
+                else "other" if "Memcpy" in e.name or "Memset" in e.name
+                else "kernels")
+        spans[kind].append((e.time_range.start / 1e3,
+                            e.time_range.end / 1e3))
+    u = {k: _union(v) for k, v in spans.items()}
+    busy = _length(_union([x for v in spans.values() for x in v]))
+    copies = _union(u["up"] + u["down"])
+    return (f"wall {wall:.1f} ms, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / wall:.3f}): copies up {_length(u['up']):.1f}, "
+            f"down {_length(u['down']):.1f}, kernels "
+            f"{_length(u['kernels']):.1f}; up and down overlapped "
+            f"{_meet(u['up'], u['down']):.1f}, copies and kernels "
+            f"{_meet(copies, u['kernels']):.1f}")
+
+
 def phase_stream(tmp: str, rng) -> dict:
     """The CLI's `--stream-chunk-mb` on a 1.25 GiB + 77 byte file (its own
     generator): `c` and `d` at 64 and 256 MiB chunks beside the whole-file
@@ -1960,7 +2020,8 @@ def phase_stream(tmp: str, rng) -> dict:
     torch.cuda.set_sync_debug_mode("error"), so that a read-back in a
     submit fails the run (the drain waits on events, which that mode does
     not watch).  Each copy stage's rates, one a chunk, from a `--timers`
-    run; the resident memory of a streaming CLI process at both chunk
+    run, and a profiler trace of the streamed c and d at 256 MiB; the
+    resident memory of a streaming CLI process at both chunk
     sizes on 384 MiB + 77 bytes and on the whole file, a fresh process
     each.  Returns the dense kernels' launches."""
     data = stream_file(rng)
@@ -2036,6 +2097,8 @@ def phase_stream(tmp: str, rng) -> dict:
             f"--timers, each stage synchronised): "
             + "; ".join(f"{name} " + ", ".join(f"{r:.2f}" for r in rs)
                         for name, rs in rates.items()))
+        say(f"[stream] {argv[0]} 256 MiB under torch.profiler: "
+            f"{stream_trace([*argv, '--stream-chunk-mb', '256'])}")
     small = os.path.join(tmp, "s.small.bin")
     data[:3 * 128 * MIB + STREAM_TAIL].tofile(small)
     del data
