@@ -330,12 +330,14 @@ class _Lanes:
         if ev is not None:
             ev.synchronize()
 
-    def download(self, t: torch.Tensor, dest: np.ndarray | None = None,
+    def download(self, t: torch.Tensor, after, dest: np.ndarray | None = None,
                  reserve: int = 0) -> np.ndarray:
-        """``t``'s bytes on the host, after the kernels launched so far:
-        copied into ``dest`` where it is given, else into a pinned buffer
-        (of at least ``reserve`` bytes, as :meth:`upload`'s) whose view is
-        valid until the next download."""
+        """``t``'s bytes on the host, once the event ``after`` (the
+        chunk's :meth:`fence`) has passed: copied into ``dest`` where it is
+        given, else into a pinned buffer (of at least ``reserve`` bytes,
+        as :meth:`upload`'s) whose view is valid until the next download.
+        It waits for that chunk's kernels alone, not for the next chunk's,
+        already queued behind its own copy up."""
         t = t.reshape(-1).view(torch.uint8)
         if not self.cuda:
             if dest is None:
@@ -349,7 +351,7 @@ class _Lanes:
             host = self._down[:t.numel()]
         else:
             host = _host_tensor(dest)
-        self.down_stream.wait_stream(self.compute)
+        self.down_stream.wait_event(after)
         with torch.cuda.stream(self.down_stream):
             host.copy_(t, non_blocking=True)
             ev = torch.cuda.Event()
@@ -511,7 +513,7 @@ def _submit_dense(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
 def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
     n = chunk.n
     lanes.wait(chunk.done)
-    values_d = chunk.values_d
+    values_d, done = chunk.values_d, chunk.done
     if chunk.flag_h is not None and int(chunk.flag_h.numpy()[0]) != 0:
         # the uniform speculation missed: the general pack of the kept input
         krn = []
@@ -520,12 +522,13 @@ def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
             values_d = kern.pack(chunk.x, L, bits=chunk.bits_d, offs=offs,
                                  size=n)
             krn.append(values_d)
+        done = lanes.fence()
     bits = chunk.bits_h.numpy().copy()
     values_d = values_d[:payload_size(bits, n, L)]
     if not to_host:
         return chunk.bits_d, values_d
     with stage("Copy results to CPU", values_d.numel()):
-        return bits, lanes.download(values_d, reserve=n)
+        return bits, lanes.download(values_d, done, reserve=n)
 
 
 def _submit_fields(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
@@ -564,7 +567,7 @@ def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
         if int(bits.max()) <= 4:
             need = fkern.packed_words(frames * wpf, PACK_TILE_R)
             with stage("Copy results to CPU", need * 4):
-                packed = lanes.download(chunk.fields_d[:need],
+                packed = lanes.download(chunk.fields_d[:need], chunk.done,
                                         reserve=frames * L)
             with stage("Host fold (ragged placement)", n):
                 return bits, fold_p2(packed.view(np.uint32), bits, n, L,
@@ -575,10 +578,11 @@ def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
         with stage("Compression", n, result=krn):
             _, fields_d = encode_fields_device(chunk.words[:frames * wpf], L)
             krn.append(fields_d)
+        done = lanes.fence()
     else:
-        fields_d = chunk.fields_d
+        fields_d, done = chunk.fields_d, chunk.done
     with stage("Copy results to CPU", frames * wpf * 4):
-        fields_h = lanes.download(fields_d, reserve=frames * L)
+        fields_h = lanes.download(fields_d, done, reserve=frames * L)
     with stage("Host fold (ragged placement)", n):
         return bits, fold(fields_h.view(np.uint32), bits, n, L)
 
@@ -744,7 +748,7 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
             dest[...] = chunk.ready
             return dest
         with stage("Copy results to CPU", chunk.n):
-            return lanes.download(chunk.out_d, dest)
+            return lanes.download(chunk.out_d, chunk.done, dest)
 
     yield from _pipeline(_capped_parts(parts, L), submit, drain, depth)
 
@@ -802,7 +806,7 @@ def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
             offs = kern.frame_offsets(b, n, L)
             out_d = kern.unpack(v, n, L, bits=b, offs=offs)
         krn.append(out_d)
-    return _Chunk(n, out_d=out_d)
+    return _Chunk(n, out_d=out_d, done=lanes.fence())
 
 
 def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
@@ -830,4 +834,4 @@ def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
     with stage("Decompression", n, result=krn):
         out_d = decode_fields_device(f, b, L, pack=pack)
         krn.append(out_d)
-    return _Chunk(n, out_d=out_d.view(torch.uint8)[:n])
+    return _Chunk(n, out_d=out_d.view(torch.uint8)[:n], done=lanes.fence())
