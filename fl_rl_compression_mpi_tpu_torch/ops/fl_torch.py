@@ -161,13 +161,16 @@ def host_identity_decode_probe(bits: np.ndarray, values: np.ndarray,
     """Width-8 identity: packing bytes at width 8 is the identity, so an
     all-8 widths header means the payload IS the output — one copy, no
     device work.  Returns the decoded bytes or None."""
-    frames = -(-n // frame_length)
-    if not frames or bits.size < frames or values.size < n:
-        return None
-    ba = bits[:frames]
-    if bool((ba == 8).all()):
+    if _all_eight(bits, values, n, frame_length):
         return values[:n].copy()
     return None
+
+
+def _all_eight(bits: np.ndarray, values: np.ndarray, n: int,
+               frame_length: int) -> bool:
+    frames = -(-n // frame_length)
+    return bool(frames and bits.size >= frames and values.size >= n
+                and (bits[:frames] == 8).all())
 
 
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -620,7 +623,7 @@ def _closed_form(n: int, bits: np.ndarray, values: np.ndarray,
     c = host_constant_decode_probe(bits, values, n, frame_length)
     if c is not None:
         return "constant", c
-    if frames and values.size >= n and bool((bits[:frames] == 8).all()):
+    if _all_eight(bits, values, n, frame_length):
         return "identity", None
     return None
 
