@@ -418,7 +418,7 @@ def _free_port() -> int:
 @pytest.mark.parametrize("method", ["fl", "rl"])
 def test_coordinator_takes_precedence_over_streaming(tmp_path, on_cpu,
                                                      monkeypatch, method):
-    """With ``--coordinator`` the CLI goes to the multi-process driver
+    """With ``--coordinator`` the CLI takes the multi-process path
     first, as the JAX CLI does: no stream function runs, and RL is not
     refused."""
     for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
