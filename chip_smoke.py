@@ -138,6 +138,17 @@ Phases, each printing a line and failing the run on any error:
               resident memory of a streaming CLI process (a fresh process
               for each chunk size and file): its base, and its peak during
               c and during d, on 384 MiB + 77 bytes and on the whole file.
+   bench    — the copy-ceiling probe (csrc/copy_probe.cu) against x + 1 on
+              int32 bit-views, byte for byte: word counts 1, 3, 4, 5,
+              2048·128 and 512 MiB, words at 0xFFFFFFFF, starts 4 to 12
+              bytes into a larger buffer (its word path), from a generator
+              of its own (SEED + 9); timed at 512 MiB beside its bound and
+              copy_; then `python -m fl_rl_compression_mpi_tpu_torch.bench
+              --size-mb 256 --json-only` in a process of its own with a
+              100 s arm budget: it must exit 0 with host_roundtrip_ok true
+              and no key ending in _error or _flag; its last line is printed
+              on a [bench] line, and the copy probe's launches are the
+              ones that run reports.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -189,6 +200,7 @@ from fl_rl_compression_mpi_tpu_torch import RLCompressed, load_fl, load_rl
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fields
+from fl_rl_compression_mpi_tpu_torch.ops import copy_probe_cuda as cpk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_constant_cuda as ck
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
 from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
@@ -233,12 +245,15 @@ CONST_REPLACES = {
     "fl_const_encode": f"{PALLAS}:1720",
     "fl_const_decode": f"{PALLAS}:1796",
 }
+COPY_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/copy_probe.cu"
+COPY_REPLACES = {"copy_probe": "bench.py:421"}
 SOURCES = {**{name: SOURCE for name in REPLACES},
            **{name: FIELDS_SOURCE for name in FIELDS_REPLACES},
            **{name: RL_SOURCE for name in RL_REPLACES},
-           **{name: CONST_SOURCE for name in CONST_REPLACES}}
+           **{name: CONST_SOURCE for name in CONST_REPLACES},
+           **{name: COPY_SOURCE for name in COPY_REPLACES}}
 ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES,
-                **CONST_REPLACES}
+                **CONST_REPLACES, **COPY_REPLACES}
 MAX_ERR = {name: 0 for name in ALL_REPLACES}
 # Bytes each timed kernel call must move (every input read once, every
 # output written once), and the time of one PyTorch call that computes the
@@ -2163,12 +2178,13 @@ DIST_EXPECT = {
 
 
 def reset_all_launches() -> None:
-    for mod in (k, fk, rk, ck):
+    for mod in (k, fk, rk, ck, cpk):
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES}
+    return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES,
+            **cpk.LAUNCHES}
 
 
 def cli_process_walls(tmp: str) -> dict:
@@ -2671,6 +2687,95 @@ def phase_multihost(tmp: str, walls: dict) -> None:
         + f"; {t1 - t0:.1f} s with the spawn")
 
 
+# ---------------------------------------------------------------------------
+# The benchmark entry point (fl_rl_compression_mpi_tpu_torch/bench.py) and
+# its copy-ceiling probe
+# ---------------------------------------------------------------------------
+
+COPY_WORDS = (1, 3, 4, 5, 2048 * 128)
+BENCH_MIB = 256
+BENCH_BUDGET_S = 100               # the bench's arm budget in this phase
+
+
+def check_copy_probe(x: torch.Tensor) -> None:
+    compare("copy_probe", cpk.add_one(x), cpk.add_one_ref(x))
+
+
+def phase_copy_probe(rng) -> tuple:
+    """The copy probe against x + 1 on int32 bit-views, byte for byte:
+    word counts 1, 3, 4, 5, 2048·128 and 512 MiB, words at 0xFFFFFFFF (the
+    wrap), and a start 4 bytes into a larger buffer (the word path); then
+    its times at 512 MiB beside its bound, x + 1 and ``copy_``.  Returns
+    ``(kernel ms, plain ms)``."""
+    cases = 0
+    for nw in COPY_WORDS:
+        words = rng.integers(-(1 << 31), 1 << 31, nw, dtype=np.int64)
+        words[::3] = -1                         # 0xFFFFFFFF wraps to 0
+        check_copy_probe(torch.from_numpy(words.astype(np.int32)).to(DEVICE))
+        cases += 1
+    big = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 4099,
+                                        dtype=np.int64).astype(np.int32))
+    big = big.to(DEVICE)
+    for off, nw in ((1, 4096), (3, 5), (2, 2048)):
+        check_copy_probe(big[off:off + nw])
+        cases += 1
+    check_copy_probe(torch.full((2048 * 128,), -1, dtype=torch.int32,
+                                device=DEVICE))
+    x = torch.randint(0, 1 << 32, (128 * MIB,), dtype=torch.int64,
+                      device=DEVICE).to(torch.int32)
+    check_copy_probe(x)
+    cases += 2
+    say(f"[bench] {cases} copy-probe inputs equal x + 1 byte for byte")
+    y = torch.empty_like(x)
+    timing = (kernel_ms("copy_probe", lambda: cpk.add_one(x)),
+              cuda_ms(lambda: cpk.add_one_ref(x)))
+    library_ms("copy_probe", lambda: y.copy_(x))
+    moved("copy_probe", x, y)
+    say(f"[kernels] copy_probe: {timing[0]:.3f} ms kernel, {timing[1]:.3f} "
+        f"ms plain (x + 1), {bound_ms('copy_probe'):.3f} ms bound "
+        f"({MOVED['copy_probe']} bytes), {LIBRARY_MS['copy_probe']:.3f} ms "
+        f"copy_ (512 MiB, median of 5 single calls); a launch over a run of "
+        f"{RUN}: {LAUNCH_MS['copy_probe']:.4f} ms kernel, "
+        f"{LIBRARY_LAUNCH_MS['copy_probe']:.4f} ms copy_")
+    del x, y, big
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_bench() -> dict:
+    """``python -m fl_rl_compression_mpi_tpu_torch.bench --size-mb 256
+    --json-only`` as a user runs it, within a budget: it must exit 0 with a
+    last line that parses, ``host_roundtrip_ok`` true and no key that ends
+    in ``_error`` or ``_flag``.  Returns the launch counts it reports (the
+    copy probe's main path)."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, FLRL_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    proc = subprocess.run(
+        [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch.bench",
+         "--size-mb", str(BENCH_MIB), "--json-only"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=BENCH_BUDGET_S + 300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"bench exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    rec = json.loads(lines[-1])
+    bad = [key for key in rec if key.endswith(("_error", "_flag"))]
+    if rec.get("host_roundtrip_ok") is not True or bad:
+        raise AssertionError(f"bench: host_roundtrip_ok "
+                             f"{rec.get('host_roundtrip_ok')}, keys {bad}: "
+                             f"{lines[-1]}")
+    say(f"[bench] {lines[-1]}")
+    tag = "kernel launches "
+    counts = [json.loads(line.split(tag, 1)[1])
+              for line in proc.stderr.splitlines() if tag in line]
+    if not counts or not counts[-1].get("copy_probe"):
+        raise AssertionError(f"bench: the copy probe was not launched "
+                             f"({counts})")
+    say(f"[bench] kernel launches {json.dumps(counts[-1])}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts[-1]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2806,6 +2911,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_stream(tmp, np.random.default_rng(SEED + 8))
     say(f"[stream] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timings["copy_probe"] = phase_copy_probe(np.random.default_rng(SEED + 9))
+    launches["copy_probe"] = phase_bench()["copy_probe"]
+    say(f"[bench] phase took {time.perf_counter() - t0:.1f} s")
     # after every timed phase: ahead of them, the 1 GiB field encodes and
     # the plain run offsets' 16 GiB buffer (2^31 counts in int64) slowed
     # the first Compression stages of the main and field phases

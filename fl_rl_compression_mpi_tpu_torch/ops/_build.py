@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface (``csrc/fl_dense.cuh``,
-``csrc/fl_fields.cuh``, ``csrc/fl_constant.cuh``, ``csrc/rl.cuh``), so
+``csrc/fl_fields.cuh``, ``csrc/fl_constant.cuh``, ``csrc/rl.cuh``,
+``csrc/copy_probe.cuh``), so
 ``nvcc`` compiles them in seconds, one process per source, all started
 together, and links the objects into one shared library that ``ctypes``
 loads.  No PyTorch headers are involved.  The library lands in
@@ -52,6 +53,7 @@ _SIGNATURES = {
                                  _P]),
     "flrl_const_decode": (_INT, [_P, _I64, _INT, _INT, _P, _I64, _P, _INT,
                                  _P]),
+    "flrl_copy_probe": (_INT, [_P, _P, _I64, _INT, _P]),
     "flrl_cuda_error_string": (ctypes.c_char_p, [_INT]),
 }
 
