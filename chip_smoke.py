@@ -142,13 +142,15 @@ Phases, each printing a line and failing the run on any error:
               int32 bit-views, byte for byte: word counts 1, 3, 4, 5,
               2048·128 and 512 MiB, words at 0xFFFFFFFF, starts 4 to 12
               bytes into a larger buffer (its word path), from a generator
-              of its own (SEED + 9); timed at 512 MiB beside its bound and
-              copy_; then `python -m fl_rl_compression_mpi_tpu_torch.bench
-              --size-mb 256 --json-only` in a process of its own with a
-              100 s arm budget: it must exit 0 with host_roundtrip_ok true
-              and no key ending in _error or _flag; its last line is printed
-              on a [bench] line, and the copy probe's launches are the
-              ones that run reports.
+              of its own (SEED + 9); timed at 512 MiB beside its bound,
+              x + 1 (its library row) and copy_; then `python -m
+              fl_rl_compression_mpi_tpu_torch.bench --size-mb 256
+              --json-only` in a process of its own with a
+              100 s arm budget: it must exit 0 having run every arm but
+              the --full ones, with host_roundtrip_ok, dense_ok* and rl_ok
+              true and no key ending in _error or _flag; its last line is
+              printed on a [bench] line, and the copy probe's launches are
+              the ones that run reports.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -2695,6 +2697,10 @@ def phase_multihost(tmp: str, walls: dict) -> None:
 COPY_WORDS = (1, 3, 4, 5, 2048 * 128)
 BENCH_MIB = 256
 BENCH_BUDGET_S = 100               # the bench's arm budget in this phase
+# the arms a run without --full skips, and none besides them
+BENCH_FULL_ONLY = {"dense_w3", "dense_mixed", "dense_bmp", "rl_half", "e2e"}
+BENCH_OKS = ("host_roundtrip_ok", "dense_ok", "dense_ok_zeros", "dense_ok_w8",
+             "rl_ok")
 
 
 def check_copy_probe(x: torch.Tensor) -> None:
@@ -2729,14 +2735,19 @@ def phase_copy_probe(rng) -> tuple:
     y = torch.empty_like(x)
     timing = (kernel_ms("copy_probe", lambda: cpk.add_one(x)),
               cuda_ms(lambda: cpk.add_one_ref(x)))
-    library_ms("copy_probe", lambda: y.copy_(x))
+    # the library row is x + 1, the one PyTorch call of the same function;
+    # copy_ (cudaMemcpy device to device) beside it moves the same bytes
+    library_ms("copy_probe", lambda: x + 1)
+    copy_ms = (cuda_ms(lambda: y.copy_(x)), launch_ms(lambda: y.copy_(x)))
     moved("copy_probe", x, y)
-    say(f"[kernels] copy_probe: {timing[0]:.3f} ms kernel, {timing[1]:.3f} "
-        f"ms plain (x + 1), {bound_ms('copy_probe'):.3f} ms bound "
-        f"({MOVED['copy_probe']} bytes), {LIBRARY_MS['copy_probe']:.3f} ms "
-        f"copy_ (512 MiB, median of 5 single calls); a launch over a run of "
-        f"{RUN}: {LAUNCH_MS['copy_probe']:.4f} ms kernel, "
-        f"{LIBRARY_LAUNCH_MS['copy_probe']:.4f} ms copy_")
+    say(f"[kernels] copy_probe: {timing[0]:.4f} ms kernel, {timing[1]:.4f} "
+        f"ms plain (x + 1), {bound_ms('copy_probe'):.4f} ms bound "
+        f"({MOVED['copy_probe']} bytes), {LIBRARY_MS['copy_probe']:.4f} ms "
+        f"x + 1, {copy_ms[0]:.4f} ms copy_ (512 MiB, median of 5 single "
+        f"calls); a launch over a run of {RUN}: "
+        f"{LAUNCH_MS['copy_probe']:.4f} ms kernel, "
+        f"{LIBRARY_LAUNCH_MS['copy_probe']:.4f} ms x + 1, "
+        f"{copy_ms[1]:.4f} ms copy_")
     del x, y, big
     torch.cuda.empty_cache()
     return timing
@@ -2745,9 +2756,11 @@ def phase_copy_probe(rng) -> tuple:
 def phase_bench() -> dict:
     """``python -m fl_rl_compression_mpi_tpu_torch.bench --size-mb 256
     --json-only`` as a user runs it, within a budget: it must exit 0 with a
-    last line that parses, ``host_roundtrip_ok`` true and no key that ends
-    in ``_error`` or ``_flag``.  Returns the launch counts it reports (the
-    copy probe's main path)."""
+    last line that parses, every default arm run (``skipped_arms`` exactly
+    the ``--full`` ones), ``host_roundtrip_ok``, ``dense_ok*`` and
+    ``rl_ok`` true and no key that ends in ``_error`` or ``_flag`` (a run
+    cut by a signal or the watchdog exits 1 with ``interrupted_error``).
+    Returns the launch counts it reports (the copy probe's main path)."""
     t0 = time.perf_counter()
     env = dict(os.environ, FLRL_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
     proc = subprocess.run(
@@ -2760,10 +2773,11 @@ def phase_bench() -> dict:
                              f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
     rec = json.loads(lines[-1])
     bad = [key for key in rec if key.endswith(("_error", "_flag"))]
-    if rec.get("host_roundtrip_ok") is not True or bad:
-        raise AssertionError(f"bench: host_roundtrip_ok "
-                             f"{rec.get('host_roundtrip_ok')}, keys {bad}: "
-                             f"{lines[-1]}")
+    bad += [key for key in BENCH_OKS if rec.get(key) is not True]
+    if set(rec.get("skipped_arms", [])) != BENCH_FULL_ONLY:
+        bad.append(f"skipped_arms {rec.get('skipped_arms')}")
+    if bad:
+        raise AssertionError(f"bench: {bad}: {lines[-1]}")
     say(f"[bench] {lines[-1]}")
     tag = "kernel launches "
     counts = [json.loads(line.split(tag, 1)[1])

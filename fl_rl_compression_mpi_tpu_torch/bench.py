@@ -23,8 +23,9 @@ Phases, as in ``bench.py``:
    raises leaves ``<arm>_error`` in the JSON, and a round trip that fails
    leaves its ``*_ok*`` key false; either makes the exit code 1.
 3. **Final line**: the JSON with every arm that ran.  SIGTERM, SIGINT,
-   SIGALRM and a watchdog thread at budget + 60 s flush the last JSON line
-   before the process ends.
+   SIGALRM and a watchdog thread at budget + 60 s flush the JSON line so
+   far, with ``interrupted_error`` naming the cause, and exit 1: arms were
+   still left to run.
 
 Timing is the card's own: a chain is k data-dependent round trips queued
 with nothing read back, timed with CUDA events, and its time a step is the
@@ -58,9 +59,10 @@ the card:
 * ``sharded``: the port has no device-only sharded program, so it times
   ``dist.compress_fl(data, group=None, device=...)`` (one rank, no process
   group) against ``fl_torch.encode`` on the same host array;
-* ``dense_bmp`` reads the reference's sample image where ``bench.py``
-  reads it, beside the repository (``../reference/example_input/``), and
-  is skipped, with its reason in ``skip_reasons``, where it is absent.
+* ``dense_bmp`` reads the image that ``--bmp PATH`` names (``bench.py``
+  reads the reference's ``sample_1280×853.bmp`` from a fixed path outside
+  its checkout), and is skipped, with its reason in ``skip_reasons``,
+  without one or where the file is absent.
 
 The JSON also names the ``device``, and on a card its ``power_limit`` as
 ``nvidia-smi`` reads it.  The last stderr line before the summary lists the
@@ -100,9 +102,6 @@ ABOVE_BOUND = 1.05        # a rate above this share of its bound is flagged
 FRAME = 128
 RL_ARM_BYTES = 64 << 20   # the RL arms' stream, as in bench.py
 PIPE_CHUNK = 32 << 20     # the e2e arm's pipelined chunks
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BMP = os.path.join(os.path.dirname(REPO), "reference", "example_input",
-                   "sample_1280×853.bmp")
 
 T0 = [time.perf_counter()]
 RESULT: dict = {}         # the JSON record; emit() prints the current one
@@ -131,14 +130,18 @@ def emit() -> None:
 
 
 def _flush_and_exit(signum, frame):
-    log(f"signal {signum} received: flushing JSON and exiting")
+    """Flush the JSON so far and exit 1: the run was cut with arms left
+    (signal 0 is the watchdog)."""
+    at = f"+{time.perf_counter() - T0[0]:.0f}s"
+    log(f"signal {signum} received at {at}: flushing JSON and exiting")
     if "value" not in RESULT:
         RESULT.setdefault("metric", "fl_kernel_throughput")
         RESULT.update(unit="GB/s", value=0.0, vs_baseline=0.0,
-                      error=f"killed at +{time.perf_counter() - T0[0]:.0f}s "
-                            "before the first measurement")
+                      error=f"killed at {at} before the first measurement")
+    RESULT["interrupted_error"] = (f"signal {signum} at {at}" if signum
+                                   else f"watchdog at {at}")
     emit()
-    os._exit(0 if _EMITTED[0] else 1)
+    os._exit(1)
 
 
 def launch_counts() -> dict:
@@ -317,12 +320,10 @@ class Bench:
         (counts, values), t_enc = self.timed(
             lambda: rl_encode_device(x, host), args.reps, inner=1)
         counts_h = counts.cpu().numpy()
-        chunks = list(rl_torch._run_chunks(
-            counts_h, rl_torch._block_ends(counts_h),
-            fl_torch.MAX_DEVICE_CHUNK))
+        block_end = rl_torch._block_ends(counts_h)
         out, t_dec = self.timed(
-            lambda: rl_decode_device(counts, values, chunks), args.reps,
-            inner=1)
+            lambda: rl_decode_device(counts, values, counts_h, block_end),
+            args.reps, inner=1)
         ok = bool(np.array_equal(out.cpu().numpy(), host))
         RESULT["kernel"] = "cuda" if self.clock.cuda else "plain"
         nat = get_native()
@@ -591,11 +592,13 @@ class Bench:
         self.dense_arm("_mixed", mixed)
 
     def arm_dense_bmp(self) -> None:
-        if not os.path.exists(BMP):
+        path = self.args.bmp
+        if not path or not os.path.isfile(path):
             SKIPPED.append("dense_bmp")
-            REASONS["dense_bmp"] = f"no reference image at {BMP}"
+            REASONS["dense_bmp"] = (f"no image at {path}" if path else
+                                    "no image: pass --bmp PATH")
             return
-        bb = np.resize(np.fromfile(BMP, np.uint8), self.npad)
+        bb = np.resize(np.fromfile(path, np.uint8), self.npad)
         bb[self.n:] = 0
         self.dense_arm("_bmp", bb)
 
@@ -831,22 +834,11 @@ def rl_step(n: int):
 
 def rl_encode_device(x: torch.Tensor, host: np.ndarray):
     """``(counts, values)`` on the device of the stream ``x`` (whose bytes
-    ``host`` holds), in launches of at most 2^30 bytes with the carry of
-    the chunk before, as ``rl_torch.encode_walk`` walks it."""
-    cap = fl_torch.MAX_DEVICE_CHUNK
-    parts, prev, d0, open_len = [], -1, 0, 0
-    for off in range(0, host.size, cap):
-        chunk = host[off:off + cap]
-        open_len += min(rl_torch._piece_head(chunk, prev, d0), chunk.size)
-        values, counts, run_start = rk.encode_chunk(x[off:off + chunk.size],
-                                                    prev, d0)
-        if counts.numel():
-            if parts:
-                parts[-1][0][-1] = open_len
-            parts.append((counts, values))
-            open_len = int(counts[-1])
-        prev, d0 = int(chunk[-1]), chunk.size - run_start
-    parts[-1][0][-1] = open_len
+    ``host`` holds): ``rl_torch``'s encode walk on slices of ``x``, its
+    parts kept on the device."""
+    parts = rl_torch.encode_parts(
+        host, lambda off, chunk: x[off:off + chunk.size],
+        lambda counts, values: (counts, values))
     if len(parts) == 1:
         return parts[0]
     return (torch.cat([c for c, _ in parts]),
@@ -854,15 +846,18 @@ def rl_encode_device(x: torch.Tensor, host: np.ndarray):
 
 
 def rl_decode_device(counts: torch.Tensor, values: torch.Tensor,
-                     chunks: list) -> torch.Tensor:
-    """The bytes of the runs on the device, one launch pair a chunk of
-    ``rl_torch._run_chunks``."""
-    parts = []
-    for r0, r1, o0, o1 in chunks:
+                     counts_h: np.ndarray, block_end: np.ndarray):
+    """The bytes of the runs on the device: ``rl_torch``'s decode walk on
+    the runs ``counts``/``values`` (``counts_h`` the counts on the host,
+    ``block_end`` their ``rl_torch._block_ends``)."""
+    def runs(r0, r1):
         c, v = counts[r0:r1], values[r0:r1]
-        if len(chunks) > 1:         # the kernels take aligned runs
+        if r0:                      # the kernels take aligned runs
             c, v = c.clone(), v.clone()
-        parts.append(rk.expand(c, v, rk.run_offsets(c), o1 - o0))
+        return c, v
+
+    parts = [out for _, _, out in rl_torch.decode_parts(counts_h, block_end,
+                                                        runs)]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -876,6 +871,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="run the slow arms (w3/mixed/bmp/rl_half/e2e)")
     ap.add_argument("--json-only", action="store_true")
+    ap.add_argument("--bmp", metavar="PATH",
+                    help="the image of the dense_bmp arm (--full): "
+                         "bench.py's is the reference's sample_1280×853.bmp")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N, or cpu for the plain "
                          "versions")

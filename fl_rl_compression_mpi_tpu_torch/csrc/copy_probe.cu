@@ -6,11 +6,12 @@
 //
 // The Pallas kernel walks (2048, 128)-word blocks of a (rows, 128) u32
 // array, adding 1 to every word, and bench.py chains two such passes a
-// step.  Hopper needs no block grid: the kernel walks the flat word array
-// grid-stride in 16-byte vectors on a grid of kBlocksPerSm blocks an SM,
-// each thread keeping kUnroll loads in flight before it stores, and takes
-// any word count (the last nwords % 4 words one by one).  A pointer that
-// is not 16-byte aligned sends the whole call down a word-at-a-time loop.
+// step.  Hopper needs no block grid: one thread a 16-byte vector, on a grid
+// that covers the flat word array once, as PyTorch's own elementwise
+// kernels run (the grid-stride loop on a resident grid, unrolled four deep,
+// that came first was slower on the H100: PERF.md §6 row 13), and any word
+// count (threads 0..2 take the last nwords % 4 words).  A pointer that is not 16-byte aligned sends the
+// whole call down a word-a-thread path.
 //
 // It is bound by memory: 4·nwords bytes read and as many written.
 #include <cuda_runtime.h>
@@ -20,9 +21,7 @@
 namespace flrl {
 namespace {
 
-constexpr int kCopyThreads = 256;
-constexpr int kCopyBlocksPerSm = 8;
-constexpr int kUnroll = 4;
+constexpr int kCopyThreads = 128;
 
 __device__ __forceinline__ uint4 add_one(uint4 q) {
   return make_uint4(q.x + 1u, q.y + 1u, q.z + 1u, q.w + 1u);
@@ -31,25 +30,17 @@ __device__ __forceinline__ uint4 add_one(uint4 q) {
 __global__ void __launch_bounds__(kCopyThreads)
 copy_probe_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                   int64_t nwords, bool vectors) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  int64_t done = 0;
-  if (vectors) {
-    const uint4* __restrict__ xv = reinterpret_cast<const uint4*>(x);
-    uint4* __restrict__ yv = reinterpret_cast<uint4*>(y);
-    const int64_t nvec = nwords / 4;
-    int64_t i = t;
-    for (; i + (kUnroll - 1) * stride < nvec; i += kUnroll * stride) {
-      uint4 q[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) q[u] = __ldg(xv + i + u * stride);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) yv[i + u * stride] = add_one(q[u]);
-    }
-    for (; i < nvec; i += stride) yv[i] = add_one(__ldg(xv + i));
-    done = nvec * 4;
+  const int64_t i = int64_t(blockIdx.x) * kCopyThreads + threadIdx.x;
+  if (!vectors) {
+    if (i < nwords) y[i] = x[i] + 1u;
+    return;
   }
-  for (int64_t i = done + t; i < nwords; i += stride) y[i] = __ldg(x + i) + 1u;
+  const int64_t nvec = nwords / 4;
+  if (i < nvec) {
+    reinterpret_cast<uint4*>(y)[i] =
+        add_one(reinterpret_cast<const uint4*>(x)[i]);
+  }
+  if (i < nwords - nvec * 4) y[nvec * 4 + i] = x[nvec * 4 + i] + 1u;
 }
 
 }  // namespace
@@ -63,15 +54,11 @@ FLRL_API int flrl_copy_probe(const void* x, void* y, int64_t nwords,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nwords == 0) return cudaSuccess;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
   const bool vectors = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int64_t items = vectors ? (nwords + 3) / 4 : nwords;
-  int64_t blocks = (items + kCopyThreads - 1) / kCopyThreads;
-  const int64_t resident = int64_t(sms) * kCopyBlocksPerSm;
-  if (blocks > resident) blocks = resident;
+  const int64_t blocks = (items + kCopyThreads - 1) / kCopyThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   copy_probe_kernel<<<static_cast<unsigned>(blocks), kCopyThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y), nwords,

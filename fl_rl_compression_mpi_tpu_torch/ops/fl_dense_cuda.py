@@ -236,12 +236,17 @@ def _aligned(t: torch.Tensor, name: str) -> None:
 
 def _launch(name: str, *args) -> None:
     from . import _build
-    lib = _build.lib()
-    # a range named after the entry point, which a --profile trace shows
-    with torch.profiler.record_function(name):
-        rc = getattr(lib, name)(*args)
+    fn = getattr(_build.lib(), name)
+    if torch.autograd._profiler_enabled():
+        # a range named after the entry point, which a --profile trace
+        # shows; entering one costs more host time than the launch, so
+        # only under a profiler
+        with torch.profiler.record_function(name):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
     if rc != 0:
-        msg = lib.flrl_cuda_error_string(rc).decode()
+        msg = _build.lib().flrl_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 

@@ -83,48 +83,58 @@ def encode_walk(data: np.ndarray, device: str | torch.device):
     if n == 0:
         return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
     device = torch.device(device)
-    cap = fl_torch.MAX_DEVICE_CHUNK
-    parts = []
-    prev, d0 = -1, 0
-    open_len = 0          # bytes so far of the last piece of parts[-1]
-    for off in range(0, n, cap):
-        chunk = data[off:off + cap]
-        open_len += min(_piece_head(chunk, prev, d0), chunk.size)
-        counts, values, run_start = _encode_chunk(chunk, prev, d0, device)
-        if counts.size:
-            if parts:
-                parts[-1][0][-1] = open_len
-            parts.append((counts, values))
-            open_len = int(counts[-1])
-        prev, d0 = int(chunk[-1]), chunk.size - run_start
-    parts[-1][0][-1] = open_len
+
+    def up(off: int, chunk: np.ndarray) -> torch.Tensor:
+        h2d = []
+        with stage("Copy input data to device", chunk.size, result=h2d):
+            h2d.append(_to_device(chunk, device))
+        return h2d[0]
+
+    def down(counts_d: torch.Tensor, values_d: torch.Tensor):
+        with stage("Copy results to CPU") as t:
+            counts = counts_d.cpu().numpy()
+            values = values_d.cpu().numpy()
+            if t:
+                t.add_transfer_size(counts.size + values.size)
+        return counts, values
+
+    parts = encode_parts(data, up, down)
     if len(parts) == 1:
         return parts[0]
     return (np.concatenate([c for c, _ in parts]),
             np.concatenate([v for _, v in parts]))
 
 
-def _encode_chunk(chunk: np.ndarray, prev: int, d0: int,
-                  device: torch.device):
-    """One chunk through the kernels: its counts (the last measured to
-    the chunk's end), its values, and the start of the natural run its
-    last byte belongs to, relative to the chunk (≤ 0 when the run began
-    in an earlier chunk)."""
-    n = chunk.size
-    h2d = []
-    with stage("Copy input data to device", n, result=h2d):
-        x = _to_device(chunk, device)
-        h2d.append(x)
-    krn = []
-    with stage("Compression", n, result=krn):
-        values_d, counts_d, run_start = kern.encode_chunk(x, prev, d0)
-        krn += [counts_d, values_d]
-    with stage("Copy results to CPU") as t:
-        counts = counts_d.cpu().numpy()
-        values = values_d.cpu().numpy()
-        if t:
-            t.add_transfer_size(counts.size + values.size)
-    return counts, values, run_start
+def encode_parts(data: np.ndarray, chunk_on_device, keep) -> list:
+    """The walk itself: ``data`` in chunks of at most
+    ``fl_torch.MAX_DEVICE_CHUNK`` bytes, each encoded by the kernels with
+    the carry of the chunk before it.  ``chunk_on_device(off, chunk)``
+    gives ``chunk`` (``data[off:off + chunk.size]``) on the device, and
+    ``keep(counts, values)`` the form a chunk's device output is kept in
+    (host arrays, or the tensors themselves).  Returns the kept parts of
+    the chunks that start a run, each part's last count closed with the
+    next piece start, in whichever later chunk it falls, or with the
+    stream's end."""
+    cap = fl_torch.MAX_DEVICE_CHUNK
+    parts = []
+    prev, d0 = -1, 0
+    open_len = 0          # bytes so far of the last piece of parts[-1]
+    for off in range(0, data.size, cap):
+        chunk = data[off:off + cap]
+        open_len += min(_piece_head(chunk, prev, d0), chunk.size)
+        x = chunk_on_device(off, chunk)
+        krn = []
+        with stage("Compression", chunk.size, result=krn):
+            values, counts, run_start = kern.encode_chunk(x, prev, d0)
+            krn += [counts, values]
+        if len(counts):
+            if parts:
+                parts[-1][0][-1] = open_len
+            parts.append(keep(counts, values))
+            open_len = int(parts[-1][0][-1])
+        prev, d0 = int(chunk[-1]), chunk.size - run_start
+    parts[-1][0][-1] = open_len
+    return parts
 
 
 def _block_ends(counts: np.ndarray) -> np.ndarray:
@@ -187,34 +197,39 @@ def decode_walk(counts: np.ndarray, values: np.ndarray,
                 device: str | torch.device,
                 block_end: np.ndarray | None = None) -> np.ndarray:
     """The chunk walk of :func:`decode`, with no host closed form: the
-    Σ counts bytes of the runs, chunk by chunk.  ``block_end`` is
+    Σ counts bytes of the runs, chunk by chunk, each chunk's output copied
+    from the device straight into its slice.  ``block_end`` is
     :func:`_block_ends` of ``counts`` where the caller has it."""
     if counts.size == 0:
         return np.zeros(0, np.uint8)
     if block_end is None:
         block_end = _block_ends(counts)
     device = torch.device(device)
+
+    def up(r0: int, r1: int):
+        h2d = []
+        with stage("Copy input to device", 2 * (r1 - r0), result=h2d):
+            h2d += [_to_device(counts[r0:r1], device),
+                    _to_device(values[r0:r1], device)]
+        return h2d
+
     out = np.empty(int(block_end[-1]), np.uint8)
-    for r0, r1, o0, o1 in _run_chunks(counts, block_end,
-                                      fl_torch.MAX_DEVICE_CHUNK):
-        _decode_chunk(out[o0:o1], counts[r0:r1], values[r0:r1], device)
+    for o0, o1, out_d in decode_parts(counts, block_end, up):
+        with stage("Copy results to CPU", o1 - o0):
+            torch.from_numpy(out[o0:o1]).copy_(out_d)
     return out
 
 
-def _decode_chunk(out: np.ndarray, counts: np.ndarray, values: np.ndarray,
-                  device: torch.device) -> None:
-    """Decode one chunk's runs into ``out`` (its bytes of the output),
-    copying from the device straight into it."""
-    n = out.size
-    h2d = []
-    with stage("Copy input to device", 2 * counts.size, result=h2d):
-        c = _to_device(counts, device)
-        v = _to_device(values, device)
-        h2d += [c, v]
-    krn = []
-    with stage("Decompression", n, result=krn):
-        offs = kern.run_offsets(c)
-        out_d = kern.expand(c, v, offs, n)
-        krn.append(out_d)
-    with stage("Copy results to CPU", n):
-        torch.from_numpy(out).copy_(out_d)
+def decode_parts(counts: np.ndarray, block_end: np.ndarray, runs_on_device):
+    """The walk itself: yields ``(o0, o1, out)``, the output bytes o0..o1
+    on the device, for each chunk of :func:`_run_chunks` (at most
+    ``fl_torch.MAX_DEVICE_CHUNK`` bytes of output, at least one run).
+    ``runs_on_device(r0, r1)`` gives runs r0..r1's ``(counts, values)`` on
+    the device, each 16-byte aligned."""
+    for r0, r1, o0, o1 in _run_chunks(counts, block_end,
+                                      fl_torch.MAX_DEVICE_CHUNK):
+        c, v = runs_on_device(r0, r1)
+        krn = []
+        with stage("Decompression", o1 - o0, result=krn):
+            krn.append(kern.expand(c, v, kern.run_offsets(c), o1 - o0))
+        yield o0, o1, krn[0]

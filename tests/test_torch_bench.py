@@ -49,11 +49,19 @@ def _jax(argv):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
+    # the dense_bmp arm's image: a 24-bit BMP header and pixels of a
+    # smooth gradient, written from a seed
+    bmp = tmp_path_factory.mktemp("bmp") / "image.bmp"
+    g = np.random.default_rng(7)
+    rows = (np.arange(853)[:, None] + np.arange(1280 * 3)[None] // 9) % 256
+    pixels = (rows + g.integers(0, 4, rows.shape)).astype(np.uint8)
+    bmp.write_bytes(b"BM" + bytes(52) + pixels.tobytes())
     with pytest.MonkeyPatch.context() as mp:
         # the e2e arm's pipelined walk needs more than one chunk of 1 MiB
         mp.setattr(bench, "PIPE_CHUNK", 256 << 10)
-        return {"fl": _port(BASE), "full": _port(BASE + ["--full"]),
+        return {"fl": _port(BASE),
+                "full": _port(BASE + ["--full", "--bmp", str(bmp)]),
                 "rl": _port(BASE + ["--method", "rl"])}
 
 
@@ -105,10 +113,47 @@ def test_full_runs_the_pipelined_e2e(runs):
     rec = runs["full"][1][-1]
     assert rec["e2e_pipe_ok"] is True
     assert rec["end_to_end_gbps"] > 0 and rec["rl_half_gbps"] > 0
-    if "dense_bmp" in rec.get("skipped_arms", []):
-        assert "dense_bmp" in rec["skip_reasons"]
-    else:
-        assert rec["dense_ok_bmp"] is True
+    assert "skipped_arms" not in rec
+    assert rec["dense_ok_bmp"] is True and rec["dense_pair_bmp_gbps"] > 0
+
+
+@pytest.mark.parametrize("path", [None, "absent.bmp"])
+def test_dense_bmp_without_its_image_is_skipped_with_a_reason(
+        tmp_path, path):
+    """The image comes only from ``--bmp``: without one, or where the
+    file is absent, the arm is skipped and says why."""
+    argv = BASE + ["--full"] + (["--bmp", str(tmp_path / path)]
+                                if path else [])
+    b = bench.Bench(bench._parser().parse_args(argv), torch.device("cpu"))
+    bench.SKIPPED.clear()
+    bench.REASONS.clear()
+    b.arm_dense_bmp()
+    assert bench.SKIPPED == ["dense_bmp"]
+    assert bench.REASONS["dense_bmp"] == (
+        f"no image at {tmp_path / path}" if path
+        else "no image: pass --bmp PATH")
+
+
+@pytest.mark.parametrize("signum", [0, 15])
+def test_a_cut_run_flushes_its_line_and_exits_nonzero(monkeypatch, capsys,
+                                                      signum):
+    """A signal or the watchdog (signal 0) flushes the JSON so far with
+    ``interrupted_error`` and exits 1, since arms were left to run."""
+    class Exit(Exception):
+        pass
+
+    def exit_(code):
+        raise Exit(code)
+
+    monkeypatch.setattr(bench.os, "_exit", exit_)
+    monkeypatch.setattr(bench, "RESULT", {"metric": "fl_kernel_throughput",
+                                          "value": 1.0})
+    with pytest.raises(Exit) as cut:
+        bench._flush_and_exit(signum, None)
+    assert cut.value.args == (1,)
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cause = "watchdog" if signum == 0 else f"signal {signum}"
+    assert rec["interrupted_error"].startswith(cause + " at +")
 
 
 ARMS = ("tune", "perop", "dense_main", "rl", "sharded", "dense_zeros",
@@ -160,8 +205,8 @@ def test_rl_method_walks_chunks_like_rl_numpy(monkeypatch, cap):
     np.testing.assert_array_equal(counts.numpy(), want_c)
     np.testing.assert_array_equal(values.numpy(), want_v)
     counts_h = counts.numpy()
-    chunks = list(rl_torch._run_chunks(
-        counts_h, rl_torch._block_ends(counts_h), cap))
+    block_end = rl_torch._block_ends(counts_h)
+    chunks = list(rl_torch._run_chunks(counts_h, block_end, cap))
     assert (len(chunks) > 1) == (cap < data.size)
-    out = bench.rl_decode_device(counts, values, chunks)
+    out = bench.rl_decode_device(counts, values, counts_h, block_end)
     np.testing.assert_array_equal(out.numpy(), data)
