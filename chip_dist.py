@@ -1,27 +1,37 @@
 #!/usr/bin/env python3
-"""The distributed methods across several CUDA devices, one rank a card.
+"""The distributed methods across several CUDA devices: a mesh of the cards
+driven from one process, and a process group of one rank a card.
 
 Run from the repository root on a machine with N cards:
 
     python3 chip_dist.py [--devices N] [--mib 512] [--rounds 3]
 
-``chip_smoke.py`` runs the distributed path at one NCCL rank (a machine
-with one card); this script runs it at N ranks over NCCL:
+``chip_smoke.py`` runs the distributed path on one card (a one-device mesh,
+and two shards on card 0); this script runs it on N cards:
 
 1. single device — ``fl`` and ``rl`` through the API on card 0, the walls
    the distributed ones are compared with;
-2. one process group of N spawned ranks (``dist.run_collective``), each
-   making the 512 MiB streams of ``chip_smoke.py`` from the same seed:
-   ``compress_fl`` (fl-dist), ``compress_fl_ici`` (fl-ici),
-   ``decompress_fl``, ``compress_rl`` and ``decompress_rl`` on the mixed,
-   uniform4 and rl_mixed streams, ``--rounds`` times each, timed on rank 0
-   between barriers; containers equal fl-cpu's (FL) and the concatenation
-   of rl-cpu's per-shard containers (RL), outputs equal the input, every
-   rank launched its path's kernels; then the constant programs on 512 MiB
-   of 0x00 and of 0x0F split over the ranks (bytes exact, flags clean, a
-   flipped byte on the last rank trips each flag);
+2. the mesh — ``compress_fl`` (fl-dist), ``compress_fl_ici`` (fl-ici),
+   ``decompress_fl``, ``compress_rl`` and ``decompress_rl`` on a mesh of the
+   N cards in this process (``dist.make_mesh``), on the 512 MiB streams of
+   ``chip_smoke.py`` from the same seed (mixed, uniform4, rl_mixed),
+   ``--rounds`` times each, host-clock walls; containers equal fl-cpu's
+   (FL) and the concatenation of rl-cpu's per-shard containers (RL),
+   outputs equal the input, every card launched its path's kernels (the
+   counts by card); the constant programs on 512 MiB of 0x00 and of 0x0F
+   split over the cards (bytes exact, flags clean, a flipped byte on the
+   last card trips its flag alone).  Then one ``c``/``d`` of fl-dist on
+   mixed under ``torch.profiler``: from the device events each card's busy
+   and kernel time and how long k of the cards were busy, and ran
+   kernels, at once, and each shard's walk on the host clock; and the
+   rate of a 1 GiB copy from each card to card
+   0 (fl-ici's gather) beside card 0's copy down to pinned host memory;
+   the group path — the same functions and checks on one process group of
+   N NCCL ranks spawned by ``dist.spawn_group``, timed on rank 0 between
+   barriers;
 3. the CLI — ``c fl-dist`` and ``d fl-dist`` at ``--devices N`` on a 64 MiB
-   file: N ranks spawned by the CLI, the container equal to fl-cpu's;
+   file, N cards driven from this process, the container equal to
+   fl-cpu's;
 4. torchrun — ``python -m torch.distributed.run --standalone
    --nproc-per-node N`` starts N processes, one a card, each running the
    CLI with ``--coordinator env://`` (``parallel/multihost.py``) on a
@@ -32,9 +42,11 @@ with one card); this script runs it at N ranks over NCCL:
    single-card ``fl`` CLI's container of the same file, the RL container
    rl-cpu's over the sharded loads, concatenated; every output equals the
    input and every rank launched its path's kernels.  Beside them, the
-   walls of one card's ``fl``/``rl`` CLI (``--rounds`` rounds) and of the
-   CLI's spawned ``--devices N`` (once) on the same files.  Not run with
-   ``--device cpu``.
+   walls of one card's ``fl``/``rl`` CLI and of the one-process
+   ``--devices N`` CLI (``--rounds`` rounds each) on the same files, and
+   the ``--timers`` stages of one ``c`` and ``d`` of the latter (the
+   process's own, and the most any card spent in each of its threads'
+   stages).  Not run with ``--device cpu``.
 
 ``--spawn-cli-trees DIR...`` runs phase 3 alone, once from each DIR in the
 order given (a checkout of another commit beside this one, such as
@@ -44,15 +56,18 @@ DIR builds its kernels, then times ``c fl-dist`` and ``d fl-dist`` at
 
 Prints ``{"dist": {...}}`` (every wall, host clock, seconds) on the line
 before the last and ``{"ok": true, "device": {...}}`` last.  ``--device
-cpu`` runs the same flow on gloo ranks on the CPU to check the script
-itself; its times are not device times.
+cpu`` runs the same flow with every shard on the CPU and gloo ranks to
+check the script itself; its times are not device times.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -65,8 +80,10 @@ import chip_smoke as smoke
 from fl_rl_compression_mpi_tpu_torch import cli, compress, decompress, fileio
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import fl_constant_cuda as ck
+from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda, fl_torch
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
 from fl_rl_compression_mpi_tpu_torch.utils import constant_byte_probe
+from fl_rl_compression_mpi_tpu_torch.utils.timers import current_card
 
 SEED = 2026
 TORCHRUN_MIB = 2048    # phase 4's file size
@@ -129,7 +146,7 @@ def rank_main(mib: int, rounds: int, *, group=None, device):
         for method, fn in enc:
             for _ in range(rounds):
                 comp, t = _timed(fn, group, device)
-                walls.setdefault(f"{name} {method} c", []).append(t)
+                walls.setdefault(f"{name} {method} c, group", []).append(t)
             # every rank decodes the container rank 0 holds
             box = [comp]
             torch.distributed.broadcast_object_list(box, src=0, group=group)
@@ -139,11 +156,11 @@ def rank_main(mib: int, rounds: int, *, group=None, device):
             for _ in range(rounds):
                 out, t = _timed(lambda: dec(comp, group=group, device=device),
                                 group, device)
-                walls.setdefault(f"{name} {method} d", []).append(t)
+                walls.setdefault(f"{name} {method} d, group", []).append(t)
             if rank == 0:
-                checks[f"{name} {method}"] = (_container_ok(name, x, comp,
-                                                            world)
-                                              and np.array_equal(out, x))
+                checks[f"{name} {method}, group"] = (
+                    _container_ok(name, x, comp, world)
+                    and np.array_equal(out, x))
     launches = [None] * world
     torch.distributed.all_gather_object(launches, smoke.all_launches(),
                                         group=group)
@@ -198,8 +215,180 @@ def _constant_programs(mib, group, device, rank, world) -> dict:
               and int(dflags.sum()) == 0
               and bad.cpu().tolist()[-1] == 1 and int(bad.sum()) == 1
               and bad_d.cpu().tolist()[-1] == 1 and int(bad_d.sum()) == 1)
-        checks[f"constant 0x{c:02X}"] = _all_true(ok, group)
+        checks[f"constant 0x{c:02X}, group"] = _all_true(ok, group)
     return checks
+
+
+def mesh_main(mesh: tuple, mib: int, rounds: int) -> tuple:
+    """Phase 2 on the mesh: every distributed function on the cards of
+    ``mesh``, from this process; returns the walls, the checks and the
+    launches by card."""
+    world = len(mesh)
+    data = streams(mib)
+    walls, checks = {}, {}
+    smoke.reset_all_launches()
+    for name, x in data.items():
+        if name == "rl_mixed":
+            enc = (("rl-dist", dist.compress_rl, dist.decompress_rl),)
+        else:
+            enc = (("fl-dist", dist.compress_fl, dist.decompress_fl),
+                   ("fl-ici", dist.compress_fl_ici, dist.decompress_fl))
+        for method, fn, dec in enc:
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                comp = fn(x, mesh=mesh)
+                walls.setdefault(f"{name} {method} c, mesh", []).append(
+                    time.perf_counter() - t0)
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                out = dec(comp, mesh=mesh)
+                walls.setdefault(f"{name} {method} d, mesh", []).append(
+                    time.perf_counter() - t0)
+            checks[f"{name} {method}, mesh"] = (
+                _container_ok(name, x, comp, world)
+                and np.array_equal(out, x))
+    launches = fl_dense_cuda.launches_by("device")
+    del data
+    checks.update(_mesh_constant_programs(mib, mesh))
+    return walls, checks, launches
+
+
+def _mesh_constant_programs(mib: int, mesh: tuple) -> dict:
+    """The device-resident constant programs on the mesh, each card's
+    shard made on it; a flipped byte on the last card must trip its flag
+    alone."""
+    checks = {}
+    n = mib << 20
+    world = len(mesh)
+    plan = dist.plan_shards(n, world)
+    for c in (0x00, 0x0F):
+        xs = [torch.full((int(m),), c, dtype=torch.uint8, device=dev)
+              for m, dev in zip(plan.ns, mesh)]
+        cb, fb = ck.host_probe_constant(np.full(ck.DENSE_UNIFORM_TILE_R * 512,
+                                                c, np.uint8), n)
+        smoke.reset_all_launches()
+        bits, values, flags = dist.fl_compress_sharded_dense_constant(
+            xs, cb, fb, mesh=mesh)
+        sizes = [v.numel() for v in values]
+        ns = [x.numel() for x in xs]
+        out, dflags = dist.fl_decompress_sharded_dense_constant(
+            values, sizes, ns, cb, fb, mesh=mesh)
+        by_card = fl_dense_cuda.launches_by("device")
+        launched = all(by_card.get(d.index, {}).get(key) == world
+                       if d.type == "cpu" else
+                       by_card.get(d.index, {}).get(key) == 1
+                       for d in mesh for key in ck.LAUNCHES)
+        exact = all(bool((b == fb).all())
+                    and bool((v == ck.pattern_byte(cb, fb)).all())
+                    and bool(torch.equal(o, x))
+                    for b, v, o, x in zip(bits, values, out, xs))
+        xs[-1][xs[-1].numel() // 2] ^= 0x40
+        values[-1][values[-1].numel() - 1] ^= 0x01
+        bad = dist.fl_compress_sharded_dense_constant(xs, cb, fb,
+                                                      mesh=mesh)[2]
+        bad_d = dist.fl_decompress_sharded_dense_constant(
+            values, sizes, ns, cb, fb, mesh=mesh)[1]
+        last = [0] * (world - 1) + [1]
+        checks[f"constant 0x{c:02X}, mesh"] = (
+            exact and launched and flags.tolist() == [0] * world
+            and dflags.tolist() == [0] * world and bad.tolist() == last
+            and bad_d.tolist() == last)
+    return checks
+
+
+def _cards_at_once(cards: dict) -> dict:
+    """ms during which exactly k cards were busy, for k = 1 .. N, from
+    each card's union of spans."""
+    edges = sorted((t, d) for spans in cards.values() for a, b in spans
+                   for t, d in ((a, 1), (b, -1)))
+    out, busy, last = {}, 0, None
+    for t, d in edges:
+        if busy:
+            out[busy] = out.get(busy, 0.0) + t - last
+        busy, last = busy + d, t
+    return {k: out[k] for k in sorted(out)}
+
+
+def mesh_overlap(mesh: tuple, x: np.ndarray) -> dict:
+    """One ``c`` and ``d`` of fl-dist on the mesh under ``torch.profiler``:
+    from the device events, each card's busy time (ms, the union of its
+    kernels' and copies' spans) and its kernel time, and the ms during
+    which exactly k cards were busy, and ran kernels, at once; from the
+    host clock, each shard's encode walk (ms from the call's start)."""
+    from torch.profiler import ProfilerActivity, profile
+    host = {}
+    orig = fl_torch.encode_walk
+
+    def walk(data, L, dev, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(data, L, dev, *args, **kwargs)
+        host[current_card()] = (t0, time.perf_counter())
+        return out
+
+    fl_torch.encode_walk = walk
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            comp = dist.compress_fl(x, mesh=mesh)
+            t1 = time.perf_counter()
+            dist.decompress_fl(comp, mesh=mesh)
+            t2 = time.perf_counter()
+    finally:
+        fl_torch.encode_walk = orig
+    busy, kernels = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start / 1e3, e.time_range.end / 1e3)
+        busy.setdefault(e.device_index, []).append(span)
+        if "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.setdefault(e.device_index, []).append(span)
+    busy = {i: smoke._union(v) for i, v in sorted(busy.items())}
+    kernels = {i: smoke._union(v) for i, v in sorted(kernels.items())}
+    return {"c wall ms": (t1 - t0) * 1e3, "d wall ms": (t2 - t1) * 1e3,
+            "busy ms by card": {i: smoke._length(u) for i, u in busy.items()},
+            "kernel ms by card": {i: smoke._length(u)
+                                  for i, u in kernels.items()},
+            "ms with k cards busy at once": _cards_at_once(busy),
+            "ms with k cards in kernels at once": _cards_at_once(kernels),
+            "encode walk by shard, host ms from c's start": {
+                i: [(a - t0) * 1e3, (b - t0) * 1e3]
+                for i, (a, b) in sorted(host.items())}}
+
+
+def copy_rates(mesh: tuple, mib: int = 1024, reps: int = 5) -> dict:
+    """GB/s (median of ``reps``, host clock around copies that end in a
+    synchronise) of a ``mib`` MiB copy from each card to card 0, which is
+    fl-ici's gather, beside card 0's copy of the same bytes down to pinned
+    host memory; and whether each card can reach card 0 directly."""
+    n = mib << 20
+    dst = torch.empty(n, dtype=torch.uint8, device=mesh[0])
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    out = {}
+
+    def rate(copy, devs) -> float:
+        ts = []
+        for _ in range(reps + 1):
+            for d in devs:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            copy()
+            for d in devs:
+                torch.cuda.synchronize(d)
+            ts.append(time.perf_counter() - t0)
+        return n / float(np.median(ts[1:])) / 1e9
+
+    for dev in mesh[1:]:
+        src = torch.full((n,), 7, dtype=torch.uint8, device=dev)
+        out[f"{dev} -> {mesh[0]} GB/s"] = rate(lambda: dst.copy_(src),
+                                              (dev, mesh[0]))
+        out[f"{dev} peer access to {mesh[0]}"] = \
+            torch.cuda.can_device_access_peer(dev.index, mesh[0].index)
+        del src
+    out[f"{mesh[0]} -> pinned host GB/s"] = rate(lambda: pinned.copy_(dst),
+                                                 (mesh[0],))
+    return out
 
 
 def median_range(xs: list) -> str:
@@ -214,10 +403,34 @@ def timed_cli(*argv: str) -> float:
     return time.perf_counter() - t0
 
 
-def phase_torchrun(world: int, mib: int, rounds: int) -> dict:
+def timer_stages(argv: list) -> dict:
+    """The CLI in this process with ``--timers``: its own stages (ms), and
+    for each stage of the cards' threads the most any card spent in it
+    (the sum of its lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        timed_cli(*argv, "--timers")
+    whole, cards = {}, {}
+    for line in out.getvalue().splitlines():
+        got = re.match(r"^(?:\[card (\d+)\] )?\[TIMER\] (.+?): ([0-9.]+) ms",
+                       line)
+        if not got:
+            continue
+        card, name, ms = got.group(1), got.group(2), float(got.group(3))
+        if card is None:
+            whole[name] = whole.get(name, 0.0) + ms
+        else:
+            per = cards.setdefault(name, {})
+            per[card] = per.get(card, 0.0) + ms
+    return {"process": whole,
+            "most of any card": {k: max(v.values()) for k, v in cards.items()}}
+
+
+def phase_torchrun(world: int, mib: int, rounds: int) -> tuple:
     """The CLI under torchrun, N processes, one a card, on a ``mib`` MiB FL
     file and a ``mib`` MiB RL file (chip_smoke.py's mixed and rl_mixed
-    streams, scaled); returns the walls."""
+    streams, scaled); returns the walls, and the ``--timers`` stages of the
+    ``--devices N`` CLI's ``c`` and ``d`` by operation."""
     saved = smoke.MIB
     smoke.MIB = (mib << 20) // 512
     try:
@@ -226,35 +439,33 @@ def phase_torchrun(world: int, mib: int, rounds: int) -> dict:
                  "rl_mixed": smoke.rl_mixed_stream(rng)}
     finally:
         smoke.MIB = saved
-    walls = {}
+    walls, stages_of = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         src = {name: os.path.join(tmp, f"{name}.bin") for name in files}
         for name, data in files.items():
             data.tofile(src[name])
         one = {"mixed": os.path.join(tmp, "one.fl"),
                "rl_mixed": os.path.join(tmp, "one.rl")}
-        # one card each round; the spawned ranks once, their spawn alone
-        # takes seconds, and only where shared memory holds the input
-        # they are handed and the container (the input's size again)
-        shm = os.statvfs("/dev/shm")
-        spawn = shm.f_bavail * shm.f_frsize >= 2 * (mib << 20)
-        if not spawn:
-            print(f"[dist] torchrun phase: the spawned --devices {world} CLI "
-                  f"not measured: /dev/shm has "
-                  f"{shm.f_bavail * shm.f_frsize} bytes free", flush=True)
-        for r in range(rounds):
+        # one card, and the N cards from this one process, each round
+        for _ in range(rounds):
             for name, method in (("mixed", "fl"), ("rl_mixed", "rl")):
                 for m, extra in ((method, ()),
                                  (f"{method}-dist", ("--devices",
                                                      str(world)))):
-                    if m != method and (r or not spawn):
-                        continue
                     out = os.path.join(tmp, f"w.{m}")
                     comp = one[name] if m == method else out
                     walls.setdefault(f"{name} {m} c", []).append(
                         timed_cli("c", m, src[name], comp, *extra))
                     walls.setdefault(f"{name} {m} d", []).append(
                         timed_cli("d", m, comp, out + ".out", *extra))
+        for op, argv in (("c", ["c", "fl-dist", src["mixed"],
+                                os.path.join(tmp, "t.fl")]),
+                         ("d", ["d", "fl-dist", os.path.join(tmp, "t.fl"),
+                                os.path.join(tmp, "t.out")])):
+            stages = timer_stages([*argv, "--devices", str(world)])
+            print(f"[dist] --devices {world} CLI, {op} fl-dist on {mib} MiB "
+                  f"mixed, --timers (ms): {json.dumps(stages)}", flush=True)
+            stages_of[op] = stages
         torch.cuda.empty_cache()
 
         coord = ["--coordinator", "env://"]
@@ -325,7 +536,7 @@ def phase_torchrun(world: int, mib: int, rounds: int) -> dict:
     walls["torchrun destroy (max over ranks)"] = [
         max(g["destroy"][0] for g in got)]
     walls["torchrun process (whole torchrun call)"] = [wall]
-    return walls
+    return walls, stages_of
 
 
 # phase 3's calls in a process of their own, from the tree it starts in
@@ -345,7 +556,7 @@ print(json.dumps(walls))
 """
 
 
-def phase_spawn_cli(world: int, trees: list) -> dict:
+def phase_cli_trees(world: int, trees: list) -> dict:
     """Phase 3 from each of ``trees`` in turn, on the same 64 MiB file: the
     container equals fl-cpu's, the output the input; returns the walls by
     tree."""
@@ -375,7 +586,7 @@ def phase_spawn_cli(world: int, trees: list) -> dict:
                     and smoke.same_file(back, src)):
                 raise AssertionError(f"{tree}: CLI fl-dist at {world} ranks: "
                                      "container or output differs")
-            print(f"[dist] spawned --devices {world} CLI from {tree}: c "
+            print(f"[dist] --devices {world} CLI from {tree}: c "
                   f"{c:.3f} s, d {d:.3f} s", flush=True)
             walls.setdefault(f"cli 64MiB fl-dist c, {tree}", []).append(c)
             walls.setdefault(f"cli 64MiB fl-dist d, {tree}", []).append(d)
@@ -385,12 +596,14 @@ def phase_spawn_cli(world: int, trees: list) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--devices", type=int, default=None,
-                   help="ranks, one card each (default: every card)")
+                   help="cards (mesh shards, and ranks of the group path; "
+                        "default: every card)")
     p.add_argument("--mib", type=int, default=512,
                    help="stream size in MiB (default 512)")
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--device", default=None,
-                   help="'cpu' checks the script on gloo ranks")
+                   help="'cpu' checks the script on CPU shards and gloo "
+                        "ranks")
     p.add_argument("--spawn-cli-trees", nargs="+", metavar="DIR",
                    default=None,
                    help="run phase 3 alone, from each DIR in turn")
@@ -413,7 +626,7 @@ def main() -> int:
           flush=True)
     t_start = time.perf_counter()
     if args.spawn_cli_trees:
-        walls = phase_spawn_cli(world, args.spawn_cli_trees)
+        walls = phase_cli_trees(world, args.spawn_cli_trees)
         print(json.dumps({"dist": {"ranks": world, "walls": walls}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu" if on_cpu else "gpu", "kind": kind,
@@ -436,15 +649,30 @@ def main() -> int:
     if not on_cpu:
         torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    group_walls, checks, launches = dist.run_collective(
-        rank_main, args.mib, args.rounds, devices=world, device=rank_device)
-    t_group = time.perf_counter() - t0
-    walls.update(group_walls)
     expect = (smoke.DIST_EXPECT["mixed"] + smoke.DIST_EXPECT["uniform4"]
               + smoke.DIST_EXPECT["rl_mixed"])
-    missing = {r: [key for key in expect if ran[key] == 0]
-               for r, ran in enumerate(launches)}
+    mesh = dist.make_mesh(world, rank_device)
+    t0 = time.perf_counter()
+    mesh_walls, checks, by_card = mesh_main(mesh, args.mib, args.rounds)
+    t_mesh = time.perf_counter() - t0
+    walls.update(mesh_walls)
+    missing = {str(d): [key for key in expect
+                        if by_card.get(d.index, {}).get(key, 0) == 0]
+               for d in mesh}
+    overlap = mesh_overlap(mesh, streams(args.mib)["mixed"])
+    print(f"[dist] mesh, c and d of fl-dist on mixed under torch.profiler: "
+          f"{json.dumps(overlap)}", flush=True)
+    rates = {} if on_cpu else copy_rates(mesh)
+    print(f"[dist] copy rates {json.dumps(rates)}", flush=True)
+
+    t0 = time.perf_counter()
+    group_walls, group_checks, launches = dist.spawn_group(
+        rank_main, args.mib, args.rounds, world=world, device=rank_device)
+    t_group = time.perf_counter() - t0
+    walls.update(group_walls)
+    checks.update(group_checks)
+    missing.update({f"rank {r}": [key for key in expect if ran[key] == 0]
+                    for r, ran in enumerate(launches)})
     missing = {r: keys for r, keys in missing.items() if keys}
     failed = [key for key, ok in checks.items() if not ok]
     if failed or missing:
@@ -472,19 +700,22 @@ def main() -> int:
                                  f"{rc_d}, or container/output differ")
     walls["cli 64MiB fl-dist c"] = [t1 - t0]
     walls["cli 64MiB fl-dist d"] = [t2 - t1]
+    stages = {}
     if not on_cpu:
-        walls.update({f"{TORCHRUN_MIB}MiB {key}": ws for key, ws in
-                      phase_torchrun(world, TORCHRUN_MIB,
-                                     args.rounds).items()})
+        tr_walls, stages = phase_torchrun(world, TORCHRUN_MIB, args.rounds)
+        walls.update({f"{TORCHRUN_MIB}MiB {key}": ws
+                      for key, ws in tr_walls.items()})
 
     for key, ws in walls.items():
         print(f"[dist] wall {key}: {median_range(ws)} s", flush=True)
-    print(f"[dist] checks {json.dumps(checks)}; every rank launched "
-          f"{sorted(set(expect))}; the group's spawn and run took "
-          f"{t_group:.1f} s; all in {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    print(f"[dist] checks {json.dumps(checks)}; every card of the mesh and "
+          f"every rank launched {sorted(set(expect))}; the mesh phase took "
+          f"{t_mesh:.1f} s, the group's spawn and run {t_group:.1f} s; all "
+          f"in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"dist": {"ranks": world, "mib": args.mib,
-                               "walls": walls, "checks": checks}}))
+                               "walls": walls, "checks": checks,
+                               "overlap": overlap, "copy rates": rates,
+                               "cli stages": stages}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "cpu" if on_cpu else "gpu", "kind": kind,
         "count": 0 if on_cpu else torch.cuda.device_count()}}))

@@ -87,22 +87,32 @@ Phases, each printing a line and failing the run on any error:
               route's run).  The host fold must be the native one.
 7. dist     — parallel/dist.py: the CLI's `c --verify` and `d` of fl-dist
               and fl-ici on the two 512 MiB FL files and of rl-dist on
-              rl_mixed at --devices 1 (one rank in this process, with no
-              process group): containers equal the main phase's (fl-cpu's;
-              rl's, which is rl-cpu's at one shard), round trips exact, the
-              path's kernels launched in each run, no process group left
-              after them; walls of each beside `fl`/`rl`, two rounds; a
-              one-file CLI process (`python -m ... c fl-dist --devices 1`
-              and `c fl` on mixed, a fresh process each, three each, in
-              turns), process start included; the device-resident constant
-              programs on 512 MiB of 0x00 and 0x0F at world size 1 (bytes
-              exact, flags clean, a flipped byte trips each flag; the only
-              launches of the constant kernels counted for the path); two
-              gloo ranks spawned on card 0 over 64 MiB (fl-dist through the
-              API, then fl-ici, the FL decode, rl-dist and its decode in one
-              group): FL containers equal fl-cpu's, RL equals rl-cpu's
-              per-shard containers concatenated, every rank launched its
-              kernels.
+              rl_mixed at --devices 1 (a one-device mesh in this process,
+              with no process group): containers equal the main phase's
+              (fl-cpu's; rl's, which is rl-cpu's at one shard), round trips
+              exact, the path's kernels launched in each run, no process
+              group left after them; walls of each beside `fl`/`rl`, two
+              rounds; a one-file CLI process (`python -m ... c fl-dist
+              --devices 1` and `c fl` on mixed, a fresh process each, three
+              each, in turns), process start included.  Then the mesh of
+              two shards on card 0, driven from this one process (the API
+              at devices=2, device=cuda:0; starting a process refused
+              meanwhile): c and d of fl-dist and fl-ici on mixed and
+              uniform4 and of rl-dist on rl_mixed, the counts set to 0 just
+              before and read just after, by shard: containers equal
+              fl-cpu's (FL) and rl-cpu's per-shard containers concatenated
+              (RL), round trips exact, both shards launched their path's
+              kernels, no process group and no child process after them;
+              walls, two rounds, beside the same calls on one shard.  The
+              device-resident constant programs on a mesh of two shards on
+              card 0 over 512 MiB of 0x00 and 0x0F (bytes exact, flags
+              clean, a flipped byte trips its shard's flag; the only
+              launches of the constant kernels counted for the path); the
+              group path on two gloo ranks spawned on card 0
+              (`dist.spawn_group`; NCCL refuses two ranks on one card) over
+              64 MiB: fl-ici, the FL decode, rl-dist and its decode, FL
+              containers equal fl-cpu's, RL equals rl-cpu's per-shard
+              containers concatenated, every rank launched its kernels.
    multihost — parallel/multihost.py, right after the dist phase's walls:
               one process under torchrun running the CLI with
               `--coordinator env://` on the main phases' 512 MiB files
@@ -114,10 +124,10 @@ Phases, each printing a line and failing the run on any error:
               --num-processes 1 --process-id 0`; `c fl --profile`, whose
               trace must name a `flrl_` kernel; two gloo processes on card
               0 over 64 MiB (generator SEED + 7) through the module
-              functions in one spawned group, merged to rank 0 in 1 MiB
-              rounds and then under FLRL_SHARED_FS=1: FL equals fl-cpu's
-              container, RL rl-cpu's per-shard containers concatenated,
-              every rank launched its kernels.
+              functions in one group (`dist.spawn_group`), merged to rank 0
+              in 1 MiB rounds and then under FLRL_SHARED_FS=1: FL equals
+              fl-cpu's container, RL rl-cpu's per-shard containers
+              concatenated, every rank launched its kernels.
 8. chunks   — the API's fl and rl on 1 GiB + 4,173 bytes, across the 1 GiB
               chunk cap, against fl-cpu and rl-cpu; the field route's fl on
               512 MiB + 4,173 bytes across a 256 MiB cap (a pack-2 hit, then
@@ -185,6 +195,7 @@ import contextlib
 import glob
 import io
 import json
+import multiprocessing
 import os
 import re
 import socket
@@ -199,6 +210,7 @@ import torch
 from fl_rl_compression_mpi_tpu_torch import cli
 from fl_rl_compression_mpi_tpu_torch import compress, decompress
 from fl_rl_compression_mpi_tpu_torch import RLCompressed, load_fl, load_rl
+from fl_rl_compression_mpi_tpu_torch.fileio import load_file
 from fl_rl_compression_mpi_tpu_torch.models.registry import CODECS
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fields
@@ -2289,6 +2301,106 @@ def phase_dist(tmp: str) -> tuple:
     return launches, walls
 
 
+@contextlib.contextmanager
+def no_process_started():
+    """Starting a process refused inside (``torch.multiprocessing``'s
+    ``start_processes``, which ``dist.spawn_group`` uses); after it, no
+    child process and no process group."""
+    import multiprocessing
+    mp = torch.multiprocessing
+    saved = mp.start_processes
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a mesh run started a process")
+
+    mp.start_processes = refuse
+    try:
+        yield
+    finally:
+        mp.start_processes = saved
+    if multiprocessing.active_children() or torch.distributed.is_initialized():
+        raise AssertionError("a child process or a process group outlived "
+                             "the mesh runs")
+
+
+def rl_shards(data: np.ndarray, shards: int) -> RLCompressed:
+    """rl-cpu's containers of the FL shard plan's shards, concatenated: the
+    rl-dist container at that many shards."""
+    plan = dist.plan_shards(data.size, shards)
+    parts = [CODECS["rl-cpu"].compress(plan.shard(data, i))
+             for i in range(shards)]
+    return RLCompressed(np.concatenate([p.counts for p in parts]),
+                        np.concatenate([p.values for p in parts]), data.size)
+
+
+def phase_dist_mesh(tmp: str) -> dict:
+    """The mesh of two shards on card 0, driven from this one process, on
+    the main phases' 512 MiB files: the API's fl-dist and fl-ici on mixed
+    and uniform4 and rl-dist on rl_mixed at devices=2, device=cuda:0, c
+    then d, with the counts set to 0 just before and read just after, by
+    shard.  FL containers equal the main phase's (fl-cpu's), RL rl-cpu's
+    per-shard containers concatenated, round trips exact, both shards
+    launched their path's kernels, no process started.  Then walls, two
+    rounds: each call on the two shards beside the same call on one
+    shard.  Returns the launches of the checked runs."""
+    plan = (("mixed", "fl", ("fl-dist", "fl-ici")),
+            ("uniform4", "fl", ("fl-dist", "fl-ici")),
+            ("rl_mixed", "rl", ("rl-dist",)))
+    files = {name: load_file(os.path.join(tmp, f"{name}.bin"))
+             for name, _, _ in plan}
+    with no_process_started():
+        reset_all_launches()
+        for name, base, methods in plan:
+            data = files[name]
+            want = (load_fl(os.path.join(tmp, f"{name}.fl")) if base == "fl"
+                    else rl_shards(data, 2))
+            for m in methods:
+                comp = compress(data, method=m, devices=2, device=DEVICE)
+                back = decompress(comp, method=m, devices=2, device=DEVICE)
+                fields = ("bits", "values") if base == "fl" else ("counts",
+                                                                  "values")
+                if not all(np.array_equal(getattr(comp, f), getattr(want, f))
+                           for f in fields):
+                    raise AssertionError(f"two shards, {m} on {name}: the "
+                                         "container differs")
+                if not np.array_equal(back, data):
+                    raise AssertionError(f"two shards, {m} on {name}: d did "
+                                         "not restore the input")
+        ran = all_launches()
+        shards = k.launches_by("shard")
+    expect = sorted({key for name, _, _ in plan for key in DIST_EXPECT[name]})
+    for i in (0, 1):
+        missing = [key for key in expect if shards.get(i, {}).get(key, 0) == 0]
+        if missing:
+            raise AssertionError(f"two shards: shard {i} did not launch "
+                                 f"{missing} ({json.dumps(shards)})")
+    say(f"[dist] two shards on cuda:0 from one process, API at devices=2: "
+        f"fl-dist and fl-ici equal fl-cpu's on mixed and uniform4, rl-dist "
+        f"rl-cpu's per-shard containers on rl_mixed, round trips exact, no "
+        f"process started and no group made; launches by shard "
+        f"{json.dumps({i: shards[i] for i in (0, 1)})}")
+    walls = {}
+    timed_calls = (("mixed", "fl-dist"), ("mixed", "fl-ici"),
+                   ("rl_mixed", "rl-dist"))
+    for _ in range(2):
+        for name, m in timed_calls:
+            for devices in (1, 2):
+                t0 = time.perf_counter()
+                comp = compress(files[name], method=m, devices=devices,
+                                device=DEVICE)
+                t1 = time.perf_counter()
+                decompress(comp, method=m, devices=devices, device=DEVICE)
+                t2 = time.perf_counter()
+                walls.setdefault((name, m, devices), []).append(
+                    (t1 - t0, t2 - t1))
+    for (name, m, devices), ws in walls.items():
+        say(f"[dist] wall {name} {m}, API, {devices} shard(s) on cuda:0: c "
+            f"{median_range([w[0] for w in ws])} s, d "
+            f"{median_range([w[1] for w in ws])} s (median (min-max) of 2, "
+            f"host clock)")
+    return ran
+
+
 def two_rank_cases(fl_data, rl_data, *, group=None, device):
     """Rank side of the two-rank run: fl-ici, the FL decode, rl-dist and
     its decode; every rank's launch counts."""
@@ -2306,35 +2418,26 @@ def two_rank_cases(fl_data, rl_data, *, group=None, device):
 
 
 def phase_dist_two_ranks(rng) -> None:
-    """Two gloo ranks spawned on card 0 (NCCL refuses two ranks on one
-    card), 64 MiB: fl-dist through the API, then one spawned group for
-    fl-ici, the FL decode, rl-dist and its decode.  FL containers equal
-    fl-cpu's; RL equals rl-cpu's per-shard containers concatenated; every
-    rank launched the kernels of its path."""
-    dev = DEVICE
+    """The group path: two gloo ranks spawned on card 0 by
+    ``dist.spawn_group`` (NCCL refuses two ranks on one card), 64 MiB, one
+    group for fl-ici, the FL decode, rl-dist and its decode.  FL containers
+    equal fl-cpu's; RL equals rl-cpu's per-shard containers concatenated;
+    every rank launched the kernels of its path."""
     fl_data = random_width_stream(rng, 64 * MIB + 77, 128)
     rl_data = rl_mixed_stream(rng, 16 * MIB)
     ref = CODECS["fl-cpu"].compress(fl_data)
     t0 = time.perf_counter()
-    comp = compress(fl_data, method="fl-dist", devices=2, device=dev,
-                    backend="gloo")
-    t1 = time.perf_counter()
-    ici, back, rl, rback, counts = dist.run_collective(
-        two_rank_cases, fl_data, rl_data, devices=2, device=dev,
+    ici, back, rl, rback, counts = dist.spawn_group(
+        two_rank_cases, fl_data, rl_data, world=2, device=DEVICE,
         backend="gloo")
-    t2 = time.perf_counter()
-    for what, c in (("fl-dist", comp), ("fl-ici", ici)):
-        if not (np.array_equal(c.bits, ref.bits)
-                and np.array_equal(c.values, ref.values)):
-            raise AssertionError(f"two ranks: {what} container differs from "
-                                 "fl-cpu's")
-    plan = dist.plan_shards(rl_data.size, 2)
-    parts = [CODECS["rl-cpu"].compress(plan.shard(rl_data, i))
-             for i in range(2)]
-    if not (np.array_equal(rl.counts,
-                           np.concatenate([p.counts for p in parts]))
-            and np.array_equal(rl.values,
-                               np.concatenate([p.values for p in parts]))):
+    t1 = time.perf_counter()
+    if not (np.array_equal(ici.bits, ref.bits)
+            and np.array_equal(ici.values, ref.values)):
+        raise AssertionError("two ranks: fl-ici container differs from "
+                             "fl-cpu's")
+    want = rl_shards(rl_data, 2)
+    if not (np.array_equal(rl.counts, want.counts)
+            and np.array_equal(rl.values, want.values)):
         raise AssertionError("two ranks: rl-dist container differs from "
                              "rl-cpu's per-shard containers")
     if not (np.array_equal(back, fl_data) and np.array_equal(rback, rl_data)):
@@ -2345,59 +2448,58 @@ def phase_dist_two_ranks(rng) -> None:
         if missing:
             raise AssertionError(f"two ranks: rank {rank} did not launch "
                                  f"{missing}")
-    say(f"[dist] two gloo ranks on cuda:0, 64 MiB: fl-dist (API) and fl-ici "
-        f"equal fl-cpu's, rl-dist equals rl-cpu's per-shard containers, round "
-        f"trips exact, every rank launched its kernels; fl-dist "
-        f"{t1 - t0:.3f} s, the rest in one group {t2 - t1:.3f} s (walls with "
-        f"the spawn)")
-
-
-def constant_programs(cbyte: int, n: int, *, group=None, device):
-    """Rank side of the device-resident constant programs on n bytes of
-    cbyte made on the card: launches of the clean encode and decode,
-    their flags, the outputs' checks, and the flags of a flipped input
-    byte and of a flipped payload byte."""
-    data = torch.full((n,), cbyte, dtype=torch.uint8, device=device)
-    head = data[:ck.DENSE_UNIFORM_TILE_R * 512].cpu().numpy()
-    cb, fb = ck.host_probe_constant(head, n)
-    reset_all_launches()
-    bits, values, flags = dist.fl_compress_sharded_dense_constant(
-        data, cb, fb, group=group)
-    out, dflags = dist.fl_decompress_sharded_dense_constant(
-        values, values.numel(), n, cb, fb, group=group)
-    launches = {key: ck.LAUNCHES[key] for key in CONST_REPLACES}
-    ref = CODECS["fl-cpu"].compress(np.full(n, cbyte, np.uint8))
-    exact = (np.array_equal(bits.cpu().numpy(), ref.bits)
-             and np.array_equal(values.cpu().numpy(), ref.values)
-             and bool(torch.equal(out, data)))
-    data[n // 2] ^= 0x40
-    bad = dist.fl_compress_sharded_dense_constant(data, cb, fb,
-                                                  group=group)[2]
-    values[values.numel() - 1] ^= 0x01
-    bad_d = dist.fl_decompress_sharded_dense_constant(
-        values, values.numel(), n, cb, fb, group=group)[1]
-    return (launches, exact, [int(f.sum()) for f in (flags, dflags, bad,
-                                                     bad_d)])
+    say(f"[dist] two gloo ranks spawned on cuda:0 (the group path), 64 MiB: "
+        f"fl-ici equals fl-cpu's, rl-dist rl-cpu's per-shard containers, "
+        f"round trips exact, every rank launched its kernels; "
+        f"{t1 - t0:.3f} s with the spawn")
 
 
 def phase_constant_programs() -> dict:
-    """The constant programs at world size 1 (no process group) on 512 MiB of
-    0x00 and of 0x0F; returns their launches."""
+    """The device-resident constant programs on a mesh of two shards on
+    card 0 (the shards made on the card), 512 MiB of 0x00 and of 0x0F: the
+    clean encode and decode launched once a shard, their bytes exact and
+    their flags clean; a flipped input byte in shard 1, and a flipped
+    payload byte in it, trip shard 1's flag alone.  Returns the launches of
+    the clean runs."""
+    mesh = dist.make_mesh(2, DEVICE)
     launches = {key: 0 for key in CONST_REPLACES}
     for c in (0x00, 0x0F):
-        ran, exact, flags = dist.run_collective(
-            constant_programs, c, 512 * MIB, devices=1, device=DEVICE)
-        if not exact or flags[:2] != [0, 0] or 0 in flags[2:]:
+        n = 512 * MIB
+        plan = dist.plan_shards(n, 2)
+        xs = [torch.full((int(m),), c, dtype=torch.uint8, device=DEVICE)
+              for m in plan.ns]
+        cb, fb = ck.host_probe_constant(np.full(ck.DENSE_UNIFORM_TILE_R * 512,
+                                                c, np.uint8), n)
+        reset_all_launches()
+        bits, values, flags = dist.fl_compress_sharded_dense_constant(
+            xs, cb, fb, mesh=mesh)
+        sizes = [v.numel() for v in values]
+        ns = [x.numel() for x in xs]
+        out, dflags = dist.fl_decompress_sharded_dense_constant(
+            values, sizes, ns, cb, fb, mesh=mesh)
+        torch.cuda.synchronize()
+        ran = {key: ck.LAUNCHES[key] for key in CONST_REPLACES}
+        ref = CODECS["fl-cpu"].compress(np.full(n, c, np.uint8))
+        exact = (np.array_equal(torch.cat(bits).cpu().numpy(), ref.bits)
+                 and np.array_equal(torch.cat(values).cpu().numpy(),
+                                    ref.values)
+                 and all(bool(torch.equal(o, x)) for o, x in zip(out, xs)))
+        xs[1][xs[1].numel() // 2] ^= 0x40
+        bad = dist.fl_compress_sharded_dense_constant(xs, cb, fb,
+                                                      mesh=mesh)[2]
+        values[1][values[1].numel() - 1] ^= 0x01
+        bad_d = dist.fl_decompress_sharded_dense_constant(
+            values, sizes, ns, cb, fb, mesh=mesh)[1]
+        got = [f.tolist() for f in (flags, dflags, bad, bad_d)]
+        if (not exact or got != [[0, 0], [0, 0], [0, 1], [0, 1]]
+                or ran != {key: 2 for key in CONST_REPLACES}):
             raise AssertionError(f"constant programs on 0x{c:02X}: exact "
-                                 f"{exact}, flags {flags}")
+                                 f"{exact}, flags {got}, launches {ran}")
         for key, v in ran.items():
             launches[key] += v
-        say(f"[dist] constant programs, one rank, 512 MiB of 0x{c:02X}:"
-            f" bytes exact, flags clean, a flipped byte trips each flag; "
-            f"launches {json.dumps(ran)}")
-    missing = [key for key, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"constant kernels not launched: {missing}")
+        say(f"[dist] constant programs, two shards on cuda:0, 512 MiB of "
+            f"0x{c:02X}: bytes exact, flags clean, a flipped byte trips its "
+            f"shard's flag; launches {json.dumps(ran)}")
     return launches
 
 
@@ -2647,8 +2749,8 @@ def phase_multihost(tmp: str, walls: dict) -> None:
     rl_data.tofile(rl_src)
     out = os.path.join(tmp, "mh2")
     t0 = time.perf_counter()
-    two_walls, counts = dist.run_collective(
-        multihost_two_ranks, fl_src, rl_src, out, devices=2, device=DEVICE,
+    two_walls, counts = dist.spawn_group(
+        multihost_two_ranks, fl_src, rl_src, out, world=2, device=DEVICE,
         backend="gloo")
     t1 = time.perf_counter()
     ref = CODECS["fl-cpu"].compress(fl_data)
@@ -2904,6 +3006,7 @@ def main() -> int:
         t_rl += time.perf_counter() - t0
         t0 = time.perf_counter()
         dist_launches, walls = phase_dist(tmp)
+        mesh_launches = phase_dist_mesh(tmp)
         t_dist += time.perf_counter() - t0
         t0 = time.perf_counter()
         phase_multihost(tmp, walls)
@@ -2913,7 +3016,9 @@ def main() -> int:
     phase_dist_two_ranks(rng)
     t_dist += time.perf_counter() - t0
     say(f"[dist] launches of the distributed CLI runs "
-        f"{json.dumps({key: v for key, v in dist_launches.items() if v})}")
+        f"{json.dumps({key: v for key, v in dist_launches.items() if v})}; "
+        f"of the two-shard mesh runs "
+        f"{json.dumps({key: v for key, v in mesh_launches.items() if v})}")
     phase_chunks(rng)
     t0 = time.perf_counter()
     phase_fields_chunks(rng)

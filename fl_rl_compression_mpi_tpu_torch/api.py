@@ -5,7 +5,7 @@
     out = flrl.decompress(comp, method="fl")
     flrl.compress_file("in.bin", "out.rl", method="rl")   # container on disk
     flrl.decompress_file("out.rl", "restored.bin", method="rl")
-    comp = flrl.compress(data, method="fl-dist", devices=2)  # 2 ranks
+    comp = flrl.compress(data, method="fl-dist", devices=2)  # 2 cards
 
 Containers are byte-identical to the JAX package's and to the reference
 binary's (pinned by ``tests/golden/reference/`` and ``tests/golden/``).
@@ -48,8 +48,9 @@ def save_container(family: str, path: str, comp) -> None:
 def compress(data, method: str = "fl", **opts):
     """Bytes → ``FLCompressed`` / ``RLCompressed``.  ``opts`` pass through
     to the codec: ``frame_length`` for FL; ``device`` for the device
-    methods; ``devices`` (ranks) and ``backend`` for ``fl-dist``, ``fl-ici``
-    and ``rl-dist`` (see ``parallel.dist.run_collective``)."""
+    methods; ``devices`` for ``fl-dist``, ``fl-ici`` and ``rl-dist``, the
+    shards of a mesh that this process drives, one a card, or with
+    ``device`` all on that device (see ``parallel.dist.run_collective``)."""
     return resolve(method).compress(_as_u8(data), **opts)
 
 

@@ -3,17 +3,18 @@
 The same surface as ``python -m fl_rl_compression_mpi_tpu``:
 ``c|d <method> <input> <output>`` with ``--frame-length``, ``--timers``,
 ``--verify``, ``--devices`` and ``--profile``.  Methods: ``fl`` and ``rl``
-(one CUDA device); ``fl-dist``, ``fl-ici`` and ``rl-dist`` (a process group,
-one CUDA device a rank: ``--devices`` ranks, by default every card; see
+(one CUDA device); ``fl-dist``, ``fl-ici`` and ``rl-dist`` (``--devices N``
+cards, by default every card, all driven from this one process, a host
+thread a card: no process is started and no process group made; see
 ``parallel/dist.py``); ``fl-cpu`` and ``rl-cpu`` (host).  ``fl-mpi`` and
 ``fl-nccl`` are aliases of ``fl-dist`` and ``fl-ici``; ``fl-shmem`` (an
 enum value with no implementation in the reference) maps to ``fl-dist``
 with a notice, as in the JAX CLI.  RL methods accept ``--frame-length`` and
 ignore it, as the JAX CLI does.
 
-Multi-process runs: every process runs this same CLI with
-``--coordinator``, one process a card, and rank 0 writes the output
-(``parallel/multihost.py``):
+Multi-process runs (one process a card, on one machine or several):
+every process runs this same CLI with ``--coordinator``, and rank 0 writes
+the output (``parallel/multihost.py``):
 
     torchrun --nproc-per-node 4 -m fl_rl_compression_mpi_tpu_torch \
         c fl-dist in.bin out.fl --coordinator env://
@@ -70,9 +71,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="after compressing, decompress the output and "
                         "byte-compare against the input")
     p.add_argument("--devices", type=int, default=None,
-                   help="ranks for the distributed methods, one CUDA device "
-                        "each (default: every card; ignored with "
-                        "--coordinator)")
+                   help="cards for the distributed methods, all driven "
+                        "from this process (default: every card; ignored "
+                        "with --coordinator)")
     p.add_argument("--profile", metavar="LOGDIR", default=None,
                    help="write a torch.profiler trace of the codec phase to "
                         "LOGDIR (TensorBoard format)")

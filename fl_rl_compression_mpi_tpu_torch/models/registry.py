@@ -3,8 +3,9 @@
 ``fl`` runs on a CUDA device (``ops/fl_torch.py``): the dense kernels, or
 with ``FLRL_NO_DENSE=1`` the field kernels and the host fold.  ``rl`` runs
 the RL kernels (``ops/rl_torch.py``).  ``fl-dist``, ``fl-ici`` and
-``rl-dist`` run the same chains on every rank of a ``torch.distributed``
-process group, one rank a device (``parallel/dist.py``).  ``fl-cpu`` and
+``rl-dist`` run the same chains on every shard of a mesh of devices that
+this one process drives, a host thread a card, or on the ranks of a
+caller's ``torch.distributed`` group (``parallel/dist.py``).  ``fl-cpu`` and
 ``rl-cpu`` are the host codecs: this package's copy of the native
 C++/OpenMP library, with the NumPy goldens as fallback.  ``fl-mpi`` and
 ``fl-nccl`` are aliases of ``fl-dist`` and ``fl-ici``, as in the JAX
@@ -105,9 +106,9 @@ def _rl_cpu_d(comp, **_):
     return rl_numpy.decode(comp.counts, comp.values)
 
 
-def _rank_device(device):
-    """The device every rank takes, or None for one CUDA device a rank
-    (``cuda:rank``), the default wherever :func:`default_device` is a CUDA
+def _shard_device(device):
+    """The device every shard takes, or None for one CUDA device a shard
+    (``cuda:i``), the default wherever :func:`default_device` is a CUDA
     device."""
     if device is not None:
         return torch.device(device)
@@ -116,17 +117,15 @@ def _rank_device(device):
 
 
 def _distributed(name: str):
-    """A registry entry point that runs ``parallel.dist.<name>`` on a
-    process group (see ``dist.run_collective``); RL takes no frame
-    length."""
-    def run(x, frame_length=128, devices=None, device=None, backend=None,
-            **_):
+    """A registry entry point that runs ``parallel.dist.<name>`` on a mesh
+    of ``devices`` shards in this process, or on a caller's process group
+    (see ``dist.run_collective``); RL takes no frame length."""
+    def run(x, frame_length=128, devices=None, device=None, **_):
         from ..parallel import dist
         args = (x,) if name.endswith("_rl") else (x, frame_length)
         return dist.run_collective(getattr(dist, name), *args,
                                    devices=devices,
-                                   device=_rank_device(device),
-                                   backend=backend)
+                                   device=_shard_device(device))
     return run
 
 
@@ -137,21 +136,22 @@ CODECS: dict[str, Codec] = {c.name: c for c in [
           _fl, _fl_d),
     Codec("fl-cpu", "fl", "FL on host (native C++/OpenMP, NumPy fallback)",
           _fl_cpu, _fl_cpu_d),
-    Codec("fl-dist", "fl", "FL over a process group, one CUDA device a "
-          "rank, rank-ordered gather to rank 0 (reference fl-mpi analog)",
+    Codec("fl-dist", "fl", "FL over N CUDA devices driven from one "
+          "process, a shard a card, merged in shard order on the host "
+          "(reference fl-mpi analog)",
           _distributed("compress_fl"),
           _distributed("decompress_fl"), distributed=True),
-    Codec("fl-ici", "fl", "FL over a process group, one CUDA device a "
-          "rank, all-gather of the payloads on the device (reference "
-          "fl-nccl analog)",
+    Codec("fl-ici", "fl", "FL over N CUDA devices driven from one "
+          "process, the payloads gathered card to card onto the first card "
+          "and copied down once (reference fl-nccl analog)",
           _distributed("compress_fl_ici"),
           _distributed("decompress_fl"), distributed=True),
     Codec("rl", "rl", "RL on one CUDA device (hand-written Hopper kernels)",
           _rl, _rl_d),
     Codec("rl-cpu", "rl", "RL on host (native C++/OpenMP, NumPy fallback)",
           _rl_cpu, _rl_cpu_d),
-    Codec("rl-dist", "rl", "RL over a process group, one CUDA device a rank "
-          "(per-shard runs)",
+    Codec("rl-dist", "rl", "RL over N CUDA devices driven from one "
+          "process, a shard a card (per-shard runs)",
           _distributed("compress_rl"),
           _distributed("decompress_rl"), distributed=True),
 ]}

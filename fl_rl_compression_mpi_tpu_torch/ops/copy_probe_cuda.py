@@ -22,14 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from .fl_dense_cuda import _check, _launch, _on_cuda, _stream
+from .fl_dense_cuda import (_check, _launch, _on_cuda, _stream, count_launch,
+                            reset_table)
 
 LAUNCHES = {"copy_probe": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_table(LAUNCHES)
 
 
 def add_one_ref(x: torch.Tensor) -> torch.Tensor:
@@ -48,5 +48,5 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         _launch("flrl_copy_probe", x.data_ptr(), y.data_ptr(), x.numel(),
                 x.device.index, _stream(x))
-        LAUNCHES["copy_probe"] += 1
+        count_launch(LAUNCHES, "copy_probe", x.device)
     return y

@@ -32,8 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fl_dense_cuda import DENSE_UNIFORM_TILE_R, _check, _launch, _on_cuda
-from .fl_dense_cuda import _stream
+from .fl_dense_cuda import (DENSE_UNIFORM_TILE_R, _check, _launch, _on_cuda,
+                            _stream, count_launch, reset_table)
 
 FRAME = 128
 FAST_BS = (1, 2, 4, 8)
@@ -42,8 +42,7 @@ LAUNCHES = {"fl_const_encode": 0, "fl_const_decode": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_table(LAUNCHES)
 
 
 def check_constant(cbyte: int, fb: int, n: int) -> None:
@@ -138,7 +137,7 @@ def encode_constant(data: torch.Tensor, cbyte: int, fb: int):
         _launch("flrl_const_encode", data.data_ptr(), n, cbyte, fb,
                 bits.data_ptr(), values.data_ptr(), flag.data_ptr(),
                 dev.index, _stream(data))
-        LAUNCHES["fl_const_encode"] += 1
+        count_launch(LAUNCHES, "fl_const_encode", dev)
     return bits, values, flag
 
 
@@ -160,5 +159,5 @@ def decode_constant(values: torch.Tensor, values_size: int, cbyte: int,
         _launch("flrl_const_decode", values.data_ptr(), values_size, cbyte,
                 fb, out.data_ptr(), n, flag.data_ptr(), dev.index,
                 _stream(values))
-        LAUNCHES["fl_const_decode"] += 1
+        count_launch(LAUNCHES, "fl_const_decode", dev)
     return out, flag

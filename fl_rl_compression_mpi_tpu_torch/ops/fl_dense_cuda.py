@@ -15,7 +15,9 @@ A wrapper given CPU tensors returns its plain PyTorch version
 stream or raises.  It never falls back from one to the other.  Each
 launch adds one to ``LAUNCHES[<kernel>]`` (uniform-mode pack and unpack
 count under their own ``*_uniform`` keys), so a run can show which
-kernels it went through.
+kernels it went through, and to its card's and its mesh shard's counts
+(:func:`launches_by`), so that a run over several cards can show that
+each of them went through its path.
 
 The plain versions work on uint8/int64 tensors only: on the CPU,
 ``torch.uint32`` has no shifts, ``max`` or comparisons.
@@ -23,9 +25,12 @@ The plain versions work on uint8/int64 tensors only: on the CPU,
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
+from ..utils.timers import current_card
 from .bitpack import FRAME_LENGTH
 
 # Bytes the host probes for the speculative uniform mode: the first tile
@@ -41,10 +46,46 @@ LAUNCHES = {"fl_frame_widths": 0, "fl_frame_offsets": 0,
             "fl_pack": 0, "fl_pack_uniform": 0,
             "fl_unpack": 0, "fl_unpack_uniform": 0}
 
+# Every kernel module's launches by ("device", card index) and by ("shard",
+# mesh shard or None) -> {kernel: count}.  A mesh's per-card threads launch
+# at once, so every count changes under the lock.
+_BY: dict = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(table: dict, name: str, device: torch.device) -> None:
+    """One launch of the kernel ``name`` (a key of the module's
+    ``table``) on ``device``, from this thread."""
+    with _COUNT_LOCK:
+        table[name] += 1
+        for key in (("device", device.index), ("shard", current_card())):
+            per = _BY.setdefault(key, {})
+            per[name] = per.get(name, 0) + 1
+
+
+def reset_table(table: dict) -> None:
+    """Set the module's ``table`` and its kernels' counts by card and by
+    shard to 0."""
+    with _COUNT_LOCK:
+        for k in table:
+            table[k] = 0
+        for per in _BY.values():
+            for k in table:
+                per.pop(k, None)
+
+
+def launches_by(what: str) -> dict:
+    """``{card index: {kernel: count}}`` for ``what`` = "device", or
+    ``{shard: {...}}`` for "shard" (the shard of a mesh whose per-card
+    thread launched; None outside a mesh's threads), over every kernel
+    module, since each module's counts were last reset."""
+    with _COUNT_LOCK:
+        return {key[1]: {k: v for k, v in per.items() if v}
+                for key, per in _BY.items() if key[0] == what}
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_table(LAUNCHES)
 
 
 def host_probe_uniform_b(data: np.ndarray, frame_length: int = FRAME_LENGTH,
@@ -273,7 +314,7 @@ def frame_widths(data: torch.Tensor, frame_length: int = FRAME_LENGTH,
     _launch("flrl_frame_widths", data.data_ptr(), n, frame_length, fb_expect,
             bits.data_ptr(), flag.data_ptr(), data.device.index,
             _stream(data))
-    LAUNCHES["fl_frame_widths"] += 1
+    count_launch(LAUNCHES, "fl_frame_widths", data.device)
     return bits, flag
 
 
@@ -293,7 +334,7 @@ def frame_offsets(bits: torch.Tensor, n: int,
     _launch("flrl_frame_offsets", bits.data_ptr(), n, frame_length,
             buf.data_ptr(), buf.data_ptr() + 8 * (F + 1), bits.device.index,
             _stream(bits))
-    LAUNCHES["fl_frame_offsets"] += 1
+    count_launch(LAUNCHES, "fl_frame_offsets", bits.device)
     return buf[:F + 1]
 
 
@@ -344,7 +385,8 @@ def pack(data: torch.Tensor, frame_length: int = FRAME_LENGTH,
     _launch("flrl_pack", data.data_ptr(), n, frame_length,
             None if fb else bits.data_ptr(), None if fb else offs.data_ptr(),
             fb, values.data_ptr(), data.device.index, _stream(data))
-    LAUNCHES["fl_pack_uniform" if fb else "fl_pack"] += 1
+    count_launch(LAUNCHES, "fl_pack_uniform" if fb else "fl_pack",
+                 data.device)
     return values
 
 
@@ -364,5 +406,6 @@ def unpack(values: torch.Tensor, n: int, frame_length: int = FRAME_LENGTH,
             frame_length, None if fb else bits.data_ptr(),
             None if fb else offs.data_ptr(), fb, out.data_ptr(),
             values.device.index, _stream(values))
-    LAUNCHES["fl_unpack_uniform" if fb else "fl_unpack"] += 1
+    count_launch(LAUNCHES, "fl_unpack_uniform" if fb else "fl_unpack",
+                 values.device)
     return out

@@ -29,7 +29,8 @@ from __future__ import annotations
 import torch
 
 from .bitpack import FRAME_LENGTH
-from .fl_dense_cuda import _aligned, _check, _launch, _on_cuda, _stream
+from .fl_dense_cuda import (_aligned, _check, _launch, _on_cuda, _stream,
+                            count_launch, reset_table)
 
 LANES = 128
 
@@ -38,8 +39,7 @@ LAUNCHES = {"fl_fields_encode": 0, "fl_fields_encode_p2": 0,
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_table(LAUNCHES)
 
 
 def packed_words(nw: int, tile_r: int) -> int:
@@ -153,7 +153,8 @@ def encode_fields(words: torch.Tensor, frame_length: int = FRAME_LENGTH,
     _launch("flrl_fields_encode", words.data_ptr(), nw, frame_length, tile_r,
             bits.data_ptr(), out.data_ptr(), words.device.index,
             _stream(words))
-    LAUNCHES["fl_fields_encode_p2" if tile_r else "fl_fields_encode"] += 1
+    count_launch(LAUNCHES, "fl_fields_encode_p2" if tile_r
+                 else "fl_fields_encode", words.device)
     return bits, out
 
 
@@ -181,5 +182,6 @@ def decode_fields(fields: torch.Tensor, bits: torch.Tensor,
     _launch("flrl_fields_decode", fields.data_ptr(), bits.data_ptr(), nw,
             frame_length, tile_r, out.data_ptr(), fields.device.index,
             _stream(fields))
-    LAUNCHES["fl_fields_decode_p2" if tile_r else "fl_fields_decode"] += 1
+    count_launch(LAUNCHES, "fl_fields_decode_p2" if tile_r
+                 else "fl_fields_decode", fields.device)
     return out

@@ -53,6 +53,7 @@ plain PyTorch versions (the tests use it).
 from __future__ import annotations
 
 import os
+import threading
 import warnings
 from collections import deque
 
@@ -173,8 +174,13 @@ def _all_eight(bits: np.ndarray, values: np.ndarray, n: int,
                 and (bits[:frames] == 8).all())
 
 
+# ``warnings.catch_warnings`` swaps the process's filters: the per-card
+# threads of a mesh must not interleave their swaps
+_WARNINGS_LOCK = threading.Lock()
+
+
 def _host_tensor(a: np.ndarray) -> torch.Tensor:
-    with warnings.catch_warnings():
+    with _WARNINGS_LOCK, warnings.catch_warnings():
         # read-only inputs (np.frombuffer, container views) are only read
         warnings.filterwarnings("ignore", message=".*not writable.*")
         return torch.from_numpy(np.ascontiguousarray(a))
@@ -679,12 +685,17 @@ def container_layout(n: int, bits: np.ndarray, values_size: int,
 
 def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
                 voffs: np.ndarray, frame_length: int,
-                device: str | torch.device) -> np.ndarray:
+                device: str | torch.device,
+                out: np.ndarray | None = None) -> np.ndarray:
     """:func:`decode_chunks` over the n bytes of the frames ``widths``
     (each 1..8) whose payload starts at ``values[voffs[f]]``, in chunks of
     at most ``_device_cap(L)`` bytes, each copied straight into the
-    output."""
-    out = np.empty(n, np.uint8)
+    output: ``out`` (u8[n]) where it is given, else a new array."""
+    if out is None:
+        out = np.empty(n, np.uint8)
+    elif out.shape != (n,) or out.dtype != np.uint8:
+        raise ValueError(f"decode_walk: out must be u8[{n}], got "
+                         f"{out.dtype}{list(out.shape)}")
     cap = _device_cap(frame_length)
     fpc = cap // frame_length
 

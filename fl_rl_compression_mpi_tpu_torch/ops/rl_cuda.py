@@ -36,7 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from .fl_dense_cuda import _aligned, _check, _launch, _on_cuda, _stream
+from .fl_dense_cuda import (_aligned, _check, _launch, _on_cuda, _stream,
+                            count_launch, reset_table)
 
 RUN_CAP = 255
 # Bytes of an encode tile (kEncodeTile in csrc/rl.cuh) and runs of a decode
@@ -52,8 +53,7 @@ LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_table(LAUNCHES)
 
 
 def _tiles(items: int, tile: int = TILE) -> int:
@@ -144,7 +144,7 @@ def encode_chunk(x: torch.Tensor, prev: int = -1, d0: int = 0):
                        device=x.device)
     _launch("flrl_rl_encode", x.data_ptr(), n, prev, d0, values.data_ptr(),
             counts.data_ptr(), meta.data_ptr(), x.device.index, _stream(x))
-    LAUNCHES["rl_encode"] += 1
+    count_launch(LAUNCHES, "rl_encode", x.device)
     R, start = meta[:2].tolist()
     return values[:R], counts[:R], -d0 if start == _NONE else start
 
@@ -163,7 +163,7 @@ def run_offsets(counts: torch.Tensor) -> torch.Tensor:
                       device=counts.device)
     _launch("flrl_rl_run_offsets", counts.data_ptr(), counts.numel(),
             buf.data_ptr(), counts.device.index, _stream(counts))
-    LAUNCHES["rl_offsets"] += 1
+    count_launch(LAUNCHES, "rl_offsets", counts.device)
     return buf[:T + 1]
 
 
@@ -183,5 +183,5 @@ def expand(counts: torch.Tensor, values: torch.Tensor, offs: torch.Tensor,
     _launch("flrl_rl_expand", counts.data_ptr(), values.data_ptr(), R,
             offs.data_ptr(), n, out.data_ptr(), counts.device.index,
             _stream(counts))
-    LAUNCHES["rl_expand"] += 1
+    count_launch(LAUNCHES, "rl_expand", counts.device)
     return out

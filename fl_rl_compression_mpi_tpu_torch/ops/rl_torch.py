@@ -195,15 +195,23 @@ def decode(counts, values, *, device: str | torch.device) -> np.ndarray:
 
 def decode_walk(counts: np.ndarray, values: np.ndarray,
                 device: str | torch.device,
-                block_end: np.ndarray | None = None) -> np.ndarray:
+                block_end: np.ndarray | None = None,
+                out: np.ndarray | None = None) -> np.ndarray:
     """The chunk walk of :func:`decode`, with no host closed form: the
     Σ counts bytes of the runs, chunk by chunk, each chunk's output copied
-    from the device straight into its slice.  ``block_end`` is
+    from the device straight into its slice of ``out`` (u8[Σ counts])
+    where it is given, else of a new array.  ``block_end`` is
     :func:`_block_ends` of ``counts`` where the caller has it."""
     if counts.size == 0:
-        return np.zeros(0, np.uint8)
+        return np.zeros(0, np.uint8) if out is None else out
     if block_end is None:
         block_end = _block_ends(counts)
+    n = int(block_end[-1])
+    if out is None:
+        out = np.empty(n, np.uint8)
+    elif out.shape != (n,) or out.dtype != np.uint8:
+        raise ValueError(f"decode_walk: out must be u8[{n}], got "
+                         f"{out.dtype}{list(out.shape)}")
     device = torch.device(device)
 
     def up(r0: int, r1: int):
@@ -213,7 +221,6 @@ def decode_walk(counts: np.ndarray, values: np.ndarray,
                     _to_device(values[r0:r1], device)]
         return h2d
 
-    out = np.empty(int(block_end[-1]), np.uint8)
     for o0, o1, out_d in decode_parts(counts, block_end, up):
         with stage("Copy results to CPU", o1 - o0):
             torch.from_numpy(out[o0:o1]).copy_(out_d)

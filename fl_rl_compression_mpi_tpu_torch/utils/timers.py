@@ -5,12 +5,14 @@ Same ``[TIMER] <name>: <ms> ms (<rate>)`` lines and the same
 ``fl_rl_compression_mpi_tpu/utils/timers.py``.  A device stage passes the
 tensors it produced in ``result``; the timer then synchronises the CUDA
 device before it stops, so the stage's time is the device's time and not
-the enqueue's.
+the enqueue's.  Stages that run in a mesh's per-card threads
+(``parallel/dist.py``) print each line whole, tagged ``[card i]``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable
 
@@ -72,11 +74,11 @@ class Timer:
 
 @contextlib.contextmanager
 def timed(name: str, nbytes: int = 0, enabled: bool = True, rank: int = -1,
-          result=None):
+          result=None, printer: Callable[[str], None] = print):
     """``with timed("compression", nbytes=n): ...`` — prints on exit.
     Pass ``result=[tensor, ...]`` (a list filled inside the block) to
     wait for device work before stopping the clock."""
-    t = Timer(name, rank=rank, enabled=enabled)
+    t = Timer(name, rank=rank, enabled=enabled, printer=printer)
     if nbytes:
         t.add_transfer_size(nbytes)
     t.start()
@@ -91,6 +93,34 @@ def timed(name: str, nbytes: int = 0, enabled: bool = True, rank: int = -1,
 # copy out).  A module-level switch, so the codec pays one bool check when
 # they are off.
 _STAGE = {"enabled": False, "rank": -1}
+# The mesh shard a per-card thread works on (None outside one), and the lock
+# that keeps the threads' lines whole.
+_CARD = threading.local()
+_PRINT_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def card_scope(index: int):
+    """Mark this thread as the one that drives shard ``index`` of a mesh:
+    its stage lines are tagged ``[card <index>]`` and its kernel launches
+    counted under that shard (``fl_dense_cuda.launches_by``)."""
+    _CARD.index = index
+    try:
+        yield
+    finally:
+        _CARD.index = None
+
+
+def current_card() -> int | None:
+    """The shard of the mesh this thread drives, or None."""
+    return getattr(_CARD, "index", None)
+
+
+def _card_printer(index: int) -> Callable[[str], None]:
+    def printer(line: str) -> None:
+        with _PRINT_LOCK:
+            print(f"[card {index}] {line}", flush=True)
+    return printer
 
 
 def set_stage_timers(enabled: bool, rank: int = -1) -> None:
@@ -110,8 +140,10 @@ def stage(name: str, nbytes: int = 0, result=None):
     if not _STAGE["enabled"]:
         yield None
         return
+    card = current_card()
     with timed(name, nbytes=nbytes, rank=_STAGE["rank"], enabled=True,
-               result=result) as t:
+               result=result,
+               printer=print if card is None else _card_printer(card)) as t:
         yield t
 
 

@@ -3,6 +3,7 @@ device default is patched, since ``fl`` runs only on a CUDA device)."""
 
 import glob
 import json
+import multiprocessing
 import os
 import socket
 
@@ -161,14 +162,21 @@ def test_devices_beyond_the_count_exit_nonzero(method, blob, tmp_path,
 
 @pytest.mark.parametrize("method", ["fl-dist", "rl-dist"])
 def test_two_spawned_ranks_through_the_cli(method, blob, tmp_path, on_cpu,
-                                           capsys):
-    """``--devices 2`` on the CPU: two spawned gloo ranks for c and d; the
-    container equals the JAX CLI's at two devices."""
+                                           capsys, monkeypatch):
+    """``--devices 2`` on the CPU: two shards driven from this one process
+    for c and d, with no child process and no process group; the container
+    equals the JAX CLI's at two devices."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CLI started a process")
+
+    monkeypatch.setattr(torch.multiprocessing, "start_processes", refuse)
     src, data = blob
     ours, theirs = str(tmp_path / "torch.c"), str(tmp_path / "jax.c")
     back = str(tmp_path / "o.bin")
     assert main(["c", method, src, ours, "--devices", "2"]) == 0
     assert main(["d", method, ours, back, "--devices", "2"]) == 0
+    assert multiprocessing.active_children() == []
+    assert not torch.distributed.is_initialized()
     np.testing.assert_array_equal(np.fromfile(back, np.uint8), data)
     assert jax_main(["c", method, src, theirs, "--devices", "2"]) == 0
     assert _same_file(ours, theirs)

@@ -1,9 +1,11 @@
-"""``parallel/dist.py`` on gloo (the CPU): one process group a world size,
-in this process at world size 1 and spawned at 2 and 3 ranks, every case
-run inside it (``torch_dist_cases.run_cases``).  The results are held
-against the JAX package's ``parallel.dist`` on a sub-mesh of the same
-number of virtual CPU devices and against ``fl_numpy``/``rl_numpy``.
-Tolerance: byte equality throughout."""
+"""``parallel/dist.py``'s process-group path on gloo (the CPU): in this
+process with no group at world size 1, and at 2 and 3 ranks one group a
+world size, spawned by ``dist.spawn_group``, every case run inside it
+(``torch_dist_cases.run_cases``).  The results are held against the JAX
+package's ``parallel.dist`` on a sub-mesh of the same number of virtual CPU
+devices and against ``fl_numpy``/``rl_numpy``.  The one-process mesh path
+has its own tests (``test_torch_mesh.py``).  Tolerance: byte equality
+throughout."""
 
 import numpy as np
 import pytest
@@ -26,8 +28,10 @@ _RESULTS: dict = {}
 def results(world: int) -> dict:
     """Rank 0's results of every case at ``world`` ranks, computed once."""
     if world not in _RESULTS:
-        _RESULTS[world] = dist.run_collective(
-            cases.run_cases, devices=world, device=torch.device("cpu"))
+        cpu = torch.device("cpu")
+        _RESULTS[world] = (cases.run_cases(device=cpu) if world == 1 else
+                           dist.spawn_group(cases.run_cases, world=world,
+                                            device=cpu))
     return _RESULTS[world]
 
 
@@ -115,9 +119,12 @@ def test_constant_programs_and_their_flags(world, c):
 
 
 def test_run_collective_checks_its_arguments(monkeypatch):
-    with pytest.raises(ValueError, match="at least one rank"):
+    with pytest.raises(ValueError, match="at least one device"):
         dist.run_collective(cases.run_cases, devices=0,
                             device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="at least one rank"):
+        dist.spawn_group(cases.run_cases, world=0,
+                         device=torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dist.run_collective(cases.run_cases, devices=1)

@@ -5,14 +5,16 @@ codecs.  Tolerance: byte equality throughout.
 * one process, no group: the four file functions, the verify and the
   synthetic codec against the JAX module's single-process forms;
 * two and three gloo ranks, one spawn a world size, every case inside it
-  (``torch_multihost_cases.run_cases``): the cases of
+  (``torch_multihost_cases.run_cases``, spawned by ``dist.spawn_group``):
+  the cases of
   ``tests/test_multihost_2proc.py``.  FL containers equal ``fl_numpy``'s
   (they do not depend on P); RL containers equal the concatenation of
   ``rl_numpy``'s over the JAX package's ``fileio.load_file_sharded``
   shards, which is what the JAX module computes with one chip a process;
 * the CLI in processes of its own, under ``torchrun`` (``env://``) and
   with a TCP rendezvous (``HOST:PORT``);
-* one-rank ``dist.run_collective`` calls, which make no process group."""
+* ``dist.run_collective`` calls with no default group, which make no
+  process group (one shard, and a two-shard mesh in this process)."""
 
 import os
 import socket
@@ -54,8 +56,8 @@ def root(tmp_path_factory) -> str:
 def results(root: str, world: int) -> dict:
     """Rank 0's results of every case at ``world`` ranks, computed once."""
     if world not in _RESULTS:
-        _RESULTS[world] = dist.run_collective(
-            cases.run_cases, root, devices=world, device=CPU)
+        _RESULTS[world] = dist.spawn_group(cases.run_cases, root,
+                                           world=world, device=CPU)
     return _RESULTS[world]
 
 
@@ -385,7 +387,8 @@ def test_cli_coordinator_needs_the_process_layout(root, tmp_path,
 
 def test_one_rank_group_is_made_once(monkeypatch, no_group):
     """World-1 calls never call init_process_group and leave no default
-    group; a two-rank spawn after them still gives fl-cpu's bytes."""
+    group; a two-shard mesh after them, in this process, makes none either
+    and still gives fl-cpu's bytes."""
     made = []
     init = torch.distributed.init_process_group
 
@@ -406,6 +409,7 @@ def test_one_rank_group_is_made_once(monkeypatch, no_group):
     np.testing.assert_array_equal(comp.bits, want[0])
     np.testing.assert_array_equal(comp.values, want[1])
     assert not torch.distributed.is_initialized()
+    assert made == []
 
 
 def test_callers_group_is_used_and_survives(no_group):

@@ -28,7 +28,7 @@ assert np.array_equal(fl_torch.decode(data.size, bits, values,
 data = np.repeat(data % 4, 9)
 counts, values = rl_torch.encode(data, device="cpu")
 assert np.array_equal(rl_torch.decode(counts, values, device="cpu"), data)
-# the distributed path, one gloo rank in this process
+# the distributed path: one shard, then two, in this process
 import torch
 import fl_rl_compression_mpi_tpu_torch as flrl
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
@@ -36,14 +36,22 @@ for method in ("fl-dist", "fl-ici", "rl-dist"):
     comp = flrl.compress(data, method=method, device="cpu")
     assert np.array_equal(flrl.decompress(comp, method=method,
                                           device="cpu"), data)
+    comp = flrl.compress(data, method=method, device="cpu", devices=2)
+    assert np.array_equal(flrl.decompress(comp, method=method,
+                                          device="cpu", devices=2), data)
 zeros = torch.zeros(128 * 40, dtype=torch.uint8)
-def constant(*, group=None, device):
+def constant(*, mesh):
+    shards = [zeros[:128 * 20], zeros[128 * 20:]][:len(mesh)]
     bits, values, flags = dist.fl_compress_sharded_dense_constant(
-        zeros, 0, 1, group=group)
+        shards, 0, 1, mesh=mesh)
     out, dflags = dist.fl_decompress_sharded_dense_constant(
-        values, values.numel(), zeros.numel(), 0, 1, group=group)
-    return int(flags.sum() + dflags.sum()), bool((out == 0).all())
-assert dist.run_collective(constant, device=torch.device("cpu")) == (0, True)
+        values, [v.numel() for v in values], [x.numel() for x in shards],
+        0, 1, mesh=mesh)
+    return (int(flags.sum() + dflags.sum()),
+            all(bool((o == 0).all()) for o in out))
+for k in (1, 2):
+    assert dist.run_collective(constant, devices=k,
+                               device=torch.device("cpu")) == (0, True)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
