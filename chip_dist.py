@@ -48,6 +48,23 @@ and two shards on card 0); this script runs it on N cards:
    process's own, and the most any card spent in each of its threads'
    stages).  Not run with ``--device cpu``.
 
+5. the device-resident programs — the counterpart of the JAX package's
+   ``__graft_entry__.dryrun_multichip`` on the mesh of the N cards: the
+   sharded field encode (``dist.fl_compress_sharded``), ``fl_compress_merged``
+   (every card's widths and fields gathered onto every card), the sharded
+   decode, the dense and merged-dense programs and the dense decode, the
+   single-width programs (their decode where no shard's flag is set), each
+   on mixed and uniform4, and the RL sharded encode and decode on
+   rl_mixed, on the ``--mib`` streams put on the cards by
+   ``dist.shard_host_data`` (at 2048 MiB on four cards, 512 MiB a card):
+   each checked against the mesh's ``compress_fl``/``compress_rl``
+   containers and the input, and timed with a CUDA event pair on each
+   card after a warm call (the most any card's pair spans, median of 3),
+   printed with its GB/s and the host's time to enqueue it beside the
+   same program's time on card 0 alone with shard 0's inputs, measured in
+   the same run.  ``--programs`` runs this phase alone; otherwise it runs
+   after phase 2's copy rates.
+
 ``--spawn-cli-trees DIR...`` runs phase 3 alone, once from each DIR in the
 order given (a checkout of another commit beside this one, such as
 ``parent . . parent``, compares the two in one call): a process started in
@@ -391,6 +408,99 @@ def copy_rates(mesh: tuple, mib: int = 1024, reps: int = 5) -> dict:
     return out
 
 
+def program_ms(mesh: tuple, fn, reps: int = 3) -> tuple:
+    """``(ms, host ms, out)`` of ``fn()`` on the mesh after a warm call,
+    medians of ``reps``, and the last call's outputs: on cards, a CUDA
+    event pair on each card's current stream around the call and the most
+    any card's pair spans, and the host's time until the call returned
+    (its launches enqueued, one card after another); on the CPU, the host
+    clock for both."""
+    cards = sorted({d for d in mesh if d.type == "cuda"}, key=str)
+    out = fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    ts, hs = [], []
+    for _ in range(reps):
+        del out
+        pairs = []
+        for d in cards:
+            with torch.cuda.device(d):
+                a = torch.cuda.Event(enable_timing=True)
+                a.record()
+                pairs.append([a, torch.cuda.Event(enable_timing=True)])
+        t0 = time.perf_counter()
+        out = fn()
+        hs.append((time.perf_counter() - t0) * 1e3)
+        for d, pair in zip(cards, pairs):
+            with torch.cuda.device(d):
+                pair[1].record()
+        for a, b in pairs:
+            b.synchronize()
+        ts.append(max(a.elapsed_time(b) for a, b in pairs) if cards
+                  else hs[-1])
+    return float(np.median(ts)), float(np.median(hs)), out
+
+
+def phase_programs(mesh: tuple, mib: int) -> tuple:
+    """The device-resident sharded programs on the cards of ``mesh``, the
+    counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``
+    (``chip_smoke.run_sharded_fl`` on mixed and uniform4, ``run_sharded_rl``
+    on rl_mixed), on the ``mib`` MiB streams put on the cards by
+    ``dist.shard_host_data``.  Each result is checked against the
+    one-process mesh's containers (``compress_fl`` / ``compress_rl`` on
+    the same mesh) and the input (``chip_smoke.compare_sharded``).  Each
+    program is timed (``program_ms``) on the N cards, and again on
+    ``mesh[0]`` alone with shard 0's inputs: the same work a card, on one
+    card, in this run.  Returns ``{stream: {program: [ms, host ms,
+    one-card ms]}}`` and the checks ``{"stream/program": ok}``."""
+    world = len(mesh)
+    ms, checks = {}, {}
+    for name, x in streams(mib).items():
+        plan = dist.plan_shards(x.size, world)
+        ns = [int(m) for m in plan.ns]
+        xs = dist.shard_host_data(x, plan, mesh)
+        times = ms[name] = {}
+
+        def timed(program: str, fn):
+            t, host, out = program_ms(mesh, fn)
+            times[program] = [t, host]
+            return out
+
+        def one_card(program: str, fn):
+            t, _, out = program_ms(mesh[:1], fn)
+            times.setdefault(program, [None, None]).append(t)
+            return out
+
+        if name == "rl_mixed":
+            want = dist.compress_rl(x, mesh=mesh)
+            want = (want.counts, want.values)
+            r = smoke.run_sharded_rl(xs, ns, mesh, timed)
+            smoke.run_sharded_rl(xs[:1], ns[:1], mesh[:1], one_card)
+        else:
+            want = dist.compress_fl(x, mesh=mesh)
+            want = (want.bits, want.values)
+            r = smoke.run_sharded_fl(xs, ns, mesh, timed)
+            smoke.run_sharded_fl(xs[:1], ns[:1], mesh[:1], one_card)
+        bad = smoke.compare_sharded(r, xs, ns, want)
+        checks.update({f"{name}/{program}": program not in bad
+                       for program in r})
+        del r, xs
+    n = mib << 20
+    clock = "CUDA events" if mesh[0].type == "cuda" else "host clock"
+    for name, times in ms.items():
+        for program, (t, host, *one) in times.items():
+            if t is None:
+                continue
+            alone = f"{one[0]:.3f} ms" if one else "not run"
+            print(f"[programs] {name}: {program}, {world} shard(s) on "
+                  f"{mesh[0]}{' ...' if world > 1 else ''}, {mib} MiB: "
+                  f"{t:.3f} ms, {n / 1e6 / t:.1f} GB/s ({clock}, median of "
+                  f"3 after a warm call), the host's enqueue {host:.3f} ms; "
+                  f"on {mesh[0]} alone with shard 0's inputs (the same work "
+                  f"a card, this run): {alone}", flush=True)
+    return ms, checks
+
+
 def median_range(xs: list) -> str:
     return f"{np.median(xs):.3f} ({min(xs):.3f}-{max(xs):.3f})"
 
@@ -607,6 +717,8 @@ def main() -> int:
     p.add_argument("--spawn-cli-trees", nargs="+", metavar="DIR",
                    default=None,
                    help="run phase 3 alone, from each DIR in turn")
+    p.add_argument("--programs", action="store_true",
+                   help="run phase 5 (the device-resident programs) alone")
     args = p.parse_args()
     on_cpu = args.device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
@@ -628,6 +740,21 @@ def main() -> int:
     if args.spawn_cli_trees:
         walls = phase_cli_trees(world, args.spawn_cli_trees)
         print(json.dumps({"dist": {"ranks": world, "walls": walls}}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "cpu" if on_cpu else "gpu", "kind": kind,
+            "count": 0 if on_cpu else torch.cuda.device_count()}}))
+        return 0
+
+    if args.programs:
+        mesh = dist.make_mesh(world, rank_device)
+        ms, checks = phase_programs(mesh, args.mib)
+        failed = [key for key, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"failed checks {failed}")
+        print(f"[programs] checks {json.dumps(checks)}; all in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"dist": {"ranks": world, "mib": args.mib,
+                                   "programs ms": ms, "checks": checks}}))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu" if on_cpu else "gpu", "kind": kind,
             "count": 0 if on_cpu else torch.cuda.device_count()}}))
@@ -664,6 +791,8 @@ def main() -> int:
           f"{json.dumps(overlap)}", flush=True)
     rates = {} if on_cpu else copy_rates(mesh)
     print(f"[dist] copy rates {json.dumps(rates)}", flush=True)
+    programs_ms, programs_checks = phase_programs(mesh, args.mib)
+    checks.update(programs_checks)
 
     t0 = time.perf_counter()
     group_walls, group_checks, launches = dist.spawn_group(
@@ -715,6 +844,7 @@ def main() -> int:
     print(json.dumps({"dist": {"ranks": world, "mib": args.mib,
                                "walls": walls, "checks": checks,
                                "overlap": overlap, "copy rates": rates,
+                               "programs ms": programs_ms,
                                "cli stages": stages}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "cpu" if on_cpu else "gpu", "kind": kind,

@@ -113,6 +113,22 @@ Phases, each printing a line and failing the run on any error:
               64 MiB: fl-ici, the FL decode, rl-dist and its decode, FL
               containers equal fl-cpu's, RL equals rl-cpu's per-shard
               containers concatenated, every rank launched its kernels.
+   sharded  — the device-resident sharded programs of parallel/dist.py
+              (after the RL main phase, before the dist phase), on the
+              512 MiB mixed, uniform4 and rl_mixed streams put on the card
+              by dist.shard_host_data, on a one-card mesh and on two shards
+              on card 0: fl_compress_sharded and its decode,
+              fl_compress_merged, the dense and single-width programs and
+              their decodes, and rl_compress_sharded and its decode, all
+              under set_sync_debug_mode("error"), then
+              fl_compress_merged_dense (it reads its payload sizes back
+              once): every result equals fl_torch.encode's container
+              (the fields folded on the host), compress_rl's container at
+              the same N, and the input; a uniform flag is raised exactly
+              on the shards with another width; the RL encode's memory
+              held 0xAB first, and the counts past its runs are zero; every
+              kernel of the programs launched on the card, and by each of
+              the two shards, every launch counted under its shard.
    multihost — parallel/multihost.py, right after the dist phase's walls:
               one process under torchrun running the CLI with
               `--coordinator env://` on the main phases' 512 MiB files
@@ -2503,6 +2519,271 @@ def phase_constant_programs() -> dict:
     return launches
 
 
+# Each device-resident program's launches on one shard a call, by kernel
+PROGRAM_LAUNCHES = {
+    "fl_compress_sharded": {"fl_fields_encode": 1},
+    "fl_compress_merged": {"fl_fields_encode": 1},
+    "fl_decompress_sharded": {"fl_fields_decode": 1},
+    "fl_compress_sharded_dense": {"fl_frame_widths": 1, "fl_frame_offsets": 1,
+                                  "fl_pack": 1},
+    "fl_compress_merged_dense": {"fl_frame_widths": 1, "fl_frame_offsets": 1,
+                                 "fl_pack": 1},
+    "fl_decompress_sharded_dense": {"fl_frame_offsets": 1, "fl_unpack": 1},
+    "fl_compress_sharded_dense_uniform": {"fl_frame_widths": 1,
+                                          "fl_pack_uniform": 1},
+    "fl_decompress_sharded_dense_uniform": {"fl_unpack_uniform": 1},
+    "rl_compress_sharded": {"rl_encode": 1},
+    "rl_decompress_sharded": {"rl_offsets": 1, "rl_expand": 1},
+}
+SHARDED_KERNELS = sorted({key for per in PROGRAM_LAUNCHES.values()
+                          for key in per})
+
+
+@contextlib.contextmanager
+def sync_error():
+    """Every call that waits for the device raises inside (sync-debug
+    "error"; it does not watch ``Event.synchronize()``)."""
+    set_stage_timers(False)     # a stage timer synchronises the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _cat_host(parts: list, sizes: list) -> np.ndarray:
+    """The first ``sizes[i]`` elements of each device tensor, concatenated
+    on the host."""
+    return np.concatenate([p[:int(m)].cpu().numpy()
+                           for p, m in zip(parts, sizes)])
+
+
+def _call(name: str, fn):
+    return fn()
+
+
+def run_sharded_fl(xs: list, ns: list, mesh, call=_call, fb: int = 4) -> dict:
+    """Every FL program of parallel/dist.py on the shards ``xs`` (sizes
+    ``ns``) over ``mesh``, in the order of the JAX package's
+    ``__graft_entry__.dryrun_multichip``: {program: its outputs}.  The
+    single-width programs speculate on width ``fb``; their decode runs
+    only where no shard's flag is set (the flags read back between the
+    two).  ``call(program, fn)`` runs each program, ``fn()``."""
+    r = {}
+
+    def run(program: str, fn):
+        r[program] = call(program, fn)
+        return r[program]
+
+    bits, flds = run("fl_compress_sharded",
+                     lambda: dist.fl_compress_sharded(xs, mesh=mesh))
+    run("fl_compress_merged", lambda: dist.fl_compress_merged(xs, mesh=mesh))
+    run("fl_decompress_sharded",
+        lambda: dist.fl_decompress_sharded(flds, bits, mesh=mesh))
+    dbits, dense, _ = run(
+        "fl_compress_sharded_dense",
+        lambda: dist.fl_compress_sharded_dense(xs, ns, mesh=mesh))
+    run("fl_compress_merged_dense",
+        lambda: dist.fl_compress_merged_dense(xs, ns, mesh=mesh))
+    run("fl_decompress_sharded_dense",
+        lambda: dist.fl_decompress_sharded_dense(dense, dbits, ns, mesh=mesh))
+    _, udense, flags = run(
+        "fl_compress_sharded_dense_uniform",
+        lambda: dist.fl_compress_sharded_dense_uniform(xs, ns, fb,
+                                                       mesh=mesh))
+    if not any(flags.tolist()):
+        run("fl_decompress_sharded_dense_uniform",
+            lambda: dist.fl_decompress_sharded_dense_uniform(udense, ns, fb,
+                                                             mesh=mesh))
+    return r
+
+
+def run_sharded_rl(xs: list, ns: list, mesh, call=_call) -> dict:
+    """rl_compress_sharded, then rl_decompress_sharded of its runs, on the
+    shards ``xs`` (sizes ``ns``) over ``mesh``: {program: its outputs}."""
+    counts, values, runs = call(
+        "rl_compress_sharded",
+        lambda: dist.rl_compress_sharded(xs, ns, mesh=mesh))
+    out = call("rl_decompress_sharded",
+               lambda: dist.rl_decompress_sharded(counts, values, ns,
+                                                  mesh=mesh))
+    return {"rl_compress_sharded": (counts, values, runs),
+            "rl_decompress_sharded": out}
+
+
+def sharded_launches(r: dict) -> dict:
+    """{kernel: launches} on each shard of one run of the programs in
+    ``r``."""
+    out: dict = {}
+    for program in r:
+        for key, v in PROGRAM_LAUNCHES[program].items():
+            out[key] = out.get(key, 0) + v
+    return out
+
+
+def compare_sharded(r: dict, xs: list, ns: list, want: tuple,
+                    fb: int = 4) -> list:
+    """The programs of ``r`` (``run_sharded_fl``'s or ``run_sharded_rl``'s
+    outputs on the shards ``xs`` of sizes ``ns``) whose results disagree
+    with the host path: ``want`` is the stream's container (FL: its widths
+    and payload; RL: its counts and values at the same N), every decode
+    must restore its shard, the single-width flags must be set on exactly
+    the shards with a frame of another width than ``fb``, and the RL
+    counts past each shard's runs must be zero."""
+    frames = [-(-m // 128) for m in ns]
+    bad = []
+
+    def check(program: str, ok) -> None:
+        if program in r and not ok():
+            bad.append(program)
+
+    def restores(outs) -> bool:
+        return all(torch.equal(o[:m], x[:m]) for o, x, m in zip(outs, xs, ns))
+
+    if "rl_compress_sharded" in r:
+        counts, values, runs = r["rl_compress_sharded"]
+        n_runs = [int(t[0]) for t in runs]
+        check("rl_compress_sharded",
+              lambda: np.array_equal(_cat_host(counts, n_runs), want[0])
+              and np.array_equal(_cat_host(values, n_runs), want[1])
+              and not any(bool(c[m:].any())
+                          for c, m in zip(counts, n_runs)))
+        check("rl_decompress_sharded",
+              lambda: restores(r["rl_decompress_sharded"]))
+        return bad
+    bits, flds = r["fl_compress_sharded"]
+
+    def fields_ok() -> bool:
+        folded = [fields.fold(f.cpu().numpy().view(np.uint32)[:fr * 32],
+                              b[:fr].cpu().numpy(), m, 128)
+                  for f, b, fr, m in zip(flds, bits, frames, ns)]
+        return (np.array_equal(_cat_host(bits, frames), want[0])
+                and np.array_equal(np.concatenate(folded), want[1]))
+
+    def payload_ok(wbits, payload, sizes) -> bool:
+        return (np.array_equal(_cat_host(wbits, frames), want[0])
+                and np.array_equal(_cat_host(payload, sizes), want[1]))
+
+    check("fl_compress_sharded", fields_ok)
+    check("fl_compress_merged", lambda: all(
+        torch.equal(bg[j], bits[j].to(bg.device))
+        and torch.equal(fg[j], flds[j].to(fg.device))
+        for bg, fg in zip(*r["fl_compress_merged"])
+        for j in range(len(xs))))
+    check("fl_decompress_sharded",
+          lambda: restores(r["fl_decompress_sharded"]))
+    dbits, dense, totals = r["fl_compress_sharded_dense"]
+    check("fl_compress_sharded_dense", lambda: payload_ok(
+        dbits, dense, [int(t[0]) for t in totals]))
+    check("fl_compress_merged_dense", lambda: all(
+        np.array_equal(b.cpu().numpy(), want[0])
+        and np.array_equal(v.cpu().numpy(), want[1])
+        and t.tolist() == [int(x[0]) for x in totals]
+        for b, v, t in zip(*r["fl_compress_merged_dense"])))
+    check("fl_decompress_sharded_dense",
+          lambda: restores(r["fl_decompress_sharded_dense"]))
+    ubits, udense, flags = r["fl_compress_sharded_dense_uniform"]
+    edges = np.cumsum([0] + frames)
+    misses = [int(bool((want[0][a:b] != fb).any()))
+              for a, b in zip(edges[:-1], edges[1:])]
+    check("fl_compress_sharded_dense_uniform", lambda: (
+        flags.tolist() == misses
+        and (any(misses) or payload_ok(ubits, udense,
+                                       [u.numel() for u in udense]))))
+    check("fl_decompress_sharded_dense_uniform",
+          lambda: restores(r["fl_decompress_sharded_dense_uniform"]))
+    return bad
+
+
+def _no_read_back(program: str, fn):
+    """``fn()`` under sync-debug "error", but for the merged dense program,
+    which reads its payload sizes back once, by design."""
+    if program == "fl_compress_merged_dense":
+        return fn()
+    with sync_error():
+        return fn()
+
+
+def check_sharded(name: str, data: np.ndarray, want: tuple, mesh) -> dict:
+    """The FL programs (RL for ``name`` "rl_mixed") on ``data`` over
+    ``mesh``, nothing read back inside them (``_no_read_back``), the RL
+    encode's memory filled with a nonzero byte first; each result against
+    ``want``, the host path's container (``compare_sharded``).  Returns
+    the launches each shard must count (``sharded_launches``)."""
+    shards = len(mesh)
+    plan = dist.plan_shards(data.size, shards)
+    ns = [int(m) for m in plan.ns]
+    xs = dist.shard_host_data(data, plan, mesh)
+    if name == "rl_mixed":
+        junk = [torch.full((2 * m,), 0xAB, dtype=torch.uint8, device=DEVICE)
+                for m in ns]
+        del junk                # the allocator hands these blocks back
+        r = run_sharded_rl(xs, ns, mesh, _no_read_back)
+    else:
+        r = run_sharded_fl(xs, ns, mesh, _no_read_back)
+    torch.cuda.synchronize()
+    bad = compare_sharded(r, xs, ns, want)
+    if bad:
+        raise AssertionError(f"sharded programs, {shards} shard(s), {name}: "
+                             f"{bad}")
+    say(f"[sharded] {name}, {shards} shard(s) on cuda:0: {', '.join(r)} "
+        f"equal the host path's container and restore the input; no "
+        f"read-back inside them"
+        + ("" if name == "rl_mixed" else
+           f" (uniform flags "
+           f"{r['fl_compress_sharded_dense_uniform'][2].tolist()})")
+        + ("; zero counts past the runs on memory that held 0xAB"
+           if name == "rl_mixed" else ""))
+    return sharded_launches(r)
+
+
+def phase_sharded_programs(streams: dict) -> dict:
+    """The device-resident sharded programs of parallel/dist.py on the
+    512 MiB main-path streams, on a one-card mesh and on two shards on
+    card 0, driven from this process: every result equal to the host
+    path's bytes (fl_torch.encode's container, compress_rl's at the same
+    N, the input); the host path's containers made before the counts are
+    set to 0, so that the counts are the programs' alone, and every kernel
+    of the programs launched on each shard exactly as often as its
+    programs' calls launch it (``PROGRAM_LAUNCHES``), on the card and, on
+    two shards, under each shard.  Returns the launches by shard of the
+    two-shard run."""
+    want = {name: fl_torch.encode(streams[name], device=DEVICE)
+            for name in ("mixed", "uniform4")}
+    for shards in (1, 2):
+        mesh = dist.make_mesh(shards, DEVICE)
+        rl = dist.compress_rl(streams["rl_mixed"], mesh=mesh)
+        want["rl_mixed"] = (rl.counts, rl.values)
+        reset_all_launches()
+        expect: dict = {}
+        for name in ("mixed", "uniform4", "rl_mixed"):
+            for key, v in check_sharded(name, streams[name], want[name],
+                                        mesh).items():
+                expect[key] = expect.get(key, 0) + v
+        card = k.launches_by("device").get(0, {})
+        by_shard = k.launches_by("shard")
+        bad = []
+        if sorted(expect) != SHARDED_KERNELS:
+            bad.append(f"kernels not run: "
+                       f"{sorted(set(SHARDED_KERNELS) - set(expect))}")
+        if card != {key: v * shards for key, v in expect.items()}:
+            bad.append(f"on the card {json.dumps(card)}")
+        if shards == 2:
+            bad += [f"shard {i}: {json.dumps(by_shard.get(i))}"
+                    for i in (0, 1) if by_shard.get(i) != expect]
+        if bad:
+            raise AssertionError(f"sharded programs, {shards} shard(s): "
+                                 f"launches {bad}, each shard must launch "
+                                 f"{json.dumps(expect)}")
+        per = {i: by_shard.get(i) for i in (0, 1)}
+        say(f"[sharded] {shards} shard(s) on cuda:0: launches on the card "
+            f"{json.dumps(card)}, each shard's exactly its programs' "
+            f"{json.dumps(expect)}"
+            + (f", by shard {json.dumps(per)}" if shards == 2 else ""))
+    return by_shard
+
+
 # ---------------------------------------------------------------------------
 # Multi-process (parallel/multihost.py)
 # ---------------------------------------------------------------------------
@@ -2998,12 +3279,16 @@ def main() -> int:
         launches.update(phase_fields_main(tmp, ("mixed", "uniform4")))
         phase_fields_variants(tmp, rng)
         t_fields += time.perf_counter() - t0
-        del mixed, uniform4
         t0 = time.perf_counter()
         phase_rl_goldens(tmp)
         launches.update(phase_rl_main(tmp, rl_mixed))
-        del rl_mixed
         t_rl += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_sharded_programs({"mixed": mixed, "uniform4": uniform4,
+                                "rl_mixed": rl_mixed})
+        say(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
+        t_dist += time.perf_counter() - t0
+        del mixed, uniform4, rl_mixed
         t0 = time.perf_counter()
         dist_launches, walls = phase_dist(tmp)
         mesh_launches = phase_dist_mesh(tmp)

@@ -56,9 +56,6 @@ the card:
 * the dense arms take the production dispatch (constant probe → uniform
   probe and flag → general), and ``dense_path`` reads ``constant-wN``,
   ``uniform-wN`` or ``general``: the TPU stream plan is not ported;
-* ``sharded``: the port has no device-only sharded program, so it times
-  ``dist.compress_fl(data, group=None, device=...)`` (one rank, no process
-  group) against ``fl_torch.encode`` on the same host array;
 * ``dense_bmp`` reads the image that ``--bmp PATH`` names (``bench.py``
   reads the reference's ``sample_1280×853.bmp`` from a fixed path outside
   its checkout), and is skipped, with its reason in ``skip_reasons``,
@@ -653,31 +650,36 @@ class Bench:
             half[off:off + blk] = half[off]
         self.rl_chain("rl_half_gbps", half)
 
-    # -- one rank without a process group against the bare encode --------
+    # -- the sharded program against the bare field kernel ---------------
     def arm_sharded(self) -> None:
-        host, dev = self.host, self.dev
+        """``dist.fl_compress_sharded`` on the one-device mesh against the
+        bare ``fl_torch.encode_fields_device``, both on the words already on
+        the device, as ``bench.py``'s arm: warmed, then five interleaved
+        pairs (drift over the run hits both sides of each ratio alike).
+        ``sharded_eff`` is the median of bare over sharded, the program's
+        cost over its kernel; ``sharded_enc_gbps`` the best sharded rate."""
+        w, mesh = self.words, dist.make_mesh(1, self.dev)
 
         def bare():
-            return fl_torch.encode(host, device=dev)
+            return fl_torch.encode_fields_device(w, FRAME)
 
         def shd():
-            return dist.compress_fl(host, group=None, device=dev)
+            return dist.fl_compress_sharded([w], FRAME, mesh=mesh)
 
-        def wall(fn):
-            t0 = time.perf_counter()
-            fn()
-            return time.perf_counter() - t0
-
-        bare()
-        shd()
+        want, _ = self.timed(bare, 1, inner=2)
+        got, _ = self.timed(shd, 1, inner=2)
+        if not all(torch.equal(a, b[0]) for a, b in zip(want, got)):
+            raise AssertionError("sharded: the program's fields differ from "
+                                 "the bare kernel's")
         ratios, best = [], None
         for _ in range(5):
-            tb, tsh = wall(bare), wall(shd)
+            _, tb = self.timed(bare, 1, inner=8)
+            _, tsh = self.timed(shd, 1, inner=8)
             ratios.append(tb / tsh)
             best = tsh if best is None else min(best, tsh)
         RESULT["sharded_enc_gbps"] = self.n / 1e9 / best
         self.flag_above("sharded_enc_gbps", RESULT["sharded_enc_gbps"],
-                   HBM_GBPS / 2)
+                        HBM_GBPS / 2)
         RESULT["sharded_eff"] = float(np.median(ratios))
 
     # -- load, copy up, dense encode, copy down, save ----------------------

@@ -37,6 +37,10 @@ from .bitpack import FRAME_LENGTH
 # of the TPU's single-width kernels (1024 rows of 512 bytes).
 DENSE_UNIFORM_TILE_R = 1024
 
+# The most bytes one widths, pack or unpack launch takes (kDenseMaxBytes in
+# csrc/fl_dense.cuh; the field kernels take as many bytes of words).
+MAX_BYTES = 1 << 31
+
 # Frames one block of ``flrl_frame_offsets`` scans (kOffsetsTile in
 # csrc/fl_dense.cuh): the kernel's scratch holds a status word a tile and
 # a ticket.

@@ -7,14 +7,16 @@ kernels live in ``csrc/rl.cu``; their wrappers here are
 ``encode_chunk``    one chunk → each piece's value and count, and the
                     start of the natural run its last byte belongs to
                     (one launch, one pass over the chunk)
+``encode_device``   a whole stream → its runs, their number left on the
+                    device (the same launch, nothing read back)
 ``run_offsets``     per 4096-run tile: its output offset; the output size
                     (one launch, a single-pass look-back scan)
 ``expand``          counts + values → bytes
 ==================  =================================================
 
-The first replaces ``rl_encode_pallas`` (+ ``rl_split_packed``), the last
-two ``_decode_impl`` behind ``rl_decode_pallas`` and
-``rl_decode_packed_pallas``.
+The first two (one kernel) replace ``rl_encode_pallas`` (+
+``rl_split_packed``), the last two ``_decode_impl`` behind
+``rl_decode_pallas`` and ``rl_decode_packed_pallas``.
 
 Encode works on one chunk of the stream with a carry-in from the chunk
 before it: ``prev``, that chunk's last byte (-1 for none), and ``d0``, the
@@ -35,11 +37,14 @@ uint8/int64 tensors only.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .fl_dense_cuda import (_aligned, _check, _launch, _on_cuda, _stream,
                             count_launch, reset_table)
 
 RUN_CAP = 255
+# The most bytes one encode launch takes (kEncodeMaxBytes in csrc/rl.cuh).
+ENCODE_MAX_BYTES = 1 << 30
 # Bytes of an encode tile (kEncodeTile in csrc/rl.cuh) and runs of a decode
 # tile (kScanTile in csrc/scan.cuh).
 ENCODE_TILE = 16384
@@ -116,8 +121,12 @@ def run_offsets_ref(counts: torch.Tensor) -> torch.Tensor:
 
 def expand_ref(counts: torch.Tensor, values: torch.Tensor,
                offs: torch.Tensor, n: int) -> torch.Tensor:
-    """Each value repeated its count: u8[n]."""
-    return torch.repeat_interleave(values, counts.to(torch.int64))
+    """Each value repeated its count, the first n bytes: u8[n] (zeros past
+    the runs' end where n is larger; the kernel leaves those unwritten)."""
+    out = torch.repeat_interleave(values, counts.to(torch.int64))[:n]
+    if out.numel() < n:
+        out = torch.cat([out, out.new_zeros(n - out.numel())])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +142,20 @@ def encode_chunk(x: torch.Tensor, prev: int = -1, d0: int = 0):
     if not _on_cuda(x):
         return encode_chunk_ref(x, prev, d0)
     _aligned(x, "x")
-    n = x.numel()
-    if n == 0:
+    if x.numel() == 0:
         return encode_chunk_ref(x, prev, d0)
+    counts = torch.empty(x.numel(), dtype=torch.uint8, device=x.device)
+    values, meta = _encode(x, prev, d0, counts)
+    R, start = meta[:2].tolist()
+    return values[:R], counts[:R], -d0 if start == _NONE else start
+
+
+def _encode(x: torch.Tensor, prev: int, d0: int, counts: torch.Tensor):
+    """One ``flrl_rl_encode`` launch on ``x`` (n > 0 bytes) with the carry,
+    its counts into ``counts`` u8[n]: ``(values u8[n], meta i64)``, meta
+    holding R and the run start, nothing read back."""
+    n = x.numel()
     values = torch.empty(n, dtype=torch.uint8, device=x.device)
-    counts = torch.empty(n, dtype=torch.uint8, device=x.device)
     # R, the run start, then the tiles' status words and the ticket (the
     # launcher clears those on the stream)
     meta = torch.empty(2 + _tiles(n, ENCODE_TILE) + 1, dtype=torch.int64,
@@ -145,8 +163,31 @@ def encode_chunk(x: torch.Tensor, prev: int = -1, d0: int = 0):
     _launch("flrl_rl_encode", x.data_ptr(), n, prev, d0, values.data_ptr(),
             counts.data_ptr(), meta.data_ptr(), x.device.index, _stream(x))
     count_launch(LAUNCHES, "rl_encode", x.device)
-    R, start = meta[:2].tolist()
-    return values[:R], counts[:R], -d0 if start == _NONE else start
+    return values, meta
+
+
+def encode_device(x: torch.Tensor):
+    """``(counts u8[n], values u8[n], num_runs i64[1])`` of the whole
+    stream ``x`` u8[n] (no carry), in ``rl_jax.rl_encode_device``'s order,
+    with nothing read back from the device: the first ``num_runs`` entries
+    are the runs, the last one closed at n; ``counts`` past them are zero
+    (cleared before the launch, as the JAX package zeroes them), ``values``
+    past them unspecified.  The kernel takes at most ``ENCODE_MAX_BYTES``
+    bytes a call; more raises a ValueError."""
+    _check(x, "x", torch.uint8)
+    n = x.numel()
+    if n > ENCODE_MAX_BYTES:
+        raise ValueError(f"x: {n} bytes, more than the {ENCODE_MAX_BYTES} "
+                         "(2^30) one RL encode launch takes")
+    if not _on_cuda(x) or n == 0:
+        values, counts, _ = encode_chunk_ref(x)
+        R = counts.numel()
+        return (F.pad(counts, (0, n - R)), F.pad(values, (0, n - R)),
+                torch.tensor([R], dtype=torch.int64, device=x.device))
+    _aligned(x, "x")
+    counts = torch.zeros(n, dtype=torch.uint8, device=x.device)
+    values, meta = _encode(x, -1, 0, counts)
+    return counts, values, meta[:1]
 
 
 def run_offsets(counts: torch.Tensor) -> torch.Tensor:

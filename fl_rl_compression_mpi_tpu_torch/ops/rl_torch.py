@@ -19,6 +19,10 @@ API).  One dispatch chain serves every input size:
   of the counts, as in ``rl_jax.decode``; the container's ``input_size``
   is not consulted.
 
+:func:`encode_device` and :func:`decode_device` are the device-level
+pieces of the sharded programs (``parallel/dist.py``): a stream already on
+the device in, runs (or bytes) left on it, nothing read back.
+
 The codec has no weights: its state is the container.  Encode and decode
 read and write the same ``RLCompressed`` fields and file bytes as the JAX
 package (this package's ``container.py`` is a copy of
@@ -135,6 +139,24 @@ def encode_parts(data: np.ndarray, chunk_on_device, keep) -> list:
         prev, d0 = int(chunk[-1]), chunk.size - run_start
     parts[-1][0][-1] = open_len
     return parts
+
+
+# The device-level encode is the kernel's own wrapper: one
+# ``flrl_rl_encode`` launch with no carry, at most 2^30 bytes, the counts
+# past the runs zero, nothing read back.
+encode_device = kern.encode_device
+
+
+def decode_device(counts: torch.Tensor, values: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The n decoded bytes u8[n] of the runs ``counts``/``values`` u8[R] on
+    their device: ``flrl_rl_run_offsets`` and ``flrl_rl_expand``, nothing
+    read back.  The counterpart of ``rl_jax.rl_decode_device`` with ``n``
+    for its ``out_pad``; it takes no ``num_runs``: every run is expanded,
+    so runs past the stream's must have zero counts, as
+    ``encode_device`` leaves them.  Bytes past the runs' end, where n
+    is larger, are unspecified."""
+    return kern.expand(counts, values, kern.run_offsets(counts), n)
 
 
 def _block_ends(counts: np.ndarray) -> np.ndarray:

@@ -35,9 +35,17 @@ that group's split instead (``group``, ``device``):
 * :func:`compress_rl` / :func:`decompress_rl`: per-shard runs over the same
   plan (a run that crosses a shard boundary splits, so the container depends
   on N); decode splits the run list evenly over the shards;
-* :func:`fl_compress_sharded_dense_constant` /
-  :func:`fl_decompress_sharded_dense_constant`: the device-resident
-  constant-stream programs, every shard's flag gathered.
+* the device-resident programs, named as the JAX package's sharded
+  programs (:func:`shard_host_data` puts each shard on its device): the
+  field encode and decode (:func:`fl_compress_sharded`,
+  :func:`fl_decompress_sharded`, and :func:`fl_compress_merged`, which
+  gathers every shard's widths and fields onto every device), the dense,
+  single-width and constant encodes and decodes
+  (:func:`fl_compress_sharded_dense` …, :func:`fl_compress_merged_dense`,
+  the container gathered onto every device) and the RL encode and decode
+  (:func:`rl_compress_sharded`, :func:`rl_decompress_sharded`): results
+  stay on the devices, and only the merged dense program reads anything
+  back (its payload sizes, once).
 
 The host closed forms (empty and constant containers, the all-8 decode) run
 once, on the host, before any device.  A mesh of one device runs in the
@@ -56,7 +64,9 @@ of the package calls it.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import math
 import os
 import tempfile
 from typing import Callable, NamedTuple, Sequence
@@ -68,7 +78,7 @@ from torch.multiprocessing.spawn import ProcessException
 
 from ..container import FLCompressed, RLCompressed
 from ..ops import fl_constant_cuda as ckern
-from ..ops import fl_dense_cuda, fl_torch, rl_torch
+from ..ops import fl_dense_cuda, fl_torch, rl_cuda, rl_torch
 from ..ops.bitpack import FRAME_LENGTH
 from ..utils import constant_byte_probe
 from ..utils.timers import card_scope, stage
@@ -79,6 +89,17 @@ class ShardPlan(NamedTuple):
     reference's ``loadFileMpi`` split, ``file_io.cu:46-51``)."""
     num_shards: int
     ns: np.ndarray           # i64[num_shards] bytes per shard
+    frame_length: int = FRAME_LENGTH
+
+    @property
+    def shard_npad(self) -> int:
+        """Bytes of every shard's buffer on its device
+        (:func:`shard_host_data`): the largest shard rounded up to whole
+        frames and to 16 bytes, the alignment the kernels' wrappers check;
+        at least one such unit.  The JAX package's also rounds up to its
+        compile-cache bucket and its TPU tiles, which change no output."""
+        unit = math.lcm(self.frame_length, 16)
+        return max(1, -(-int(self.ns.max()) // unit)) * unit
 
     @property
     def starts(self) -> np.ndarray:
@@ -99,7 +120,7 @@ def plan_shards(total: int, num_shards: int,
     chunk = (total // (frame_length * num_shards)) * frame_length
     ns = np.full(num_shards, chunk, np.int64)
     ns[-1] = total - chunk * (num_shards - 1)
-    return ShardPlan(num_shards, ns)
+    return ShardPlan(num_shards, ns, frame_length)
 
 
 # ---------------------------------------------------------------------------
@@ -512,22 +533,15 @@ def decompress_rl(comp, *, group=None, device=None,
 
 
 # ---------------------------------------------------------------------------
-# Device-resident constant-stream programs
+# Device-resident programs: the mesh's launches, the constant streams
 # ---------------------------------------------------------------------------
-
-def _all_gather_flag(flag: torch.Tensor, group) -> torch.Tensor:
-    """i32[world]: every rank's flag, in rank order."""
-    _, world = _rank_world(group)
-    t = flag.to(comm_device(group))
-    out = [torch.empty_like(t) for _ in range(world)]
-    dist.all_gather(out, t, group=group)
-    return torch.cat(out)
-
 
 def _each_card(mesh: Mesh, tensors: Sequence[torch.Tensor],
                launch: Callable) -> list:
     """``launch(i, tensors[i])`` for every shard i, from this thread, each
-    under its card as the current device: the launches are asynchronous,
+    under its card as the current device and, on a mesh of two or more,
+    tagged as shard i (``card_scope``: its launches counted by shard, as a
+    mesh's per-card threads count theirs).  The launches are asynchronous,
     so the cards run them together."""
     if len(tensors) != len(mesh):
         raise ValueError(f"{len(tensors)} shards for a mesh of {len(mesh)} "
@@ -537,17 +551,21 @@ def _each_card(mesh: Mesh, tensors: Sequence[torch.Tensor],
         if t.device != dev:
             raise ValueError(f"shard {i} lies on {t.device}, not on the "
                              f"mesh's {dev}")
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                outs.append(launch(i, t))
-        else:
+        scope = (card_scope(i) if len(mesh) > 1
+                 else contextlib.nullcontext())
+        with scope, (torch.cuda.device(dev) if dev.type == "cuda"
+                     else contextlib.nullcontext()):
             outs.append(launch(i, t))
     return outs
 
 
-def _mesh_flags(mesh: Mesh, flags: list) -> torch.Tensor:
-    """i32[N]: every shard's flag, in shard order, on ``mesh[0]``."""
-    return torch.cat([f.to(mesh[0]) for f in flags])
+def _flags(mesh: Mesh | None, flag, group) -> torch.Tensor:
+    """i32[N]: every shard's flag, in shard order: on ``mesh[0]`` with a
+    mesh (``flag`` a list, one a shard), on every rank of a group; a lone
+    shard with no group: its own."""
+    if mesh is not None:
+        return torch.cat([f.to(mesh[0]) for f in flag])
+    return _all_gather_rows(flag, group).reshape(-1)
 
 
 def fl_compress_sharded_dense_constant(shard, cbyte: int, fb: int, *,
@@ -564,14 +582,9 @@ def fl_compress_sharded_dense_constant(shard, cbyte: int, fb: int, *,
     shard means the outputs are junk and the caller re-runs the uniform or
     general encode (``compress_fl``).  The host API takes the closed form
     instead; this is the device-resident pipeline's path."""
-    if mesh is not None:
-        outs = _each_card(mesh, shard,
-                          lambda _, x: ckern.encode_constant(x, cbyte, fb))
-        return ([o[0] for o in outs], [o[1] for o in outs],
-                _mesh_flags(mesh, [o[2] for o in outs]))
-    bits, values, flag = ckern.encode_constant(shard, cbyte, fb)
-    return bits, values, (flag if _no_group(group) else
-                          _all_gather_flag(flag, group))
+    bits, values, flag = _sharded(
+        mesh, shard, lambda _, x: ckern.encode_constant(x, cbyte, fb))
+    return bits, values, _flags(mesh, flag, group)
 
 
 def fl_decompress_sharded_dense_constant(values, values_size, n,
@@ -584,13 +597,329 @@ def fl_decompress_sharded_dense_constant(values, values_size, n,
     ``cbyte``; with ``mesh``, ``values``, ``values_size`` and ``n`` are
     sequences, one entry a shard.  Returns ``(out, flags)``, ``out`` a list
     with ``mesh``, the flags as on encode."""
+    out, flag = _sharded(
+        mesh, values, lambda _, v, size, m: ckern.decode_constant(
+            v, size, cbyte, fb, m), values_size, n)
+    return out, _flags(mesh, flag, group)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident sharded programs
+# ---------------------------------------------------------------------------
+#
+# The JAX package's ``shard_map`` programs: arrays already on the devices,
+# shard by shard, in; results left there.  Here a shard is a tensor on its
+# device: with ``mesh``, a sequence of them (shard i on ``mesh[i]``), the
+# launches going out from this thread, and results come back as lists in
+# the same layout; on a process group, a rank passes its own tensor and
+# gets its own results.  Only the programs that gather (the merged ones,
+# and the flags of the single-width and constant encodes) take ``group``;
+# the others work on the rank's own tensor alone.  Sizes are host ints: a
+# sequence, one a shard, with ``mesh``; this rank's own on a group.  Widths
+# are u8[F] and offsets i64[F+1], as in ``fl_dense_cuda``.  Not ported, as
+# TPU mechanisms: the stream plan (``wmin``/``route_nbits``), the tiles
+# (``tile_r``/``nref``), ``prep_decode_bits``'s widths layout and the
+# compile-cache bucket ``_GATHER_ROW_BUCKET``.  A shard above a kernel's
+# limit raises: a device-resident shard has no chunk walk.
+
+def make_local_mesh(num_devices: int | None = None,
+                    device: str | torch.device | None = None
+                    ) -> tuple[torch.device, ...]:
+    """The devices this process drives (the JAX package's
+    ``make_local_mesh``): under a process group, its rank's card
+    (``multihost.local_device``), or ``device``; otherwise
+    :func:`make_mesh`.  A rank on a machine with no card must name its
+    ``device``."""
+    if _no_group(None):
+        return make_mesh(num_devices, device)
+    if num_devices not in (None, 1):
+        raise ValueError(f"devices={num_devices}: a rank of a process group "
+                         "drives one device")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_local_mesh: no CUDA device for this "
+                               "rank; pass device= (e.g. 'cpu')")
+        from .multihost import local_device
+        device = local_device(dist.get_rank())
+    return (torch.device(device),)
+
+
+def shard_host_data(data, plan: ShardPlan, mesh: Mesh | None = None,
+                    device=None, *, group=None):
+    """``data``'s shards on their devices, each u8[``plan.shard_npad``]: the
+    shard's bytes, then zeros (the field kernel reads its words to the
+    buffer's end).  With ``mesh``, a list, shard i on ``mesh[i]``; else this
+    rank's shard of ``group`` (or of the default group) on ``device``."""
+    data = np.asarray(data, np.uint8).reshape(-1)
+    npad = plan.shard_npad
+
+    def up(i: int, dev) -> torch.Tensor:
+        t = torch.zeros(npad, dtype=torch.uint8, device=dev)
+        t[:int(plan.ns[i])].copy_(fl_torch._host_tensor(plan.shard(data, i)))
+        return t
+
     if mesh is not None:
-        outs = _each_card(mesh, values, lambda i, v: ckern.decode_constant(
-            v, values_size[i], cbyte, fb, n[i]))
-        return [o[0] for o in outs], _mesh_flags(mesh, [o[1] for o in outs])
-    out, flag = ckern.decode_constant(values, values_size, cbyte, fb, n)
-    return out, (flag if _no_group(group) else
-                 _all_gather_flag(flag, group))
+        if len(mesh) != plan.num_shards:
+            raise ValueError(f"a plan of {plan.num_shards} shards for a mesh "
+                             f"of {len(mesh)} devices")
+        return [up(i, dev) for i, dev in enumerate(mesh)]
+    if device is None:
+        raise ValueError("give mesh= or device= (this rank's device)")
+    rank, world = _rank_world(group)
+    if world != plan.num_shards:
+        raise ValueError(f"a plan of {plan.num_shards} shards for a group of "
+                         f"{world} ranks")
+    return up(rank, device)
+
+
+def _sharded(mesh: Mesh | None, shard, launch: Callable, *args):
+    """``launch(i, t, *a)`` on each shard ``t`` (i its index, ``a`` its
+    entries of ``args``).  With ``mesh``, ``shard`` and every entry of
+    ``args`` are sequences, one entry a shard, and each output comes back as
+    a list; else it is this rank's, and so are its outputs."""
+    if mesh is None:
+        return launch(None, shard, *args)
+    outs = _each_card(mesh, shard,
+                      lambda i, t: launch(i, t, *(a[i] for a in args)))
+    if isinstance(outs[0], tuple):
+        return tuple(list(o) for o in zip(*outs))
+    return outs
+
+
+def _within(i, nbytes: int, limit: int, kernel: str) -> None:
+    if nbytes > limit:
+        where = "this rank's shard" if i is None else f"shard {i}"
+        raise ValueError(f"{where}: {nbytes} bytes, "
+                         f"more than the {limit} (2^{limit.bit_length() - 1})"
+                         f" bytes one {kernel} launch takes; a "
+                         "device-resident shard has no chunk walk")
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The shard's buffer as ``dtype`` (u8 bytes or their int32 view)."""
+    return t if t.dtype == dtype else t.view(dtype)
+
+
+def _concat_on(mesh: Mesh, parts: list, sizes) -> list:
+    """The first ``sizes[j]`` elements of each of ``parts`` (1-D, shard j's
+    on ``mesh[j]``), concatenated in shard order on every device of the
+    mesh: entry d on ``mesh[d]``, copied card to card.  A copy between
+    cards is ordered against both cards' current streams, where
+    ``_each_card`` launched."""
+    bounds = np.cumsum([0] + [int(x) for x in sizes])
+    out = []
+    for dev in mesh:
+        g = torch.empty(int(bounds[-1]), dtype=parts[0].dtype, device=dev)
+        for j, p in enumerate(parts):
+            g[bounds[j]:bounds[j + 1]].copy_(p[:bounds[j + 1] - bounds[j]])
+        out.append(g)
+    return out
+
+
+def _all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """[world, *t.shape]: every rank's ``t`` (one shape on every rank), in
+    rank order, on ``t``'s device; a lone shard with no group: its own."""
+    if _no_group(group):
+        return t.unsqueeze(0)
+    _, world = _rank_world(group)
+    c = t.to(comm_device(group))
+    out = [torch.empty_like(c) for _ in range(world)]
+    dist.all_gather(out, c, group=group)
+    return torch.stack(out).to(t.device)
+
+
+def _all_gather_concat(t: torch.Tensor, sizes, group) -> torch.Tensor:
+    """Every rank's 1-D ``t`` (rank r's first ``sizes[r]`` elements),
+    concatenated in rank order on ``t``'s device: one all-gather of each
+    padded to the largest, the reference's max-padded ``ncclAllGather``
+    (``fl_gpu.cu:144-194``), then compacted on the device."""
+    width = int(max(sizes))
+    if _no_group(group) or width == 0:
+        return t[:int(sizes[0])].clone()
+    rank, _ = _rank_world(group)
+    buf = torch.zeros(width, dtype=t.dtype, device=comm_device(group))
+    buf[:int(sizes[rank])].copy_(t[:int(sizes[rank])])
+    rows = _all_gather_rows(buf, group)
+    return torch.cat([r[:int(n)] for r, n in zip(rows, sizes)]).to(t.device)
+
+
+def fl_compress_sharded(shard, frame_length: int = FRAME_LENGTH, *,
+                        mesh: Mesh | None = None):
+    """Per-shard field encode (TPU kernel #7 on every shard; the JAX
+    ``fl_compress_sharded``, ``parallel/dist.py:153``): ``shard`` is a
+    buffer of :func:`shard_host_data` (u8, or its int32 view).  Returns
+    ``(bits u8[F_pad], fields int32[NW])`` per shard, F_pad the buffer's
+    frames, nothing read back.  The JAX program also takes ``ns`` for the
+    kernel's tail mask; the field kernel here has none and reads the zeros
+    past each shard's bytes instead, so it takes no sizes."""
+    def encode(i, t):
+        _within(i, t.numel() * t.element_size(), fl_dense_cuda.MAX_BYTES,
+                "field encode")
+        return fl_torch.encode_fields_device(_as(t, torch.int32),
+                                             frame_length)
+    return _sharded(mesh, shard, encode)
+
+
+def fl_decompress_sharded(fields, bits, frame_length: int = FRAME_LENGTH, *,
+                          mesh: Mesh | None = None):
+    """Per-shard field decode (TPU kernel #8 on every shard; JAX
+    ``parallel/dist.py:447``): each shard's ``fields`` int32[NW] and widths
+    ``bits`` u8[F_pad] (:func:`fl_compress_sharded`'s) → its u8[NW·4]
+    buffer, the shard's bytes first; bytes past them are unspecified (the
+    JAX program zeroes them from its ``ns``).  Nothing is read back."""
+    def decode(i, f, b):
+        _within(i, f.numel() * 4, fl_dense_cuda.MAX_BYTES, "field decode")
+        return fl_torch.decode_fields_device(f, b, frame_length).view(
+            torch.uint8)
+    return _sharded(mesh, fields, decode, bits)
+
+
+def fl_compress_merged(shard, frame_length: int = FRAME_LENGTH, *,
+                       group=None, mesh: Mesh | None = None):
+    """:func:`fl_compress_sharded`, then every shard's widths and fields in
+    shard order on every device, as the JAX program's replicated
+    ``all_gather`` (``parallel/dist.py:396``): ``(bits u8[N, F_pad], fields
+    int32[N, NW])``.  With ``mesh``, a list of each, entry d on ``mesh[d]``
+    (card-to-card copies); on a group, this rank's, all-gathered."""
+    bits, fields = fl_compress_sharded(shard, frame_length, mesh=mesh)
+    if mesh is None:
+        return _all_gather_rows(bits, group), _all_gather_rows(fields, group)
+    return tuple([g.view(len(mesh), -1) for g in _concat_on(
+        mesh, parts, [p.numel() for p in parts])] for parts in (bits, fields))
+
+
+def _dense_encode(i, t: torch.Tensor, n: int, L: int):
+    """The general dense encode of the shard's first n bytes: widths,
+    offsets and the pack into a buffer of the shard's size, its payload's
+    size left on the device."""
+    x = _as(t, torch.uint8)
+    _within(i, n, fl_dense_cuda.MAX_BYTES, "dense")
+    bits, _ = fl_dense_cuda.frame_widths(x[:n], L)
+    offs = fl_dense_cuda.frame_offsets(bits, n, L)
+    dense = fl_dense_cuda.pack(x[:n], L, bits=bits, offs=offs,
+                               size=max(n, x.numel()))
+    return bits, dense, offs[-1:]
+
+
+def fl_compress_sharded_dense(shard, ns, frame_length: int = FRAME_LENGTH,
+                              *, mesh: Mesh | None = None):
+    """Per-shard dense encode (TPU kernel #1 on every shard; JAX
+    ``parallel/dist.py:189``): ``frame_widths``, ``frame_offsets`` and the
+    general ``pack`` of each shard's first ``ns`` bytes, on its device.
+    Returns ``(bits u8[F], dense u8[shard_npad], totals i64[1])`` per shard:
+    its widths, its buffer with the payload first and its payload's size,
+    nothing read back.  The JAX program takes frame counts and packs whole
+    frames; the kernels here place a partial last frame exactly, so the
+    widths and payload prefixes, in shard order, are the container's."""
+    return _sharded(mesh, shard,
+                    lambda i, t, n: _dense_encode(i, t, int(n), frame_length),
+                    ns)
+
+
+def fl_decompress_sharded_dense(dense, bits, ns,
+                                frame_length: int = FRAME_LENGTH, *,
+                                mesh: Mesh | None = None):
+    """Per-shard dense decode (TPU kernel #2 on every shard; JAX
+    ``parallel/dist.py:419``): each shard's payload ``dense`` (at least its
+    payload's bytes), its widths ``bits`` (at least its frames') and its
+    size ``ns``: the offsets computed on the device, then ``unpack`` →
+    u8[ns].  Nothing is read back."""
+    def decode(i, v, b, n):
+        n = int(n)
+        _within(i, n, fl_dense_cuda.MAX_BYTES, "dense")
+        b = b[:-(-n // frame_length)]
+        offs = fl_dense_cuda.frame_offsets(b, n, frame_length)
+        return fl_dense_cuda.unpack(v, n, frame_length, bits=b, offs=offs)
+    return _sharded(mesh, dense, decode, bits, ns)
+
+
+def fl_compress_sharded_dense_uniform(shard, ns, fb: int,
+                                      frame_length: int = FRAME_LENGTH, *,
+                                      group=None, mesh: Mesh | None = None):
+    """Per-shard single-width dense encode (TPU kernel #3 on every shard;
+    JAX ``parallel/dist.py:226``), speculated at width ``fb``: the widths
+    of each shard's first ``ns`` bytes with the flag of any other width,
+    and the uniform ``pack``.  Returns ``(bits u8[F], dense, flags)``: per
+    shard its widths and payload, and ``flags`` i32[N], every shard's flag
+    in order, gathered as the constant programs gather theirs.  A nonzero
+    flag means that shard's payload is junk; the caller re-runs
+    :func:`fl_compress_sharded_dense`."""
+    def encode(i, t, n):
+        n = int(n)
+        x = _as(t, torch.uint8)[:n]
+        _within(i, n, fl_dense_cuda.MAX_BYTES, "dense")
+        bits, flag = fl_dense_cuda.frame_widths(x, frame_length,
+                                                fb_expect=fb)
+        return bits, fl_dense_cuda.pack(x, frame_length, fb=fb), flag
+
+    bits, dense, flag = _sharded(mesh, shard, encode, ns)
+    return bits, dense, _flags(mesh, flag, group)
+
+
+def fl_decompress_sharded_dense_uniform(dense, ns, fb: int,
+                                        frame_length: int = FRAME_LENGTH, *,
+                                        mesh: Mesh | None = None):
+    """Per-shard single-width dense decode (TPU kernel #4 on every shard;
+    JAX ``parallel/dist.py:254``): each shard's payload at width ``fb`` →
+    u8[ns].  Exact: the caller knows every width is fb.  Nothing is read
+    back."""
+    def decode(i, v, n):
+        n = int(n)
+        _within(i, n, fl_dense_cuda.MAX_BYTES, "dense")
+        return fl_dense_cuda.unpack(v, n, frame_length, fb=fb)
+    return _sharded(mesh, dense, decode, ns)
+
+
+def fl_compress_merged_dense(shard, ns, frame_length: int = FRAME_LENGTH, *,
+                             group=None, mesh: Mesh | None = None):
+    """:func:`fl_compress_sharded_dense`, then the container on every
+    device (JAX ``parallel/dist.py:348``), in two steps: the widths and the
+    payload sizes (small) gathered, the sizes read to the host once, then
+    only each shard's exact payload gathered.  Returns ``(bits u8[F], values
+    u8[V], totals i64[N])``: every shard's widths and payload concatenated
+    in shard order, which is the whole stream's container (shard boundaries
+    are frame-aligned), and each shard's payload size.  With ``mesh``, a
+    list of each, entry d on ``mesh[d]`` (card-to-card copies); on a group,
+    on this rank's device (all-gathers padded to the largest rank's)."""
+    bits, dense, totals = fl_compress_sharded_dense(shard, ns, frame_length,
+                                                    mesh=mesh)
+    if mesh is not None:
+        sizes = torch.cat([t.to(mesh[0]) for t in totals]).tolist()
+        return (_concat_on(mesh, bits, [b.numel() for b in bits]),
+                _concat_on(mesh, dense, sizes),
+                [torch.tensor(sizes, dtype=torch.int64, device=dev)
+                 for dev in mesh])
+    sizes = _all_gather_ints([bits.numel(), int(totals[0])], group)
+    return (_all_gather_concat(bits, sizes[:, 0], group),
+            _all_gather_concat(dense, sizes[:, 1], group),
+            torch.as_tensor(sizes[:, 1], device=dense.device))
+
+
+def rl_compress_sharded(shard, ns, *, mesh: Mesh | None = None):
+    """Per-shard RL encode (TPU kernel #11 on every shard; JAX
+    ``parallel/dist.py:475``): ``rl_torch.encode_device`` of each shard's
+    first ``ns`` bytes → ``(counts u8[ns], values u8[ns], num_runs
+    i64[1])`` per shard, nothing read back.  A run that crosses a shard
+    boundary splits, as in the JAX package, so the first ``num_runs`` runs
+    of each shard, concatenated, are its container at the same N."""
+    def encode(i, t, n):
+        n = int(n)
+        _within(i, n, rl_cuda.ENCODE_MAX_BYTES, "RL encode")
+        return rl_torch.encode_device(_as(t, torch.uint8)[:n])
+    return _sharded(mesh, shard, encode, ns)
+
+
+def rl_decompress_sharded(counts, values, ns, *,
+                          mesh: Mesh | None = None):
+    """Per-shard RL decode (TPU kernel #12 on every shard; JAX
+    ``parallel/dist.py:498``): ``rl_torch.decode_device`` of each shard's
+    runs → its u8[ns] (the JAX program's static ``out_pad`` is a
+    compile-cache shape; its ``nrs`` are not needed, since the counts past
+    a shard's runs are zero, as :func:`rl_compress_sharded` leaves them).
+    Nothing is read back."""
+    return _sharded(mesh, counts,
+                    lambda i, c, v, n: rl_torch.decode_device(c, v, int(n)),
+                    values, ns)
 
 
 # ---------------------------------------------------------------------------

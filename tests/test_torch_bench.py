@@ -174,7 +174,7 @@ def test_a_failed_arm_makes_the_exit_code_nonzero(monkeypatch, fault):
             monkeypatch.setattr(bench.Bench, f"arm_{name}",
                                 lambda self: None)
     if fault == "raises":
-        monkeypatch.setattr(bench.dist, "compress_fl", boom)
+        monkeypatch.setattr(bench.dist, "fl_compress_sharded", boom)
     else:
         monkeypatch.setattr(bench, "constant_step",
                             lambda cbyte, fb, n: lambda x: x + 1)
@@ -184,6 +184,42 @@ def test_a_failed_arm_makes_the_exit_code_nonzero(monkeypatch, fault):
         assert lines[-1]["sharded_error"] == "RuntimeError"
     else:
         assert lines[-1]["dense_ok_zeros"] is False
+
+
+def test_sharded_arm_times_the_program_against_the_bare_kernel(
+        monkeypatch):
+    """As ``bench.py``'s arm: ``dist.fl_compress_sharded`` on the
+    one-device mesh against ``fl_torch.encode_fields_device``, both on the
+    words already on the device (no host array, no host-to-host walk), and
+    ``sharded_enc_gbps`` and ``sharded_eff`` from that run."""
+    seen = []
+
+    def spy(name, fn):
+        def call(x, *args, **kwargs):
+            t = x[0] if isinstance(x, list) else x
+            seen.append((name, t.data_ptr(), kwargs.get("mesh")))
+            return fn(x, *args, **kwargs)
+        return call
+
+    for name in ARMS:
+        if name != "sharded":
+            monkeypatch.setattr(bench.Bench, f"arm_{name}",
+                                lambda self: None)
+    monkeypatch.setattr(bench.dist, "fl_compress_sharded",
+                        spy("sharded", bench.dist.fl_compress_sharded))
+    monkeypatch.setattr(bench.fl_torch, "encode_fields_device",
+                        spy("bare", fl_torch.encode_fields_device))
+    for host_path in ("compress_fl", "compress_fl_ici"):
+        monkeypatch.setattr(bench.dist, host_path, None)
+    rc, lines = _port(BASE)
+    rec = lines[-1]
+    assert rc == 0 and "sharded_error" not in rec
+    assert rec["sharded_enc_gbps"] > 0 and rec["sharded_eff"] > 0
+    shd = {(ptr, mesh) for name, ptr, mesh in seen if name == "sharded"}
+    bare = {ptr for name, ptr, _ in seen if name == "bare"}
+    assert len(shd) == 1
+    (ptr, mesh), = shd
+    assert ptr in bare and mesh == (torch.device("cpu"),)
 
 
 def test_without_a_card_it_fails_and_prints_nothing(monkeypatch, capsys):

@@ -162,3 +162,53 @@ def _broadcast_rl(comp, group):
     torch.distributed.broadcast_object_list(
         box, src=dist._global_rank(group, 0), group=group)
     return RLCompressed(*box[0])
+
+
+def sharded_inputs():
+    """(name, data) of the device-resident programs' group cases: a stream
+    of width-4 frames ending mid-frame, frames of random widths, and one
+    with fewer bytes than L·N (every shard but the last empty)."""
+    g = np.random.default_rng(2026)
+    return [("w4", g.integers(0, 16, 128 * 40 + 77, np.uint8)),
+            ("mixed", _widths_stream(g, 128 * 33 + 5, 128, 8)),
+            ("tiny", g.integers(0, 256, 100, np.uint8))]
+
+
+def sharded_programs(*, group=None, device):
+    """The device-resident programs on this rank's shard of each
+    ``sharded_inputs`` stream; rank 0 returns, by name, its gathered
+    results (the merged programs', the uniform flags, and whether every
+    rank holds the same), and every rank's decodes and runs,
+    concatenated; under "local mesh", what ``make_local_mesh`` gives or
+    raises on this rank without a device."""
+    rank, world = dist._rank_world(group)
+    if dist.make_local_mesh(device=device) != (torch.device(device),):
+        raise AssertionError("make_local_mesh: not this rank's device")
+    try:
+        local = repr(dist.make_local_mesh())
+    except RuntimeError as e:
+        local = f"RuntimeError: {e}"
+    out = {"local mesh": local}
+    for name, data in sharded_inputs():
+        plan = dist.plan_shards(data.size, world)
+        n = int(plan.ns[rank])
+        x = dist.shard_host_data(data, plan, device=device, group=group)
+        bits_g, fields_g = dist.fl_compress_merged(x, group=group)
+        merged = dist.fl_compress_merged_dense(x, n, group=group)
+        bits, fields = dist.fl_compress_sharded(x)
+        back = dist.fl_decompress_sharded(fields, bits)[:n]
+        dbits, dense, _ = dist.fl_compress_sharded_dense(x, n)
+        dback = dist.fl_decompress_sharded_dense(dense, dbits, n)
+        _, _, flags = dist.fl_compress_sharded_dense_uniform(x, n, 4,
+                                                             group=group)
+        counts, values, runs = dist.rl_compress_sharded(x, n)
+        rback = dist.rl_decompress_sharded(counts, values, n)
+        r = int(runs[0])
+        gathered = [t.cpu().numpy() for t in (bits_g, fields_g, *merged,
+                                              flags)]
+        same = _same_everywhere(gathered, group)
+        mine = _gathered([t.cpu().numpy() for t in (
+            back, dback, rback, counts[:r], values[:r])], group)
+        if rank == 0:
+            out[name] = (gathered, same, mine)
+    return out if rank == 0 else None
