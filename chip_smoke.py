@@ -197,6 +197,21 @@ Phases, each printing a line and failing the run on any error:
               L = 128 in both modes, and the refusals past 2^31 bytes and
               of a misaligned view; each against its plain version, byte
               for byte, drawn from generators of their own.
+10. lanes   — the flat-tile primitives (csrc/lanes.cu, flrl_tile_op), last:
+              the nine functions tests/test_lanes.py drives through its
+              Pallas harness, each once on one (8, 128) tile with that
+              file's seeds, against NumPy, the counts set to 0 just before
+              (9 launches: the kernel's path); then every op at rows 8, 64
+              and 256 over 1 and 4096 tiles, twenty calls a case on reused
+              memory (static shifts from 0 to past the tile, dynamic ones
+              under set_sync_debug_mode("error") with m from 0 to N - 1,
+              prefix sums that wrap, routes that drop words at the tile's
+              edge and keep dist bits above nbits), element for element
+              against the plain versions, from a generator of their own
+              (SEED + 10); then each op on 2^14 tiles of 8 rows (64 MiB in;
+              the shifts by 129) both ways beside its bound, and torch.cumsum(..., dtype=
+              torch.int32) beside the prefix sum, whose times fill the
+              kernel's row (every op's under its "ops" key).
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -235,6 +250,7 @@ from fl_rl_compression_mpi_tpu_torch.ops import fl_constant_cuda as ck
 from fl_rl_compression_mpi_tpu_torch.ops import fl_dense_cuda as k
 from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
+from fl_rl_compression_mpi_tpu_torch.ops import lanes_cuda as lk
 from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
 from fl_rl_compression_mpi_tpu_torch.utils.timers import set_stage_timers
@@ -277,13 +293,16 @@ CONST_REPLACES = {
 }
 COPY_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/copy_probe.cu"
 COPY_REPLACES = {"copy_probe": "bench.py:421"}
+LANES_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/lanes.cu"
+LANES_REPLACES = {"tile_op": "tests/test_lanes.py:27"}
 SOURCES = {**{name: SOURCE for name in REPLACES},
            **{name: FIELDS_SOURCE for name in FIELDS_REPLACES},
            **{name: RL_SOURCE for name in RL_REPLACES},
            **{name: CONST_SOURCE for name in CONST_REPLACES},
-           **{name: COPY_SOURCE for name in COPY_REPLACES}}
+           **{name: COPY_SOURCE for name in COPY_REPLACES},
+           **{name: LANES_SOURCE for name in LANES_REPLACES}}
 ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES,
-                **CONST_REPLACES, **COPY_REPLACES}
+                **CONST_REPLACES, **COPY_REPLACES, **LANES_REPLACES}
 MAX_ERR = {name: 0 for name in ALL_REPLACES}
 # Bytes each timed kernel call must move (every input read once, every
 # output written once), and the time of one PyTorch call that computes the
@@ -2208,13 +2227,13 @@ DIST_EXPECT = {
 
 
 def reset_all_launches() -> None:
-    for mod in (k, fk, rk, ck, cpk):
+    for mod in (k, fk, rk, ck, cpk, lk):
         mod.reset_launches()
 
 
 def all_launches() -> dict:
     return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES,
-            **cpk.LAUNCHES}
+            **cpk.LAUNCHES, **lk.LAUNCHES}
 
 
 def cli_process_walls(tmp: str) -> dict:
@@ -3173,6 +3192,263 @@ def phase_bench() -> dict:
     return counts[-1]
 
 
+# ---------------------------------------------------------------------------
+# Flat-tile primitives (csrc/lanes.cu)
+# ---------------------------------------------------------------------------
+
+LANES_ROWS = (8, 64, 256)
+LANES_TILE_COUNTS = (1, 4096)
+LANES_CALLS = 20                   # calls a case, on reused memory
+LANES_TIMED_TILES = 1 << 14        # 8-row tiles: 64 MiB of int32 in
+LANES_TIMED_M = 129
+LANES_OPS_MS: dict = {}            # op -> its times on the timed tiles
+# the harness's first seven calls, in order (lanes_harness)
+OPS_HARNESS = ("shift_down", "shift_up", "shift_up_dyn", "shift_down_dyn",
+               "prefix_max", "prefix_sum", "suffix_min")
+
+
+def lanes_harness() -> int:
+    """The path ``flrl_tile_op`` serves: the nine functions that
+    tests/test_lanes.py drives through its Pallas harness, each once
+    through its wrapper on one (8, 128) tile on the card, with that file's
+    seeds and one of its parameters each, held against NumPy as that file
+    holds them.  The counts are set to 0 just before and read just after;
+    returns the launches."""
+    N = 8 * 128
+
+    def tile(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64).astype(np.int32)
+                                ).reshape(8, 128).to(DEVICE)
+
+    def rng(seed: int):
+        return np.random.default_rng(seed)
+
+    x1 = rng(1).integers(0, 1 << 20, N)
+    x2 = rng(2).integers(0, 1 << 20, N)
+    x3 = rng(3).integers(0, 1 << 20, N)
+    xmax = rng(3).integers(-1000, 1000, N)
+    xsum = rng(4).integers(0, 100, N)
+    xmin = rng(5).integers(-1000, 1000, N)
+    g = rng(7)
+    keep = g.random(N) < 0.3
+    keep[0] = True
+    cpay = g.integers(0, 1 << 16, N)
+    cdist = np.where(keep, np.arange(N) - (np.cumsum(keep) - 1), 0)
+    g = rng(11)
+    targets = np.sort(g.choice(N, 300, replace=False))
+    epay = g.integers(0, 1 << 16, N)
+    edist = np.zeros(N, np.int64)
+    edist[:300] = targets - np.arange(300)
+    elive = np.arange(N) < 300
+    m_dev = torch.tensor([129], dtype=torch.int32, device=DEVICE)
+    inputs = [tile(a) for a in (x1, x2, x3, xmax, xsum, xmin)]
+    cw = lk.pack_route(tile(keep) != 0, tile(cdist), tile(cpay))
+    ew = lk.pack_route(tile(elive) != 0, tile(edist), tile(epay))
+    torch.cuda.synchronize()
+    lk.reset_launches()
+    outs = [lk.flat_shift_down(inputs[0], 4, -7),
+            lk.flat_shift_up(inputs[1], 384, -3),
+            lk.flat_shift_up_dyn(inputs[2], m_dev, -3),
+            lk.flat_shift_down_dyn(inputs[2], m_dev, -7),
+            lk.prefix_max_flat(inputs[3]), lk.prefix_sum_flat(inputs[4]),
+            lk.suffix_min_flat(inputs[5]), lk.compact_lsb(cw, 10),
+            lk.expand_msb(ew, 10)]
+    launches = lk.LAUNCHES["tile_op"]
+    got = [o.cpu().numpy().reshape(-1).astype(np.int64) for o in outs]
+    want = [np.concatenate([x1[4:], np.full(4, -7)]),
+            np.concatenate([np.full(384, -3), x2[:N - 384]]),
+            np.concatenate([np.full(129, -3), x3[:N - 129]]),
+            np.concatenate([x3[129:], np.full(129, -7)]),
+            np.maximum.accumulate(xmax), np.cumsum(xsum),
+            np.minimum.accumulate(xmin[::-1])[::-1]]
+    for name, a, b in zip(OPS_HARNESS, got, want):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"lanes harness: {name} differs from NumPy")
+    K = int(keep.sum())
+    c = got[7]
+    if not (np.array_equal(c[:K] & 0xFFFF, cpay[keep]) and (c[:K] < 0).all()
+            and (c[K:] >= 0).all()):
+        raise AssertionError("lanes harness: compact differs from NumPy")
+    e = got[8]
+    if not (np.array_equal(e[targets] & 0xFFFF, epay[:300])
+            and np.array_equal(np.flatnonzero(e < 0), targets)):
+        raise AssertionError("lanes harness: expand differs from NumPy")
+    return launches
+
+
+def lanes_words(gen, tiles: int, rows: int) -> torch.Tensor:
+    return torch.randint(-(1 << 31), 1 << 31, (tiles, rows, 128),
+                         generator=gen, dtype=torch.int64,
+                         device=DEVICE).to(torch.int32)
+
+
+def lanes_nbits(rows: int) -> int:
+    """One bit more than a tile's distances need, up to the cap."""
+    return min(lk.MAX_NBITS, (rows * 128).bit_length())
+
+
+def lanes_routes(gen, tiles: int, rows: int) -> tuple:
+    """Route words on the routes' domain, ``(compact input, expand input,
+    nbits)``: each tile at a density of its own; compaction distances
+    p − (live words before p) and expansion distances target − i, each
+    plus an offset of 0..7 a tile, so that the first (last) words leave
+    the tile, where nbits leaves the room; random bits above nbits in the
+    dist field (which the routes keep); random payloads."""
+    n = rows * 128
+    nbits = lanes_nbits(rows)
+    spare = nbits > (n - 1).bit_length()
+    shape = (tiles, n)
+    kw = {"generator": gen, "device": DEVICE}
+    p = torch.arange(n, device=DEVICE)
+    offset = (torch.randint(0, 8, (tiles, 1), **kw) if spare
+              else torch.zeros((tiles, 1), dtype=torch.int64, device=DEVICE))
+    high = (torch.randint(0, 1 << (lk.MAX_NBITS - nbits), shape, **kw)
+            << nbits)
+    pay = torch.randint(0, 1 << 16, shape, **kw)
+
+    def dens():
+        return torch.rand(shape, **kw) < torch.rand((tiles, 1), **kw)
+
+    keep = dens()
+    dist = p - (keep.cumsum(1) - 1) + offset
+    cw = lk.pack_route(keep, dist | high, pay)
+    hit = dens()
+    i = hit.cumsum(1) - 1
+    t_idx, target = hit.nonzero(as_tuple=True)
+    ew = torch.zeros(shape, dtype=torch.int32, device=DEVICE)
+    src = i[t_idx, target]
+    ew[t_idx, src] = lk.pack_route(
+        torch.ones_like(src, dtype=torch.bool),
+        (target - src + offset[t_idx, 0]) | high[t_idx, src],
+        pay[t_idx, src])
+    return (cw.view(tiles, rows, 128), ew.view(tiles, rows, 128), nbits)
+
+
+def lanes_calls(x, cw, ew, nbits: int, m_dev, ms: tuple) -> dict:
+    """op -> (kernel call, plain call), each taking the call's index c: the
+    static shifts walk the amounts ``ms``, the dynamic ones the rows of
+    ``m_dev``, the scans their fills."""
+    fills = (-7, 0, 123456, lk.I32MIN, lk.I32MAX)
+    return {
+        "shift_down": (lambda c: lk.flat_shift_down(x, ms[c % len(ms)], -7),
+                       lambda c: lk.flat_shift_down_ref(x, ms[c % len(ms)],
+                                                        -7)),
+        "shift_up": (lambda c: lk.flat_shift_up(x, ms[c % len(ms)], -3),
+                     lambda c: lk.flat_shift_up_ref(x, ms[c % len(ms)], -3)),
+        "shift_down_dyn": (lambda c: lk.flat_shift_down_dyn(x, m_dev[c], -7),
+                           lambda c: lk.flat_shift_down_dyn_ref(
+                               x, m_dev[c], -7)),
+        "shift_up_dyn": (lambda c: lk.flat_shift_up_dyn(x, m_dev[c], -3),
+                         lambda c: lk.flat_shift_up_dyn_ref(x, m_dev[c], -3)),
+        "prefix_max": (lambda c: lk.prefix_max_flat(x, fills[c % 5]),
+                       lambda c: lk.prefix_max_flat_ref(x, fills[c % 5])),
+        "prefix_sum": (lambda c: lk.prefix_sum_flat(x),
+                       lambda c: lk.prefix_sum_flat_ref(x)),
+        "suffix_min": (lambda c: lk.suffix_min_flat(x, fills[c % 5]),
+                       lambda c: lk.suffix_min_flat_ref(x, fills[c % 5])),
+        "compact": (lambda c: lk.compact_lsb(cw, nbits),
+                    lambda c: lk.compact_lsb_ref(cw, nbits)),
+        "expand": (lambda c: lk.expand_msb(ew, nbits),
+                   lambda c: lk.expand_msb_ref(ew, nbits)),
+    }
+
+
+def phase_lanes_classes(gen) -> int:
+    """Every op at rows 8, 64 and 256 over 1 and 4096 tiles, LANES_CALLS
+    calls a case on reused memory (each result compared, then freed), the
+    dynamic shifts under sync-debug "error" with m from 0 to N − 1.  The
+    prefix sums wrap (full-range words); the routes drop words at the
+    tile's edge and keep the dist bits above nbits (lanes_routes)."""
+    cases = 0
+    for rows in LANES_ROWS:
+        n = rows * 128
+        for tiles in LANES_TILE_COUNTS:
+            x = lanes_words(gen, tiles, rows)
+            cw, ew, nbits = lanes_routes(gen, tiles, rows)
+            m_dev = torch.randint(0, n, (LANES_CALLS, 1), generator=gen,
+                                  device=DEVICE).to(torch.int32)
+            m_dev[0], m_dev[1] = 0, n - 1
+            ms = (0, 1, 4, 127, 128, 129, n // 2 + 3, n - 1, n, n + 5)
+            for op, (kernel, plain) in lanes_calls(
+                    x, cw, ew, nbits, m_dev, ms).items():
+                for c in range(LANES_CALLS):
+                    if op.endswith("_dyn"):
+                        with sync_error():
+                            got = kernel(c)
+                    else:
+                        got = kernel(c)
+                    compare("tile_op", got, plain(c))
+                    del got
+                    cases += 1
+            del x, cw, ew, m_dev
+    torch.cuda.empty_cache()
+    return cases
+
+
+def time_lanes(gen) -> tuple:
+    """Each op on LANES_TIMED_TILES tiles of 8 rows (the shifts, static and
+    dynamic, by LANES_TIMED_M), both ways, beside its bound (each word read
+    once and written once) and its plain version;
+    ``torch.cumsum(..., dtype=torch.int32)`` beside the prefix sum.  The
+    prefix sum's numbers fill tile_op's row of the kernels line; every
+    op's go to LANES_OPS_MS.  Returns ``(kernel ms, plain ms)`` of the
+    prefix sum."""
+    T, rows = LANES_TIMED_TILES, 8
+    n = rows * 128
+    x = lanes_words(gen, T, rows)
+    cw, ew, nbits = lanes_routes(gen, T, rows)
+    m_dev = torch.full((1, 1), LANES_TIMED_M, dtype=torch.int32,
+                       device=DEVICE)
+    calls = lanes_calls(x, cw, ew, nbits, m_dev, (LANES_TIMED_M,))
+    bound = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    for op, (kernel, plain) in calls.items():
+        compare("tile_op", kernel(0), plain(0))
+        ms = {"ms": cuda_ms(lambda: kernel(0)),
+              "launch_ms": launch_ms(lambda: kernel(0)),
+              "plain_ms": cuda_ms(lambda: plain(0)), "bound_ms": bound}
+        LANES_OPS_MS[op] = ms
+        say(f"[kernels] tile_op {op}: {ms['ms']:.4f} ms kernel, "
+            f"{ms['plain_ms']:.4f} ms plain, {bound:.4f} ms bound "
+            f"({2 * x.numel() * 4} bytes; {T} tiles of {rows} rows, median "
+            f"of 5 single calls); a launch over a run of {RUN}: "
+            f"{ms['launch_ms']:.4f} ms")
+    flat = x.view(T, n)
+    out = lk.prefix_sum_flat(x)
+    moved("tile_op", x, out)
+    LAUNCH_MS["tile_op"] = LANES_OPS_MS["prefix_sum"]["launch_ms"]
+    library_ms("tile_op", lambda: torch.cumsum(flat, 1, dtype=torch.int32))
+    LANES_OPS_MS["prefix_sum"]["library_ms"] = LIBRARY_MS["tile_op"]
+    LANES_OPS_MS["prefix_sum"]["library_launch_ms"] = \
+        LIBRARY_LAUNCH_MS["tile_op"]
+    say(f"[kernels] tile_op prefix_sum yardstick torch.cumsum(x.view({T}, "
+        f"{n}), 1, dtype=torch.int32): {LIBRARY_MS['tile_op']:.4f} ms "
+        f"single (median of 5), {LIBRARY_LAUNCH_MS['tile_op']:.4f} ms a "
+        f"launch over a run of {RUN}")
+    timing = (LANES_OPS_MS["prefix_sum"]["ms"],
+              LANES_OPS_MS["prefix_sum"]["plain_ms"])
+    del x, cw, ew, flat, out
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_lanes() -> tuple:
+    """The lanes phase: the harness's path (its launches), the classes,
+    then the times.  Returns ``(launches, (kernel ms, plain ms))``."""
+    t0 = time.perf_counter()
+    launches = lanes_harness()
+    if launches != 9:
+        raise AssertionError(f"lanes harness: {launches} tile_op launches, "
+                             f"expected 9")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 10)
+    cases = phase_lanes_classes(gen)
+    say(f"[lanes] harness: 9 functions equal NumPy, {launches} launches; "
+        f"{cases} calls equal their plain versions element for element")
+    timing = time_lanes(gen)
+    say(f"[lanes] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, timing
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3337,6 +3613,7 @@ def main() -> int:
     t_rl += time.perf_counter() - t0
     say(f"[classes] {cases} run-offsets inputs equal their plain version "
         f"({time.perf_counter() - t0:.1f} s)")
+    launches["tile_op"], timings["tile_op"] = phase_lanes()
     say(f"[done] field route phases took {t_fields:.1f} s, RL phases "
         f"{t_rl:.1f} s, constant kernels and distribution {t_dist:.1f} s")
 
@@ -3348,7 +3625,8 @@ def main() -> int:
                 "plain_ms": timings[name][1], "bound_ms": bound_ms(name),
                 "bound_by": "bytes", "library_ms": LIBRARY_MS.get(name),
                 "launch_ms": LAUNCH_MS[name],
-                "library_launch_ms": LIBRARY_LAUNCH_MS.get(name)}
+                "library_launch_ms": LIBRARY_LAUNCH_MS.get(name),
+                **({"ops": LANES_OPS_MS} if name in LANES_REPLACES else {})}
                for name in ALL_REPLACES]
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

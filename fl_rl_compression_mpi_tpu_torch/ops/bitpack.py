@@ -119,3 +119,8 @@ def unpack_tables(frame_length: int = FRAME_LENGTH):
         bit_off = (pos % 8).astype(np.int32)
         tables[b] = (byte_idx, bit_off)
     return tables
+
+
+def max_row_bytes(frame_length: int = FRAME_LENGTH) -> int:
+    """Worst-case packed bytes per frame (width 8)."""
+    return packed_bytes(frame_length, MAX_WIDTH)

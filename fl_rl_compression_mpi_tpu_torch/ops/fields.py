@@ -118,3 +118,29 @@ def unfold_p2(values: np.ndarray, bits: np.ndarray, n: int,
     buf = np.zeros(2 * packed_words, np.uint32)
     buf[: fields.size] = fields
     return pack_p2(buf, tile_r)[:packed_words]
+
+
+# ---------------------------------------------------------------------------
+# End-to-end host APIs: thin aliases of the canonical ones in fl_torch (the
+# device's kernels and the host fold), kept for discoverability, as the JAX
+# module keeps its aliases of fl_jax.
+# ---------------------------------------------------------------------------
+
+def encode(data: np.ndarray, frame_length: int = FRAME_LENGTH, *,
+           device=None):
+    """:func:`fl_torch.encode` on ``device`` (default: the current CUDA
+    device)."""
+    from ..models.registry import default_device
+    from . import fl_torch          # fl_torch imports this module
+    return fl_torch.encode(data, frame_length,
+                           device=device or default_device())
+
+
+def decode(output_size: int, bits: np.ndarray, values: np.ndarray,
+           frame_length: int = FRAME_LENGTH, *, device=None) -> np.ndarray:
+    """:func:`fl_torch.decode` on ``device`` (default: the current CUDA
+    device)."""
+    from ..models.registry import default_device
+    from . import fl_torch
+    return fl_torch.decode(output_size, bits, values, frame_length,
+                           device=device or default_device())

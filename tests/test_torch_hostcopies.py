@@ -1,8 +1,9 @@
 """The PyTorch package's copies of the JAX package's framework-free host
 modules (container, fileio, native + its C++ source, ops/fl_numpy,
 ops/rl_numpy, ops/bitpack, utils.constant_byte_probe, the fl-cpu/rl-cpu
-codecs) against their originals, on the fuzz battery and the goldens.
-Tolerance: byte equality throughout."""
+codecs) against their originals, on the fuzz battery and the goldens; and
+ops/fields' end-to-end aliases (of fl_torch, on the CPU) against the JAX
+module's (of fl_jax).  Tolerance: byte equality throughout."""
 
 import glob
 import os
@@ -15,12 +16,14 @@ from fl_rl_compression_mpi_tpu import fileio as j_fileio
 from fl_rl_compression_mpi_tpu import native as j_native
 from fl_rl_compression_mpi_tpu.models import registry as j_registry
 from fl_rl_compression_mpi_tpu.ops import bitpack as j_bitpack
+from fl_rl_compression_mpi_tpu.ops import fields as j_fields
 from fl_rl_compression_mpi_tpu.ops import fl_numpy as j_fl_numpy
 from fl_rl_compression_mpi_tpu.ops import rl_numpy as j_rl_numpy
 from fl_rl_compression_mpi_tpu.utils import constant_byte_probe as j_probe
 from fl_rl_compression_mpi_tpu_torch import container, fileio, native
 from fl_rl_compression_mpi_tpu_torch.models import registry
-from fl_rl_compression_mpi_tpu_torch.ops import bitpack, fl_numpy, rl_numpy
+from fl_rl_compression_mpi_tpu_torch.ops import (bitpack, fields, fl_numpy,
+                                                 rl_numpy)
 from fl_rl_compression_mpi_tpu_torch.utils import constant_byte_probe
 from fuzz_battery import battery
 
@@ -187,6 +190,7 @@ def check_bitpack(data, tmp):
     assert bitpack.FRAME_LENGTH == j_bitpack.FRAME_LENGTH
     assert bitpack.MAX_WIDTH == j_bitpack.MAX_WIDTH
     _eq(bitpack.required_bits_u8(data), j_bitpack.required_bits_u8(data))
+    assert bitpack.max_row_bytes(L) == j_bitpack.max_row_bytes(L)
     for b in range(1, 9):
         assert bitpack.packed_bytes(L, b) == j_bitpack.packed_bytes(L, b)
         for x, y in zip(bitpack.pack_tables(L)[b],
@@ -197,9 +201,22 @@ def check_bitpack(data, tmp):
             _eq(x, y)
 
 
+def check_fields_aliases(data, tmp):
+    """``fields.encode``/``decode`` (fl_torch on the CPU) against the JAX
+    module's (fl_jax), each decoding the other's container."""
+    for L in (64, 128):
+        bits, values = fields.encode(data, L, device="cpu")
+        jb, jv = j_fields.encode(data, L)
+        _eq(bits, jb)
+        _eq(values, jv)
+        _eq(fields.decode(data.size, jb, jv, L, device="cpu"),
+            j_fields.decode(data.size, bits, values, L))
+
+
 CHECKS = [check_container, check_fileio, check_native_fl, check_native_rl,
           check_native_fold, check_fl_numpy, check_rl_numpy,
-          check_constant_probe, check_cpu_codecs, check_bitpack]
+          check_constant_probe, check_cpu_codecs, check_bitpack,
+          check_fields_aliases]
 INPUTS = _inputs()
 
 
