@@ -212,6 +212,29 @@ Phases, each printing a line and failing the run on any error:
               the shifts by 129) both ways beside its bound, and torch.cumsum(..., dtype=
               torch.int32) beside the prefix sum, whose times fill the
               kernel's row (every op's under its "ops" key).
+11. experiments — the port's experiment entry points (package
+              `experiments/`) and the kernels they run: the tile-packed
+              codec (csrc/tile_packed.cu), the RL encode's starts mode, the
+              flat-tile kernel's rounds op and the copy (the copy probe's
+              kernel with addend 0).  First their path: exp21's and exp22's
+              packed round trip, exp30's encode and decode, exp33's rounds
+              and exp6's copy, each once, the counts set to 0 just before
+              and read just after (each call exactly its launches), every
+              output against its plain version or its input; then the
+              tile-packed codec at R in {8, 64, 1024, 2048} on tiles of
+              widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile (every depth),
+              both layouts, and twenty round trips on reused memory; the
+              starts encode on exp30's five kinds at 4 MiB + 13 bytes and on
+              small streams; the rounds at 8 and 512 rows; the copy on word
+              counts 1, 3, 4, 5 and 2048·128, at an unaligned start and on
+              64 MiB, each against its plain version, from a generator of
+              their own (SEED + 11); then each timed at its script's size
+              both ways beside its bound: the codec (R = 1024) on 256 MiB of
+              width-4 words (and each layout at widths 1, 4 and 8 on
+              `[experiments]` lines), the starts encode on 64 MiB of exp30's
+              `long`, the rounds on 32 MiB (64 rounds; bound by operations,
+              int32 multiply-adds at 64 a clock an SM), the copy on 256 MiB
+              beside `clone` (its library row) and `copy_`.
 
 The next-to-last line of stdout is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Nothing is printed there on failure.
@@ -252,6 +275,17 @@ from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda as fk
 from fl_rl_compression_mpi_tpu_torch.ops import fl_torch
 from fl_rl_compression_mpi_tpu_torch.ops import lanes_cuda as lk
 from fl_rl_compression_mpi_tpu_torch.ops import rl_cuda as rk
+from fl_rl_compression_mpi_tpu_torch.ops import rl_torch
+from fl_rl_compression_mpi_tpu_torch.ops import tile_packed_cuda as tpk
+from fl_rl_compression_mpi_tpu_torch.experiments import exp6_r2_tuning as exp6
+from fl_rl_compression_mpi_tpu_torch.experiments import (
+    exp21_tile_packed as exp21)
+from fl_rl_compression_mpi_tpu_torch.experiments import (
+    exp22_tile_packed2 as exp22)
+from fl_rl_compression_mpi_tpu_torch.experiments import (
+    exp30_rl_starts as exp30)
+from fl_rl_compression_mpi_tpu_torch.experiments import (
+    exp33_round_latency as exp33)
 from fl_rl_compression_mpi_tpu_torch.parallel import dist
 from fl_rl_compression_mpi_tpu_torch.utils.timers import set_stage_timers
 
@@ -295,14 +329,30 @@ COPY_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/copy_probe.cu"
 COPY_REPLACES = {"copy_probe": "bench.py:421"}
 LANES_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/lanes.cu"
 LANES_REPLACES = {"tile_op": "tests/test_lanes.py:27"}
+TILE_PACKED_SOURCE = "fl_rl_compression_mpi_tpu_torch/csrc/tile_packed.cu"
+EXP21 = "experiments/exp21_tile_packed.py"
+EXP22 = "experiments/exp22_tile_packed2.py"
+EXP_REPLACES = {
+    "tile_packed_encode": f"{EXP21}:166, {EXP22}:161",
+    "tile_packed_decode": f"{EXP21}:226, {EXP22}:251",
+    "rl_encode_starts": "experiments/exp30_rl_starts.py:197",
+    "tile_rounds": "experiments/exp33_round_latency.py:54",
+    "copy_words": "experiments/exp6_r2_tuning.py:83",
+}
+EXP_SOURCES = {"tile_packed_encode": TILE_PACKED_SOURCE,
+               "tile_packed_decode": TILE_PACKED_SOURCE,
+               "rl_encode_starts": RL_SOURCE, "tile_rounds": LANES_SOURCE,
+               "copy_words": COPY_SOURCE}
 SOURCES = {**{name: SOURCE for name in REPLACES},
            **{name: FIELDS_SOURCE for name in FIELDS_REPLACES},
            **{name: RL_SOURCE for name in RL_REPLACES},
            **{name: CONST_SOURCE for name in CONST_REPLACES},
            **{name: COPY_SOURCE for name in COPY_REPLACES},
-           **{name: LANES_SOURCE for name in LANES_REPLACES}}
+           **{name: LANES_SOURCE for name in LANES_REPLACES},
+           **EXP_SOURCES}
 ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES,
-                **CONST_REPLACES, **COPY_REPLACES, **LANES_REPLACES}
+                **CONST_REPLACES, **COPY_REPLACES, **LANES_REPLACES,
+                **EXP_REPLACES}
 MAX_ERR = {name: 0 for name in ALL_REPLACES}
 # Bytes each timed kernel call must move (every input read once, every
 # output written once), and the time of one PyTorch call that computes the
@@ -718,9 +768,17 @@ def moved(name: str, *tensors: torch.Tensor) -> None:
 
 def bound_ms(name: str) -> float:
     """The least time the card could take for ``name``'s timed call: its
-    bytes over the card's memory rate (every kernel here does a few integer
-    operations a byte, far below the card's operation rate)."""
-    return MOVED[name] / HBM_BYTES_PER_S * 1e3
+    bytes over the card's memory rate, or its operations over their peak
+    rate where those take longer (OPS_BOUND_MS: the rounds; every other
+    kernel here does a few integer operations a byte, far below the card's
+    operation rate)."""
+    return max(MOVED[name] / HBM_BYTES_PER_S * 1e3,
+               OPS_BOUND_MS.get(name, 0.0))
+
+
+def bound_by(name: str) -> str:
+    return ("operations" if OPS_BOUND_MS.get(name, 0.0)
+            > MOVED[name] / HBM_BYTES_PER_S * 1e3 else "bytes")
 
 
 def time_mixed_parts(x: torch.Tensor) -> None:
@@ -1872,7 +1930,7 @@ def phase_rl_main(tmp: str, data: np.ndarray) -> dict:
         f"{os.path.getsize(comp_path)} bytes; c rl --verify "
         f"{t1 - t0:.3f} s, d rl {t2 - t1:.3f} s (wall, host clock)")
     say(f"[main] rl kernel launches {json.dumps(launches)}")
-    missing = [name for name, count in launches.items() if count == 0]
+    missing = [name for name in RL_REPLACES if launches[name] == 0]
     if missing:
         raise AssertionError(f"rl kernels not launched on the main path: "
                              f"{missing}")
@@ -2227,13 +2285,13 @@ DIST_EXPECT = {
 
 
 def reset_all_launches() -> None:
-    for mod in (k, fk, rk, ck, cpk, lk):
+    for mod in (k, fk, rk, ck, cpk, lk, tpk):
         mod.reset_launches()
 
 
 def all_launches() -> dict:
     return {**k.LAUNCHES, **fk.LAUNCHES, **rk.LAUNCHES, **ck.LAUNCHES,
-            **cpk.LAUNCHES, **lk.LAUNCHES}
+            **cpk.LAUNCHES, **lk.LAUNCHES, **tpk.LAUNCHES}
 
 
 def cli_process_walls(tmp: str) -> dict:
@@ -3449,6 +3507,289 @@ def phase_lanes() -> tuple:
     return launches, timing
 
 
+# ---------------------------------------------------------------------------
+# Experiment entry points (phase 11): csrc/tile_packed.cu, the RL encode's
+# starts mode, the flat-tile kernel's rounds op and the copy
+# ---------------------------------------------------------------------------
+
+EXP_R = (8, 64, 1024, 2048)
+# a tile's widths (tile_words): 0 all zero bytes, b random bytes of width b,
+# "mix" a width-1 tile with one frame of width 3
+EXP_TILE_KINDS = ("0", "1", "2", "3", "4", "5", "8", "mix")
+EXP_DEPTHS = [3, 3, 2, 1, 1, 0, 0, 1]
+EXP_CALLS = 20                     # calls on reused memory
+EXP_PACKED_MIB = 256               # exp21 / exp22's N
+EXP_PACKED_R = 1024                # their parity tile and first chain's
+EXP_RL_MIB = 64                    # exp30's pair
+EXP_RL_PARITY = 4 * MIB + 13       # exp30's parity streams
+EXP_ROUNDS_MIB = 32                # exp33's N
+EXP_COPY_MIB = 256                 # exp6's N
+# int32 multiply-adds a second on the H100 SXM: 64 a clock an SM (the
+# CUDA C++ Programming Guide's throughput table, compute capability 9.0)
+# on 132 SMs at the 1.98 GHz maximum boost clock
+INT32_MAD_PER_S = 64 * 132 * 1.98e9
+OPS_BOUND_MS: dict = {}            # name -> operations over their peak rate
+EXP_MS: dict = {}                  # the phase's other timed lines, by name
+
+
+def tile_words(gen, R: int, kinds=EXP_TILE_KINDS) -> torch.Tensor:
+    """int32 words (tiles·R, 128) on the card, one tile of each kind."""
+    tiles = []
+    for kind in kinds:
+        if kind == "0":
+            t = torch.zeros((R, 512), dtype=torch.uint8, device=DEVICE)
+        elif kind == "mix":
+            t = torch.randint(0, 2, (R, 512), generator=gen, device=DEVICE,
+                              dtype=torch.uint8)
+            t[0, :128] = torch.randint(0, 8, (128,), generator=gen,
+                                       device=DEVICE, dtype=torch.uint8)
+            t[0, 0] = 4
+        else:
+            b = int(kind)
+            t = torch.randint(0, 1 << b, (R, 512), generator=gen,
+                              device=DEVICE, dtype=torch.uint8)
+            t[-1, -1] = 1 << (b - 1)
+        tiles.append(t)
+    return torch.cat(tiles).view(torch.int32).view(-1, 128)
+
+
+def check_tile_packed(words: torch.Tensor, R: int, layout: str) -> None:
+    """Encode and decode against their plain versions: widths, offsets,
+    the packed rows the layout defines, and the round trip."""
+    bits, packed, offs = tpk.encode(words, R, layout)
+    want_b, want_p, want_o = tpk.encode_ref(words, R, layout)
+    compare("tile_packed_encode", bits, want_b)
+    if layout == "cursor":
+        compare("tile_packed_encode", offs, want_o)
+    rows = tpk.defined_rows(want_b, R, want_o)
+    compare("tile_packed_encode", packed[rows], want_p[rows])
+    out = tpk.decode(bits, packed, R, offs)
+    compare("tile_packed_decode", out, tpk.decode_ref(bits, packed, R, offs))
+    compare("tile_packed_decode", out, words)
+
+
+def check_starts(x: torch.Tensor) -> None:
+    """The starts encode against its plain version (the pieces before the
+    total) and its decode against the stream."""
+    packed, total = rk.encode_starts(x)
+    want_p, want_t = rk.encode_starts_ref(x)
+    compare("rl_encode_starts", total, want_t)
+    R = int(want_t)
+    compare("rl_encode_starts", packed[:R], want_p[:R])
+    if not torch.equal(rl_torch.decode_starts(packed, total, x.numel()), x):
+        raise AssertionError("decode_starts differs from the stream")
+
+
+def experiments_path(gen) -> dict:
+    """The path these kernels serve: each experiment entry point once, as
+    its script's main runs it (exp21's and exp22's packed round trip at
+    R = 1024 on 4 MiB of width-4 words, exp30's encode and decode on
+    exp30's ``long`` kind, exp33's rounds, exp6's copy), every output held
+    against its plain version or the input.  The counts are set to 0 just
+    before and read just after; each call must count exactly its own
+    launches.  Returns the counts."""
+    words = torch.randint(0, 16, (4 * MIB,), generator=gen, device=DEVICE,
+                          dtype=torch.uint8).view(torch.int32)
+    nrows = words.numel() // 128
+    host = exp30.gen(10, 4 * MIB + 13, "long")
+    x30 = torch.from_numpy(np.concatenate(
+        [host, np.zeros(-host.size % 128, np.uint8)])).to(DEVICE)
+    x33 = torch.randint(-(1 << 31), 1 << 31, (512, 128), generator=gen,
+                        dtype=torch.int64, device=DEVICE).to(torch.int32)
+
+    def exp30_pair():
+        packed, total = exp30.rl_encode_v2(x30.view(-1, 128), host.size)
+        return exp30.rl_decode_packed_v2(packed, total, host.size)
+
+    pair = {"tile_packed_encode": 1, "tile_packed_decode": 1}
+    calls = (
+        ("exp21", lambda: exp21.make_packed_rt(EXP_PACKED_R, nrows)(words, 1),
+         pair),
+        ("exp22", lambda: exp22.make_packed_rt(EXP_PACKED_R, nrows)(words, 1),
+         pair),
+        ("exp30", exp30_pair,
+         {"rl_encode_starts": 1, "rl_offsets": 1, "rl_expand": 1}),
+        ("exp33", lambda: exp33.make(8, 512, 1)(x33, 1), {"tile_rounds": 1}),
+        ("exp6", lambda: exp6.copy_words(words), {"copy_words": 1}),
+    )
+    torch.cuda.synchronize()
+    reset_all_launches()
+    outs = {}
+    for name, call, want in calls:
+        before = all_launches()
+        outs[name] = call()
+        got = {key: v - before[key] for key, v in all_launches().items()
+               if v != before[key]}
+        if got != want:
+            raise AssertionError(f"experiments path: {name} launched {got}, "
+                                 f"expected {want}")
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in all_launches().items() if v}
+    for name in ("exp21", "exp22"):
+        if not torch.equal(outs[name].view(-1), words):
+            raise AssertionError(f"{name}: the packed round trip differs")
+    if not np.array_equal(outs["exp30"].cpu().numpy(), host):
+        raise AssertionError("exp30: the starts round trip differs")
+    compare("tile_rounds", outs["exp33"], lk.rounds_ref(x33, exp33.D))
+    compare("copy_words", outs["exp6"].view(-1), words)
+    return launches
+
+
+def phase_experiments_classes(gen, rng) -> int:
+    """Each new kernel against its plain version: the tile-packed codec at
+    R in EXP_R on tiles of widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile
+    (every depth), both layouts, then EXP_CALLS round trips on reused
+    memory; the starts encode on exp30's five kinds at 4 MiB + 13 bytes
+    and on small streams; the rounds at 8 and 512 rows (0, 1 and 64
+    rounds); the copy on word counts 1, 3, 4, 5 and 2048·128, at an
+    unaligned start, and on 64 MiB."""
+    cases = 0
+    for R in EXP_R:
+        words = tile_words(gen, R)
+        for layout in tpk.LAYOUTS:
+            check_tile_packed(words, R, layout)
+            cases += 1
+        if tpk.depths(tpk.encode(words, R)[0], R).tolist() != EXP_DEPTHS:
+            raise AssertionError(f"tile_packed: R={R} missed a depth")
+    words = tile_words(gen, 64, EXP_TILE_KINDS * 4)
+    for c in range(EXP_CALLS):
+        # another order of the tiles each call, each result freed first
+        check_tile_packed(words.roll(64 * (c + 1), 0).contiguous(), 64,
+                          tpk.LAYOUTS[c % 2])
+        cases += 1
+    for kind, seed in exp30.KINDS:
+        check_starts(torch.from_numpy(exp30.gen(seed, EXP_RL_PARITY,
+                                                kind)).to(DEVICE))
+        cases += 1
+    for n in (1, 255, 256, 259, 16384 + 1):
+        check_starts(torch.from_numpy(exp30.gen(n, n, "cap")).to(DEVICE))
+        cases += 1
+    for rows in (8, 512):
+        x = torch.randint(-(1 << 31), 1 << 31, (rows, 128), generator=gen,
+                          dtype=torch.int64, device=DEVICE).to(torch.int32)
+        for d in (0, 1, exp33.D):
+            compare("tile_rounds", lk.rounds(x, d), lk.rounds_ref(x, d))
+            cases += 1
+    for nw in COPY_WORDS:
+        w = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, nw,
+                                          dtype=np.int64).astype(np.int32))
+        w = w.to(DEVICE)
+        compare("copy_words", cpk.copy(w), cpk.copy_ref(w))
+        compare("copy_words", cpk.copy(w[1:]), w[1:])
+        cases += 2
+    w = torch.randint(-(1 << 31), 1 << 31, (16 * MIB,), generator=gen,
+                      dtype=torch.int64, device=DEVICE).to(torch.int32)
+    compare("copy_words", cpk.copy(w), w)
+    del words, w
+    torch.cuda.empty_cache()
+    return cases + 1
+
+
+def time_pair(name: str, kernel, plain, nbytes: int) -> tuple:
+    """Both times of the kernel, the plain version's single call, and the
+    bytes its call must move."""
+    MOVED[name] = nbytes
+    return kernel_ms(name, kernel), cuda_ms(plain)
+
+
+def time_experiments(gen) -> dict:
+    """Each new kernel at its script's size, both ways, beside its bound:
+    the tile-packed encode and decode (cursor layout, R = 1024) on 256 MiB
+    of width-4 words (exp21's chains; the sparse layout and widths 1 and
+    8 on EXP_MS lines), the starts encode on 64 MiB of exp30's ``long``,
+    the rounds on 32 MiB (64 rounds), the copy on 256 MiB beside
+    ``clone`` (its library row) and ``copy_``.  The tile-packed bounds
+    count this run's packed rows."""
+    timings = {}
+    N = EXP_PACKED_MIB * MIB
+    R = EXP_PACKED_R
+    for top, tag in ((16, "w4"), (2, "w1"), (256, "w8")):
+        words = torch.randint(0, top, (N,), generator=gen, device=DEVICE,
+                              dtype=torch.uint8).view(torch.int32)
+        for layout in tpk.LAYOUTS:
+            bits, packed, offs = tpk.encode(words, R, layout)
+            # words in (out), widths, offsets and this run's packed rows
+            nbytes = (N + bits.numel() + int(tpk.tile_rows(bits, R).sum())
+                      * 512 + (offs.numel() * 4 if offs is not None else 0))
+            enc = lambda: tpk.encode(words, R, layout)
+            dec = lambda: tpk.decode(bits, packed, R, offs)
+            if (tag, layout) == ("w4", "cursor"):
+                timings["tile_packed_encode"] = time_pair(
+                    "tile_packed_encode", enc,
+                    lambda: tpk.encode_ref(words, R, layout), nbytes)
+                timings["tile_packed_decode"] = time_pair(
+                    "tile_packed_decode", dec,
+                    lambda: tpk.decode_ref(bits, packed, R, offs), nbytes)
+            else:
+                for name, fn in ((f"tile_packed_encode {layout} {tag}", enc),
+                                 (f"tile_packed_decode {layout} {tag}", dec)):
+                    MOVED[name] = nbytes
+                    EXP_MS[name] = {"ms": cuda_ms(fn),
+                                    "launch_ms": launch_ms(fn),
+                                    "bound_ms": bound_ms(name)}
+            del bits, packed, offs
+        del words
+        torch.cuda.empty_cache()
+    host = exp30.gen(10, EXP_RL_MIB * MIB, "long")
+    x = torch.from_numpy(host).to(DEVICE)
+    _, total = rk.encode_starts(x)
+    timings["rl_encode_starts"] = time_pair(
+        "rl_encode_starts", lambda: rk.encode_starts(x),
+        lambda: rk.encode_starts_ref(x), x.numel() + 4 * int(total))
+    del x
+    rows = EXP_ROUNDS_MIB * MIB // 512
+    y = torch.randint(0, 1 << 30, (rows, 128), generator=gen,
+                      dtype=torch.int64, device=DEVICE).to(torch.int32)
+    timings["tile_rounds"] = time_pair(
+        "tile_rounds", lambda: lk.rounds(y, exp33.D),
+        lambda: lk.rounds_ref(y, exp33.D), 2 * y.numel() * 4)
+    OPS_BOUND_MS["tile_rounds"] = y.numel() * exp33.D / INT32_MAD_PER_S * 1e3
+    del y
+    w = torch.randint(0, 16, (EXP_COPY_MIB * MIB,), generator=gen,
+                      device=DEVICE, dtype=torch.uint8).view(torch.int32)
+    out = torch.empty_like(w)
+    timings["copy_words"] = time_pair(
+        "copy_words", lambda: cpk.copy(w), lambda: cpk.copy_ref(w),
+        2 * w.numel() * 4)
+    library_ms("copy_words", lambda: w.clone())
+    EXP_MS["copy_words copy_"] = {"ms": cuda_ms(lambda: out.copy_(w)),
+                                  "launch_ms": launch_ms(
+                                      lambda: out.copy_(w))}
+    del w, out
+    torch.cuda.empty_cache()
+    for name, (ms, plain) in timings.items():
+        lib = LIBRARY_MS.get(name)
+        say(f"[experiments] {name}: {ms:.4f} ms kernel, {plain:.4f} ms "
+            f"plain, {bound_ms(name):.4f} ms bound ({bound_by(name)}; "
+            f"{MOVED[name]} bytes)"
+            + (f", {lib:.4f} ms clone" if lib is not None else "")
+            + f" (median of 5 single calls); a launch over a run of {RUN}: "
+            f"{LAUNCH_MS[name]:.4f} ms kernel"
+            + (f", {LIBRARY_LAUNCH_MS[name]:.4f} ms clone"
+               if lib is not None else ""))
+    for name, ms in EXP_MS.items():
+        say(f"[experiments] {name}: {ms['ms']:.4f} ms single, "
+            f"{ms['launch_ms']:.4f} ms a launch over a run of {RUN}"
+            + (f", {ms['bound_ms']:.4f} ms bound" if "bound_ms" in ms
+               else ""))
+    return timings
+
+
+def phase_experiments() -> tuple:
+    """The experiments phase: the entry points' path (its launches), the
+    classes, then the times.  Returns ``(launches, timings)``."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 11)
+    launches = experiments_path(gen)
+    cases = phase_experiments_classes(gen, np.random.default_rng(SEED + 11))
+    say(f"[experiments] path: launches {json.dumps(launches)}; {cases} "
+        f"calls equal their plain versions")
+    timings = time_experiments(gen)
+    say(f"[experiments] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, timings
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3614,6 +3955,9 @@ def main() -> int:
     say(f"[classes] {cases} run-offsets inputs equal their plain version "
         f"({time.perf_counter() - t0:.1f} s)")
     launches["tile_op"], timings["tile_op"] = phase_lanes()
+    exp_launches, exp_timings = phase_experiments()
+    launches.update({name: exp_launches[name] for name in EXP_REPLACES})
+    timings.update(exp_timings)
     say(f"[done] field route phases took {t_fields:.1f} s, RL phases "
         f"{t_rl:.1f} s, constant kernels and distribution {t_dist:.1f} s")
 
@@ -3623,7 +3967,7 @@ def main() -> int:
                 "replaces": ALL_REPLACES[name], "launches": launches[name],
                 "max_abs_err": MAX_ERR[name], "ms": timings[name][0],
                 "plain_ms": timings[name][1], "bound_ms": bound_ms(name),
-                "bound_by": "bytes", "library_ms": LIBRARY_MS.get(name),
+                "bound_by": bound_by(name), "library_ms": LIBRARY_MS.get(name),
                 "launch_ms": LAUNCH_MS[name],
                 "library_launch_ms": LIBRARY_LAUNCH_MS.get(name),
                 **({"ops": LANES_OPS_MS} if name in LANES_REPLACES else {})}

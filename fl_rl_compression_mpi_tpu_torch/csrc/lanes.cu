@@ -1,8 +1,12 @@
 // Flat-tile primitives for Hopper (sm_90a).
 //
-// This replaces the TPU kernel of the JAX package's lane-primitive harness:
+// This replaces the TPU kernel of the JAX package's lane-primitive harness
+// and that of an archived latency probe:
 //
 //   _run (tests/test_lanes.py:18, pallas_call at :27)  -> flrl_tile_op
+//   make (experiments/exp33_round_latency.py:42,
+//         pallas_call at :54)                          -> flrl_tile_op,
+//                                                         kTileRounds
 //
 // The Pallas harness runs one ops/lanes.py function over an (R, 128) int32
 // tile in VMEM.  Those functions are built from TPU mechanisms: flat shifts
@@ -29,8 +33,18 @@
 //   16-byte vectors.  Monotone distances, the networks' domain, never send
 //   two words to one slot, so no write races another.
 //
-// Every op is bound by memory: each element is read once and written once,
-// with a few integer operations an element.
+// - the rounds (exp33's 64 dependent rounds of y*3 + roll(y, 1) on
+//   (R, 128) rows, which times the TPU's vector pipeline per dependent
+//   round; its R and interleaved parts change only that schedule) give a
+//   warp a row, four elements a lane in registers: the roll is one
+//   __shfl_sync of lane - 1's last element (lane 0 takes lane 31's) and
+//   three moves in registers, so a round is four multiply-adds and one
+//   shuffle a lane.
+//
+// Every op but the rounds is bound by memory: each element is read once and
+// written once, with a few integer operations an element.  The rounds do
+// aux multiply-adds an element on top of that one read and one write, so
+// from a few rounds on they are bound by the card's integer rate.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -221,6 +235,33 @@ route_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y, int n,
     store4(y + base + i * kTileItems, stage4[i]);
 }
 
+// aux rounds of y[l] = 3·y[l] + y[l - 1 mod 128] on each row, a warp a row.
+__global__ void __launch_bounds__(kTileThreads)
+rounds_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y, int n,
+              int64_t rounds) {
+  const int64_t base = int64_t(blockIdx.x) * n;
+  const int lane = threadIdx.x % kWarp;
+  const int left = (lane + kWarp - 1) % kWarp;
+  constexpr int kRowsPerStep = kTileThreads / kWarp;
+  for (int at = threadIdx.x / kWarp * kTileLanes + lane * kTileItems; at < n;
+       at += kRowsPerStep * kTileLanes) {
+    const int4 q = load4(x + base + at);
+    uint32_t e0 = q.x, e1 = q.y, e2 = q.z, e3 = q.w;
+#pragma unroll 4
+    for (int64_t r = 0; r < rounds; ++r) {
+      const uint32_t before = __shfl_sync(kFullMask, e3, left);
+      e3 = e3 * 3u + e2;
+      e2 = e2 * 3u + e1;
+      e1 = e1 * 3u + e0;
+      e0 = e0 * 3u + before;
+    }
+    store4(y + base + at, make_int4(static_cast<int32_t>(e0),
+                                    static_cast<int32_t>(e1),
+                                    static_cast<int32_t>(e2),
+                                    static_cast<int32_t>(e3)));
+  }
+}
+
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
 cudaError_t launch_route(bool expand, const int32_t* x, int32_t* y, int n,
@@ -295,6 +336,10 @@ FLRL_API int flrl_tile_op(int op, const void* x, int64_t aux, int fill,
     case kTileExpand:
       err = launch_route(op == kTileExpand, xi, yi, n, aux, grid, s);
       if (err != cudaSuccess) return err;
+      break;
+    case kTileRounds:
+      if (aux < 0) return cudaErrorInvalidValue;
+      rounds_kernel<<<grid, kTileThreads, 0, s>>>(xi, yi, n, aux);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -19,12 +19,16 @@
 //                      w - r·2^16; every other slot is 0; a word whose
 //                      p - r < 0 is dropped
 //   kTileExpand        as kTileCompact, to p + r, dropped where p + r >= N
+//   kTileRounds        each row of 128, aux times: y[l] = 3·y[l] + y[l - 1],
+//                      l - 1 taken mod 128 (a roll of the row by one),
+//                      wrapping mod 2^32
 //
-// `aux` is m for the static shifts and nbits (0..15) for the routes, else
-// unused; `m_dev` is read only by the dynamic shifts.  The routes assume
-// their input domain (ops/lanes.py in the JAX package): dead words are 0
-// and no two live words land on one slot, which monotone distances
-// guarantee; outside it the result is unspecified.
+// `aux` is m for the static shifts, nbits (0..15) for the routes and the
+// number of rounds (>= 0) for kTileRounds, else unused; `m_dev` is read
+// only by the dynamic shifts.  The routes assume their input domain
+// (ops/lanes.py in the JAX package): dead words are 0 and no two live words
+// land on one slot, which monotone distances guarantee; outside it the
+// result is unspecified.
 //
 // The launcher runs on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() (0 on success) as an int.  `x` and `out` must
@@ -48,6 +52,7 @@ enum FlrlTileOp {
   kTileSuffixMin = 6,
   kTileCompact = 7,
   kTileExpand = 8,
+  kTileRounds = 9,
 };
 
 constexpr int kTileLanes = 128;

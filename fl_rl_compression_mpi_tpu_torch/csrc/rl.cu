@@ -7,6 +7,16 @@
 //   _decode_impl (:579; rl_decode_pallas and    -> flrl_rl_run_offsets
 //   rl_decode_packed_pallas)                       + flrl_rl_expand
 //
+// and the starts-routing encode of an archived study,
+//
+//   rl_encode_v2 (experiments/exp30_rl_starts.py:189,
+//                 pallas_call :197)          -> flrl_rl_encode_starts
+//
+// which emits each piece as value | (start & 0xFF) << 8 so that its counts
+// come later from differences of consecutive starts mod 256: the same
+// kernel (template argument kStarts) stages each piece's start byte where
+// the product stages its count, and stores one int32 a piece.
+//
 // The function is ported, not the TPU mechanism.  The Pallas kernels route
 // pieces through monotone lane networks and carry a write cursor across a
 // sequential grid, because a TPU core has no cheap scatter and its grid
@@ -340,6 +350,9 @@ __device__ __forceinline__ int32_t next_natural(const Mask* m, int32_t p) {
   return at;
 }
 
+// kStarts: each piece's i32 value | (start & 0xFF) << 8 at values (an
+// int32 array) in place of its value and count (counts unused).
+template <bool kStarts>
 __global__ void __launch_bounds__(kEncodeThreads)
 encode_kernel(const EncodeArgs a) {
   __shared__ __align__(16) uint8_t vstage[kEncodeStage];
@@ -411,11 +424,15 @@ encode_kernel(const EncodeArgs a) {
         pieces |= Mask(1) << cap;
     }
     // the first natural start after the thread's bytes, if a piece reaches
+    // (no counts in starts mode)
     const int32_t after =
-        min(next_natural(natm + threadIdx.x + 1, p0 + kEncodeItems), n);
+        kStarts ? 0
+                : min(next_natural(natm + threadIdx.x + 1, p0 + kEncodeItems),
+                      n);
     // A piece ends where the next begins, the thread's last at the next
     // natural start or after 255 bytes.  The pieces go word by word, so
     // that every word of w is named at compile time (w stays in registers).
+    // In starts mode the count stage holds each piece's start instead.
     int last = -1, last_at = 0;
 #pragma unroll
     for (int i = 0; i < kEncodeWords; ++i) {
@@ -424,12 +441,16 @@ encode_kernel(const EncodeArgs a) {
         const int k = 8 * i + __ffs(static_cast<int>(b)) - 1;
         const int at = stage_byte(idx++);
         vstage[at] = static_cast<uint8_t>(w[i] >> (8 * (k % 8)));
-        if (last >= 0) cstage[last_at] = static_cast<uint8_t>(k - last);
-        last = k;
-        last_at = at;
+        if constexpr (kStarts) {
+          cstage[at] = static_cast<uint8_t>(p0 + k);
+        } else {
+          if (last >= 0) cstage[last_at] = static_cast<uint8_t>(k - last);
+          last = k;
+          last_at = at;
+        }
       }
     }
-    if (last >= 0)
+    if (!kStarts && last >= 0)
       cstage[last_at] = static_cast<uint8_t>(min(kCap, after - p0 - last));
   }
   __syncthreads();
@@ -451,11 +472,19 @@ encode_kernel(const EncodeArgs a) {
             : min(next_natural(natm + kEncodeThreads, b0 + kEncodeTile), n);
     const int at = stage_byte(kHeadRoom - h + threadIdx.x);
     vstage[at] = head_value;
-    cstage[at] = static_cast<uint8_t>(min(kCap, next - s));
+    cstage[at] = static_cast<uint8_t>(kStarts ? s : min(kCap, next - s));
   }
   __syncthreads();
-  store_stage<kEncodeThreads>(a.values + P, vstage, kHeadRoom - h, cnt);
-  store_stage<kEncodeThreads>(a.counts + P, cstage, kHeadRoom - h, cnt);
+  if constexpr (kStarts) {
+    int32_t* out = reinterpret_cast<int32_t*>(a.values) + P;
+    for (int i = threadIdx.x; i < cnt; i += kEncodeThreads) {
+      const int at = stage_byte(kHeadRoom - h + i);
+      out[i] = vstage[at] | cstage[at] << 8;
+    }
+  } else {
+    store_stage<kEncodeThreads>(a.values + P, vstage, kHeadRoom - h, cnt);
+    store_stage<kEncodeThreads>(a.counts + P, cstage, kHeadRoom - h, cnt);
+  }
 }
 
 // The bytes k and up of a 64-bit word (all for k <= 0, none for k >= 8).
@@ -705,7 +734,35 @@ FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
                      m,
                      status,
                      reinterpret_cast<unsigned*>(status + tiles)};
-  encode_kernel<<<static_cast<unsigned>(tiles), kEncodeThreads, 0, s>>>(a);
+  encode_kernel<false>
+      <<<static_cast<unsigned>(tiles), kEncodeThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+FLRL_API int flrl_rl_encode_starts(const void* x, int64_t n, void* out,
+                                   void* meta, int device, void* stream) {
+  if (n < 0 || n > kEncodeMaxBytes || misaligned(x) || misaligned(out))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaSuccess;
+  const int64_t tiles = (n + kEncodeTile - 1) / kEncodeTile;
+  int64_t* m = static_cast<int64_t*>(meta);
+  uint64_t* status = reinterpret_cast<uint64_t*>(m + 2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(status, 0, (tiles + 1) * sizeof(uint64_t), s);
+  if (err != cudaSuccess) return err;
+  const EncodeArgs a{static_cast<const uint8_t*>(x),
+                     static_cast<int32_t>(n),
+                     -1,
+                     0,
+                     static_cast<uint8_t*>(out),
+                     nullptr,
+                     m,
+                     status,
+                     reinterpret_cast<unsigned*>(status + tiles)};
+  encode_kernel<true>
+      <<<static_cast<unsigned>(tiles), kEncodeThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 

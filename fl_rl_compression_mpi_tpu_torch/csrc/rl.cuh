@@ -54,6 +54,15 @@ FLRL_API int flrl_rl_encode(const void* x, int64_t n, int prev, int64_t d0,
                             void* values, void* counts, void* meta,
                             int device, void* stream);
 
+// The same pieces of a whole stream x[n] (no carry: prev -1, d0 0), each
+// stored as one int32 value | (start & 0xFF) << 8, start its position in x:
+// out[0..R), out holding n int32 (R <= n), meta[0] = R.  The counts follow
+// from consecutive starts mod 256 (every piece is at most 255 bytes), the
+// last one from n.  Scratch, alignment and limits as flrl_rl_encode's; n = 0
+// launches nothing.
+FLRL_API int flrl_rl_encode_starts(const void* x, int64_t n, void* out,
+                                   void* meta, int device, void* stream);
+
 // offs[0..T], T = ceil(R / 4096): exclusive scan of the output bytes of
 // each tile of runs; offs[T] = sum of counts.  One launch, a block a group
 // of kRunGroup tiles.  counts is 16-byte aligned; offs holds

@@ -2,7 +2,7 @@
 
 The sources have a plain C interface (``csrc/fl_dense.cuh``,
 ``csrc/fl_fields.cuh``, ``csrc/fl_constant.cuh``, ``csrc/rl.cuh``,
-``csrc/copy_probe.cuh``, ``csrc/lanes.cuh``), so
+``csrc/copy_probe.cuh``, ``csrc/lanes.cuh``, ``csrc/tile_packed.cuh``), so
 ``nvcc`` compiles them in seconds, one process per source, all started
 together, and links the objects into one shared library that ``ctypes``
 loads.  No PyTorch headers are involved.  The library lands in
@@ -53,9 +53,14 @@ _SIGNATURES = {
                                  _P]),
     "flrl_const_decode": (_INT, [_P, _I64, _INT, _INT, _P, _I64, _P, _INT,
                                  _P]),
-    "flrl_copy_probe": (_INT, [_P, _P, _I64, _INT, _P]),
+    "flrl_rl_encode_starts": (_INT, [_P, _I64, _P, _P, _INT, _P]),
+    "flrl_copy_probe": (_INT, [_P, _P, _I64, _INT, _INT, _P]),
     "flrl_tile_op": (_INT, [_INT, _P, _I64, _INT, _P, _P, _INT, _I64, _INT,
                             _P]),
+    "flrl_tile_packed_encode": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _INT,
+                                       _P]),
+    "flrl_tile_packed_decode": (_INT, [_P, _P, _P, _I64, _INT, _P, _P, _INT,
+                                       _P]),
     "flrl_cuda_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's ``ops/lanes.py`` as its test harness runs
 it (the Pallas kernel ``_run`` of ``tests/test_lanes.py:18``, one lane
-function over an ``(R, 128)`` int32 tile).  A tile is ``rows × 128`` int32
-in flat row-major order, ``rows`` a power of two from 8 to 256; a tensor of
-shape ``(..., rows, 128)`` holds any number of independent tiles.  One
+function over an ``(R, 128)`` int32 tile), and of the round-latency probe
+``make`` of ``experiments/exp33_round_latency.py:42``.  A tile is
+``rows × 128`` int32 in flat row-major order, ``rows`` a power of two from
+8 to 256; a tensor of shape ``(..., rows, 128)`` holds any number of
+independent tiles.  One
 kernel, ``flrl_tile_op`` in ``csrc/lanes.cu``, computes every op; the
 wrappers keep ``ops/lanes.py``'s names:
 
@@ -18,6 +20,7 @@ wrappers keep ``ops/lanes.py``'s names:
 ``suffix_min_flat``        inclusive suffix min (from ``fill``)
 ``compact_lsb``            each live route word down by its distance
 ``expand_msb``             each live route word up by its distance
+``rounds``                 d rounds of y = 3·y + roll(y, 1) on each row
 =========================  ===============================================
 
 A route word is ``live<<31 | dist<<16 | payload16`` (``pack_route``); a live
@@ -29,7 +32,8 @@ two words meet) the direct scatter gives the same words.
 
 A wrapper given CPU tensors returns its plain version (``*_ref``); given
 CUDA tensors it launches the kernel on the current stream or raises.  Each
-launch adds one to ``LAUNCHES["tile_op"]``.  A tensor of no tiles launches
+launch adds one to ``LAUNCHES["tile_op"]``, a launch of ``rounds`` to
+``LAUNCHES["tile_rounds"]``.  A tensor of no tiles launches
 nothing.  A dynamic shift reads its m on the device: nothing is read back.
 """
 
@@ -50,9 +54,10 @@ DIST_SHIFT = 16
 MAX_NBITS = 15               # the dist field is bits 16..30
 # op names in the order of csrc/lanes.cuh's FlrlTileOp
 OPS = ("shift_down", "shift_up", "shift_down_dyn", "shift_up_dyn",
-       "prefix_max", "prefix_sum", "suffix_min", "compact", "expand")
+       "prefix_max", "prefix_sum", "suffix_min", "compact", "expand",
+       "rounds")
 
-LAUNCHES = {"tile_op": 0}
+LAUNCHES = {"tile_op": 0, "tile_rounds": 0}
 
 
 def reset_launches() -> None:
@@ -90,8 +95,9 @@ def _wrap32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_op(op: str, x: torch.Tensor, aux: int = 0, fill: int = 0,
-             m_dev: torch.Tensor | None = None) -> torch.Tensor:
-    rows = x.shape[-2]
+             m_dev: torch.Tensor | None = None, rows: int | None = None,
+             counter: str = "tile_op") -> torch.Tensor:
+    rows = x.shape[-2] if rows is None else rows
     _aligned(x, "x")
     out = torch.empty_like(x)
     tiles = x.numel() // (rows * LANES)
@@ -99,7 +105,7 @@ def _tile_op(op: str, x: torch.Tensor, aux: int = 0, fill: int = 0,
         _launch("flrl_tile_op", OPS.index(op), x.data_ptr(), aux, fill,
                 None if m_dev is None else m_dev.data_ptr(), out.data_ptr(),
                 rows, tiles, x.device.index, _stream(x))
-        count_launch(LAUNCHES, "tile_op", x.device)
+        count_launch(LAUNCHES, counter, x.device)
     return out
 
 
@@ -287,3 +293,35 @@ def expand_msb(w: torch.Tensor, nbits: int) -> torch.Tensor:
     if not _on_cuda(w):
         return expand_msb_ref(w, nbits)
     return _tile_op("expand", w, nbits)
+
+
+# ---------------------------------------------------------------------------
+# Dependent rounds
+# ---------------------------------------------------------------------------
+
+def _check_rounds(x: torch.Tensor, d: int) -> None:
+    if (x.dtype != torch.int32 or x.dim() < 2 or x.shape[-1] != LANES
+            or not x.is_contiguous() or (x.numel() // LANES) % MIN_ROWS):
+        raise ValueError(f"x: expected a contiguous int32 tensor of shape "
+                         f"(..., rows, {LANES}), rows in all a multiple of "
+                         f"{MIN_ROWS}, got {x.dtype} {tuple(x.shape)}")
+    if not isinstance(d, int) or not 0 <= d <= I32MAX:
+        raise ValueError(f"d must be a non-negative int32, got {d!r}")
+
+
+def rounds_ref(x: torch.Tensor, d: int) -> torch.Tensor:
+    y = x.to(torch.int64)
+    for _ in range(d):
+        y = (y * 3 + torch.roll(y, 1, dims=-1)) & 0xFFFFFFFF
+    return _wrap32(y)
+
+
+def rounds(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``d`` rounds of y[l] = 3·y[l] + y[l − 1 mod 128] on each row of 128,
+    wrapping as int32 does; any number of rows that is a multiple of 8 (the
+    kernel takes them as 8-row tiles)."""
+    _check_rounds(x, d)
+    if not _on_cuda(x):
+        return rounds_ref(x, d)
+    _aligned(x, "x")
+    return _tile_op("rounds", x, d, rows=MIN_ROWS, counter="tile_rounds")

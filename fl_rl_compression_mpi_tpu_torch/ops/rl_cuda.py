@@ -12,11 +12,16 @@ kernels live in ``csrc/rl.cu``; their wrappers here are
 ``run_offsets``     per 4096-run tile: its output offset; the output size
                     (one launch, a single-pass look-back scan)
 ``expand``          counts + values → bytes
+``encode_starts``   a whole stream → each piece as one int32
+                    ``value | (start & 0xFF) << 8`` and their number
+                    (the encode's kernel in its starts mode)
 ==================  =================================================
 
 The first two (one kernel) replace ``rl_encode_pallas`` (+
-``rl_split_packed``), the last two ``_decode_impl`` behind
-``rl_decode_pallas`` and ``rl_decode_packed_pallas``.
+``rl_split_packed``), the next two ``_decode_impl`` behind
+``rl_decode_pallas`` and ``rl_decode_packed_pallas``, and
+``encode_starts`` the starts-routing encode ``rl_encode_v2`` of
+``experiments/exp30_rl_starts.py:189``.
 
 Encode works on one chunk of the stream with a carry-in from the chunk
 before it: ``prev``, that chunk's last byte (-1 for none), and ``d0``, the
@@ -54,7 +59,8 @@ TILE = 4096
 RUN_GROUP = 16
 _NONE = torch.iinfo(torch.int64).min   # meta[1]: no natural start in the chunk
 
-LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0}
+LAUNCHES = {"rl_encode": 0, "rl_offsets": 0, "rl_expand": 0,
+            "rl_encode_starts": 0}
 
 
 def reset_launches() -> None:
@@ -105,6 +111,20 @@ def encode_chunk_ref(x: torch.Tensor, prev: int = -1, d0: int = 0):
     natural = _natural(x, prev).nonzero()
     run_start = int(natural[-1]) if natural.numel() else -d0
     return x[pos], counts, run_start
+
+
+def encode_starts_ref(x: torch.Tensor):
+    """``(packed int32[n], total int64[1])`` of the stream ``x`` u8[n]:
+    each piece as ``value | (start & 0xFF) << 8``, start its position in
+    x, then zeros; total the number of pieces."""
+    n = x.numel()
+    packed = torch.zeros(n, dtype=torch.int32, device=x.device)
+    pos = (_pieces(x, -1, 0) if n
+           else torch.zeros(0, dtype=torch.int64, device=x.device))
+    packed[:pos.numel()] = (x[pos].to(torch.int32)
+                            | ((pos & 0xFF) << 8).to(torch.int32))
+    return packed, torch.tensor([pos.numel()], dtype=torch.int64,
+                                device=x.device)
 
 
 def run_offsets_ref(counts: torch.Tensor) -> torch.Tensor:
@@ -188,6 +208,30 @@ def encode_device(x: torch.Tensor):
     counts = torch.zeros(n, dtype=torch.uint8, device=x.device)
     values, meta = _encode(x, -1, 0, counts)
     return counts, values, meta[:1]
+
+
+def encode_starts(x: torch.Tensor):
+    """``(packed int32[n], total int64[1])`` of the whole stream ``x``
+    u8[n]; see :func:`encode_starts_ref`.  Entries at and past ``total``
+    are unspecified; nothing is read back.  One launch of at most
+    ``ENCODE_MAX_BYTES`` bytes; more raises a ValueError."""
+    _check(x, "x", torch.uint8)
+    n = x.numel()
+    if n > ENCODE_MAX_BYTES:
+        raise ValueError(f"x: {n} bytes, more than the {ENCODE_MAX_BYTES} "
+                         "(2^30) one RL encode launch takes")
+    if not _on_cuda(x) or n == 0:
+        return encode_starts_ref(x)
+    _aligned(x, "x")
+    packed = torch.empty(n, dtype=torch.int32, device=x.device)
+    # R, an unused word, then the tiles' status words and the ticket (the
+    # launcher clears those on the stream)
+    meta = torch.empty(2 + _tiles(n, ENCODE_TILE) + 1, dtype=torch.int64,
+                       device=x.device)
+    _launch("flrl_rl_encode_starts", x.data_ptr(), n, packed.data_ptr(),
+            meta.data_ptr(), x.device.index, _stream(x))
+    count_launch(LAUNCHES, "rl_encode_starts", x.device)
+    return packed, meta[:1]
 
 
 def run_offsets(counts: torch.Tensor) -> torch.Tensor:

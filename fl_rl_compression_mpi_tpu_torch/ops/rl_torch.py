@@ -159,6 +159,32 @@ def decode_device(counts: torch.Tensor, values: torch.Tensor,
     return kern.expand(counts, values, kern.run_offsets(counts), n)
 
 
+def starts_counts(packed: torch.Tensor, total, n: int):
+    """``(counts u8[m], values u8[m])`` of the starts stream ``packed``
+    int32[m] (``value | (start & 0xFF) << 8`` a piece, ``total`` of them,
+    an int or a one-element tensor on its device) of an n-byte stream:
+    each count the next piece's start less its own mod 256, the last one
+    from n, and zero counts at and past ``total``.  A tensor expression on
+    the device: nothing is read back."""
+    m = packed.numel()
+    total = torch.as_tensor(total, device=packed.device).reshape(1)
+    s8 = (packed >> 8) & 0xFF
+    idx = torch.arange(m, device=packed.device)
+    nxt = torch.where(idx == total - 1, n & 0xFF, torch.roll(s8, -1))
+    counts = torch.where(idx < total, (nxt - s8) & 0xFF, 0)
+    return counts.to(torch.uint8), (packed & 0xFF).to(torch.uint8)
+
+
+def decode_starts(packed: torch.Tensor, total, n: int) -> torch.Tensor:
+    """The n bytes u8[n] of the starts stream ``packed`` with ``total``
+    pieces (see :func:`starts_counts`): the counts by a tensor expression,
+    then ``flrl_rl_run_offsets`` and ``flrl_rl_expand`` over every entry
+    (those at and past ``total`` expand to nothing).  The counterpart of
+    ``rl_decode_packed_v2`` of ``experiments/exp30_rl_starts.py``."""
+    counts, values = starts_counts(packed, total, n)
+    return decode_device(counts, values, n)
+
+
 def _block_ends(counts: np.ndarray) -> np.ndarray:
     """Output offset after each block of 4096 runs (the last is the
     output size): 8 bytes per 4096 runs, not per run."""

@@ -94,6 +94,15 @@ def np_wrap(v):
     return _i32(v).astype(np.int64)
 
 
+def np_rounds(a, d):
+    """d rounds of y·3 + roll(y, 1) on each row of 128, wrapping mod 2^32
+    (experiments/exp33_round_latency.py's function)."""
+    z = np.asarray(a, np.int64).reshape(-1, 128) & 0xFFFFFFFF
+    for _ in range(d):
+        z = (z * 3 + np.roll(z, 1, 1)) & 0xFFFFFFFF
+    return np_wrap(z.reshape(-1))
+
+
 def compaction(g, n, density, offset=0, high_bits=0, nbits=10):
     """Route words of a stream compaction: the live words keep a payload,
     distances p − (live words before p) + offset, and ``high_bits`` random
@@ -339,6 +348,7 @@ def _cases(n, g, nbits):
                     lambda a: np_route(a, nbits, -1), cw),
         "expand": (lambda t: lk.expand_msb(t, nbits),
                    lambda a: np_route(a, nbits, 1), ew),
+        "rounds": (lambda t: lk.rounds(t, 64), lambda a: np_rounds(a, 64), x),
     }
 
 

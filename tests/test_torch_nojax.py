@@ -17,6 +17,11 @@ import fl_rl_compression_mpi_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
         importlib.import_module(m.name)
+# the walk reached the experiment entry points; none ran its main (which
+# prints its device first: this program's output is "ok" alone)
+for name in ("exp21_tile_packed", "exp22_tile_packed2", "exp30_rl_starts",
+             "exp33_round_latency", "exp6_r2_tuning"):
+    assert pkg.__name__ + ".experiments." + name in sys.modules, name
 import chip_smoke
 import chip_routes
 import chip_dist
