@@ -3529,7 +3529,7 @@ EXP_COPY_MIB = 256                 # exp6's N
 # on 132 SMs at the 1.98 GHz maximum boost clock
 INT32_MAD_PER_S = 64 * 132 * 1.98e9
 OPS_BOUND_MS: dict = {}            # name -> operations over their peak rate
-EXP_MS: dict = {}                  # the phase's other timed lines, by name
+EXP_SCAN_TILES = 3 * 1024 + 5      # past the offsets scan's 1024-tile step
 
 
 def tile_words(gen, R: int, kinds=EXP_TILE_KINDS) -> torch.Tensor:
@@ -3551,6 +3551,16 @@ def tile_words(gen, R: int, kinds=EXP_TILE_KINDS) -> torch.Tensor:
             t[-1, -1] = 1 << (b - 1)
         tiles.append(t)
     return torch.cat(tiles).view(torch.int32).view(-1, 128)
+
+
+def many_tiles(gen, R: int, tiles: int) -> torch.Tensor:
+    """int32 words (tiles·R, 128) on the card, each tile of a random width
+    in 0, 1, 2, 3, 4, 5, 8, so the tiles' row counts vary."""
+    widths = torch.tensor((0, 1, 2, 3, 4, 5, 8), device=DEVICE)
+    b = widths[torch.randint(0, 7, (tiles, 1), generator=gen, device=DEVICE)]
+    t = torch.randint(0, 256, (tiles, R * 512), generator=gen, device=DEVICE,
+                      dtype=torch.int32) & ((1 << b) - 1)
+    return t.to(torch.uint8).view(torch.int32).view(-1, 128)
 
 
 def check_tile_packed(words: torch.Tensor, R: int, layout: str) -> None:
@@ -3581,20 +3591,20 @@ def check_starts(x: torch.Tensor) -> None:
 
 
 def experiments_path(gen) -> dict:
-    """The path these kernels serve: each experiment entry point once, as
-    its script's main runs it (exp21's and exp22's packed round trip at
-    R = 1024 on 4 MiB of width-4 words, exp30's encode and decode on
-    exp30's ``long`` kind, exp33's rounds, exp6's copy), every output held
-    against its plain version or the input.  The counts are set to 0 just
-    before and read just after; each call must count exactly its own
-    launches.  Returns the counts."""
-    words = torch.randint(0, 16, (4 * MIB,), generator=gen, device=DEVICE,
-                          dtype=torch.uint8).view(torch.int32)
+    """The path these kernels serve: each experiment entry point once, at
+    its script's size (exp21's and exp22's packed round trip at R = 1024 on
+    256 MiB of width-4 words, exp30's encode and decode on 64 MiB of
+    exp30's ``long`` kind, exp33's rounds on 32 MiB, exp6's copy on
+    256 MiB), every output held against its plain version or the input.
+    The counts are set to 0 just before and read just after; each call
+    must count exactly its own launches.  Returns the counts."""
+    words = torch.randint(0, 16, (EXP_PACKED_MIB * MIB,), generator=gen,
+                          device=DEVICE, dtype=torch.uint8).view(torch.int32)
     nrows = words.numel() // 128
-    host = exp30.gen(10, 4 * MIB + 13, "long")
-    x30 = torch.from_numpy(np.concatenate(
-        [host, np.zeros(-host.size % 128, np.uint8)])).to(DEVICE)
-    x33 = torch.randint(-(1 << 31), 1 << 31, (512, 128), generator=gen,
+    host = exp30.gen(10, EXP_RL_MIB * MIB, "long")
+    x30 = torch.from_numpy(host).to(DEVICE)
+    x33 = torch.randint(-(1 << 31), 1 << 31,
+                        (EXP_ROUNDS_MIB * MIB // 512, 128), generator=gen,
                         dtype=torch.int64, device=DEVICE).to(torch.int32)
 
     def exp30_pair():
@@ -3609,7 +3619,8 @@ def experiments_path(gen) -> dict:
          pair),
         ("exp30", exp30_pair,
          {"rl_encode_starts": 1, "rl_offsets": 1, "rl_expand": 1}),
-        ("exp33", lambda: exp33.make(8, 512, 1)(x33, 1), {"tile_rounds": 1}),
+        ("exp33", lambda: exp33.make(8, x33.shape[0], 1)(x33, 1),
+         {"tile_rounds": 1}),
         ("exp6", lambda: exp6.copy_words(words), {"copy_words": 1}),
     )
     torch.cuda.synchronize()
@@ -3632,14 +3643,17 @@ def experiments_path(gen) -> dict:
         raise AssertionError("exp30: the starts round trip differs")
     compare("tile_rounds", outs["exp33"], lk.rounds_ref(x33, exp33.D))
     compare("copy_words", outs["exp6"].view(-1), words)
+    del words, x30, x33, outs
+    torch.cuda.empty_cache()
     return launches
 
 
 def phase_experiments_classes(gen, rng) -> int:
     """Each new kernel against its plain version: the tile-packed codec at
     R in EXP_R on tiles of widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile
-    (every depth), both layouts, then EXP_CALLS round trips on reused
-    memory; the starts encode on exp30's five kinds at 4 MiB + 13 bytes
+    (every depth), both layouts, then EXP_SCAN_TILES tiles of 8 rows and
+    random widths (the cursor layout's offsets scan carries its sum past
+    1024 tiles), then EXP_CALLS round trips on reused memory; the starts encode on exp30's five kinds at 4 MiB + 13 bytes
     and on small streams; the rounds at 8 and 512 rows (0, 1 and 64
     rounds); the copy on word counts 1, 3, 4, 5 and 2048·128, at an
     unaligned start, and on 64 MiB."""
@@ -3651,6 +3665,10 @@ def phase_experiments_classes(gen, rng) -> int:
             cases += 1
         if tpk.depths(tpk.encode(words, R)[0], R).tolist() != EXP_DEPTHS:
             raise AssertionError(f"tile_packed: R={R} missed a depth")
+    words = many_tiles(gen, 8, EXP_SCAN_TILES)
+    for layout in tpk.LAYOUTS:
+        check_tile_packed(words, 8, layout)
+        cases += 1
     words = tile_words(gen, 64, EXP_TILE_KINDS * 4)
     for c in range(EXP_CALLS):
         # another order of the tiles each call, each result freed first
@@ -3685,76 +3703,89 @@ def phase_experiments_classes(gen, rng) -> int:
     return cases + 1
 
 
-def time_pair(name: str, kernel, plain, nbytes: int) -> tuple:
-    """Both times of the kernel, the plain version's single call, and the
-    bytes its call must move."""
+def time_pair(name: str, kernel, plain, nbytes: int, check) -> tuple:
+    """Both times of the kernel and the plain version's single call, after
+    ``check(kernel(), plain())`` has held the two outputs against each
+    other on the same inputs; records the bytes its call must move."""
+    check(kernel(), plain())
     MOVED[name] = nbytes
     return kernel_ms(name, kernel), cuda_ms(plain)
 
 
 def time_experiments(gen) -> dict:
-    """Each new kernel at its script's size, both ways, beside its bound:
-    the tile-packed encode and decode (cursor layout, R = 1024) on 256 MiB
-    of width-4 words (exp21's chains; the sparse layout and widths 1 and
-    8 on EXP_MS lines), the starts encode on 64 MiB of exp30's ``long``,
-    the rounds on 32 MiB (64 rounds), the copy on 256 MiB beside
-    ``clone`` (its library row) and ``copy_``.  The tile-packed bounds
-    count this run's packed rows."""
+    """Each new kernel at its script's size, both ways, beside its bound
+    and its plain version, whose output it must equal there: the
+    tile-packed encode and decode (cursor layout, R = 1024) on 256 MiB of
+    width-4 words (exp21's first chain; the bound counts this run's packed
+    rows), the starts encode on 64 MiB of exp30's ``long``, the rounds on
+    32 MiB (64 rounds), the copy on 256 MiB beside ``clone`` (its library
+    row) and ``copy_``.  The exp21 and exp22 mains time the other widths
+    and the sparse layout."""
     timings = {}
     N = EXP_PACKED_MIB * MIB
     R = EXP_PACKED_R
-    for top, tag in ((16, "w4"), (2, "w1"), (256, "w8")):
-        words = torch.randint(0, top, (N,), generator=gen, device=DEVICE,
-                              dtype=torch.uint8).view(torch.int32)
-        for layout in tpk.LAYOUTS:
-            bits, packed, offs = tpk.encode(words, R, layout)
-            # words in (out), widths, offsets and this run's packed rows
-            nbytes = (N + bits.numel() + int(tpk.tile_rows(bits, R).sum())
-                      * 512 + (offs.numel() * 4 if offs is not None else 0))
-            enc = lambda: tpk.encode(words, R, layout)
-            dec = lambda: tpk.decode(bits, packed, R, offs)
-            if (tag, layout) == ("w4", "cursor"):
-                timings["tile_packed_encode"] = time_pair(
-                    "tile_packed_encode", enc,
-                    lambda: tpk.encode_ref(words, R, layout), nbytes)
-                timings["tile_packed_decode"] = time_pair(
-                    "tile_packed_decode", dec,
-                    lambda: tpk.decode_ref(bits, packed, R, offs), nbytes)
-            else:
-                for name, fn in ((f"tile_packed_encode {layout} {tag}", enc),
-                                 (f"tile_packed_decode {layout} {tag}", dec)):
-                    MOVED[name] = nbytes
-                    EXP_MS[name] = {"ms": cuda_ms(fn),
-                                    "launch_ms": launch_ms(fn),
-                                    "bound_ms": bound_ms(name)}
-            del bits, packed, offs
-        del words
-        torch.cuda.empty_cache()
+    layout = "cursor"
+    words = torch.randint(0, 16, (N,), generator=gen, device=DEVICE,
+                          dtype=torch.uint8).view(torch.int32).view(-1, 128)
+    bits, packed, offs = tpk.encode(words, R, layout)
+    # words in (out), widths, offsets and this run's packed rows
+    nbytes = (N + bits.numel() + int(tpk.tile_rows(bits, R).sum()) * 512
+              + offs.numel() * 4)
+
+    def check_encode(got, want):
+        compare("tile_packed_encode", got[0], want[0])
+        compare("tile_packed_encode", got[2], want[2])
+        rows = tpk.defined_rows(want[0], R, want[2])
+        compare("tile_packed_encode", got[1][rows], want[1][rows])
+
+    def check_decode(got, want):
+        compare("tile_packed_decode", got, want)
+        compare("tile_packed_decode", got, words)
+
+    timings["tile_packed_encode"] = time_pair(
+        "tile_packed_encode", lambda: tpk.encode(words, R, layout),
+        lambda: tpk.encode_ref(words, R, layout), nbytes, check_encode)
+    timings["tile_packed_decode"] = time_pair(
+        "tile_packed_decode", lambda: tpk.decode(bits, packed, R, offs),
+        lambda: tpk.decode_ref(bits, packed, R, offs), nbytes, check_decode)
+    del words, bits, packed, offs
+    torch.cuda.empty_cache()
     host = exp30.gen(10, EXP_RL_MIB * MIB, "long")
     x = torch.from_numpy(host).to(DEVICE)
     _, total = rk.encode_starts(x)
+
+    def check_starts_out(got, want):
+        compare("rl_encode_starts", got[1], want[1])
+        T = int(want[1])
+        compare("rl_encode_starts", got[0][:T], want[0][:T])
+
     timings["rl_encode_starts"] = time_pair(
         "rl_encode_starts", lambda: rk.encode_starts(x),
-        lambda: rk.encode_starts_ref(x), x.numel() + 4 * int(total))
+        lambda: rk.encode_starts_ref(x), x.numel() + 4 * int(total),
+        check_starts_out)
     del x
     rows = EXP_ROUNDS_MIB * MIB // 512
     y = torch.randint(0, 1 << 30, (rows, 128), generator=gen,
                       dtype=torch.int64, device=DEVICE).to(torch.int32)
     timings["tile_rounds"] = time_pair(
         "tile_rounds", lambda: lk.rounds(y, exp33.D),
-        lambda: lk.rounds_ref(y, exp33.D), 2 * y.numel() * 4)
+        lambda: lk.rounds_ref(y, exp33.D), 2 * y.numel() * 4,
+        lambda got, want: compare("tile_rounds", got, want))
     OPS_BOUND_MS["tile_rounds"] = y.numel() * exp33.D / INT32_MAD_PER_S * 1e3
     del y
     w = torch.randint(0, 16, (EXP_COPY_MIB * MIB,), generator=gen,
                       device=DEVICE, dtype=torch.uint8).view(torch.int32)
     out = torch.empty_like(w)
+
+    def check_copy(got, want):
+        compare("copy_words", got, want)
+        compare("copy_words", got, w)
+
     timings["copy_words"] = time_pair(
         "copy_words", lambda: cpk.copy(w), lambda: cpk.copy_ref(w),
-        2 * w.numel() * 4)
+        2 * w.numel() * 4, check_copy)
     library_ms("copy_words", lambda: w.clone())
-    EXP_MS["copy_words copy_"] = {"ms": cuda_ms(lambda: out.copy_(w)),
-                                  "launch_ms": launch_ms(
-                                      lambda: out.copy_(w))}
+    copy_ms = (cuda_ms(lambda: out.copy_(w)), launch_ms(lambda: out.copy_(w)))
     del w, out
     torch.cuda.empty_cache()
     for name, (ms, plain) in timings.items():
@@ -3766,12 +3797,10 @@ def time_experiments(gen) -> dict:
             + f" (median of 5 single calls); a launch over a run of {RUN}: "
             f"{LAUNCH_MS[name]:.4f} ms kernel"
             + (f", {LIBRARY_LAUNCH_MS[name]:.4f} ms clone"
-               if lib is not None else ""))
-    for name, ms in EXP_MS.items():
-        say(f"[experiments] {name}: {ms['ms']:.4f} ms single, "
-            f"{ms['launch_ms']:.4f} ms a launch over a run of {RUN}"
-            + (f", {ms['bound_ms']:.4f} ms bound" if "bound_ms" in ms
-               else ""))
+               if lib is not None else "")
+            + "; its output equals the plain version's")
+    say(f"[experiments] copy_words beside copy_: {copy_ms[0]:.4f} ms single, "
+        f"{copy_ms[1]:.4f} ms a launch over a run of {RUN}")
     return timings
 
 

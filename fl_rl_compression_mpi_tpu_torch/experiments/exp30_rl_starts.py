@@ -6,7 +6,7 @@ position in the stream, so that counts come later as differences of
 consecutive starts mod 256 (every piece is at most 255 bytes; the last is
 closed by the stream's length).  The kernel is ``flrl_rl_encode`` in its
 starts mode (``rl_cuda.encode_starts``); the decode turns the starts into
-counts by a tensor expression and runs the RL decode's kernels
+counts by a few byte-wise tensor passes and runs the RL decode's kernels
 (``rl_torch.decode_starts``).
 
 Measures what the JAX script measured: parity of the encode (against

@@ -95,9 +95,8 @@ def _wrap32(v: torch.Tensor) -> torch.Tensor:
 
 
 def _tile_op(op: str, x: torch.Tensor, aux: int = 0, fill: int = 0,
-             m_dev: torch.Tensor | None = None, rows: int | None = None,
-             counter: str = "tile_op") -> torch.Tensor:
-    rows = x.shape[-2] if rows is None else rows
+             m_dev: torch.Tensor | None = None) -> torch.Tensor:
+    rows = x.shape[-2]
     _aligned(x, "x")
     out = torch.empty_like(x)
     tiles = x.numel() // (rows * LANES)
@@ -105,7 +104,7 @@ def _tile_op(op: str, x: torch.Tensor, aux: int = 0, fill: int = 0,
         _launch("flrl_tile_op", OPS.index(op), x.data_ptr(), aux, fill,
                 None if m_dev is None else m_dev.data_ptr(), out.data_ptr(),
                 rows, tiles, x.device.index, _stream(x))
-        count_launch(LAUNCHES, counter, x.device)
+        count_launch(LAUNCHES, "tile_op", x.device)
     return out
 
 
@@ -324,4 +323,10 @@ def rounds(x: torch.Tensor, d: int) -> torch.Tensor:
     if not _on_cuda(x):
         return rounds_ref(x, d)
     _aligned(x, "x")
-    return _tile_op("rounds", x, d, rows=MIN_ROWS, counter="tile_rounds")
+    out = torch.empty_like(x)
+    tiles = x.numel() // (MIN_ROWS * LANES)
+    if tiles:
+        _launch("flrl_tile_op", OPS.index("rounds"), x.data_ptr(), d, 0, None,
+                out.data_ptr(), MIN_ROWS, tiles, x.device.index, _stream(x))
+        count_launch(LAUNCHES, "tile_rounds", x.device)
+    return out

@@ -164,20 +164,30 @@ def starts_counts(packed: torch.Tensor, total, n: int):
     int32[m] (``value | (start & 0xFF) << 8`` a piece, ``total`` of them,
     an int or a one-element tensor on its device) of an n-byte stream:
     each count the next piece's start less its own mod 256, the last one
-    from n, and zero counts at and past ``total``.  A tensor expression on
-    the device: nothing is read back."""
+    from n, and zero counts at and past ``total``.  A few passes on the
+    device, in bytes where they can be: nothing is read back."""
     m = packed.numel()
-    total = torch.as_tensor(total, device=packed.device).reshape(1)
-    s8 = (packed >> 8) & 0xFF
-    idx = torch.arange(m, device=packed.device)
-    nxt = torch.where(idx == total - 1, n & 0xFF, torch.roll(s8, -1))
-    counts = torch.where(idx < total, (nxt - s8) & 0xFF, 0)
-    return counts.to(torch.uint8), (packed & 0xFF).to(torch.uint8)
+    dev = packed.device
+    if m == 0:
+        return (torch.zeros(0, dtype=torch.uint8, device=dev),
+                torch.zeros(0, dtype=torch.uint8, device=dev))
+    total = torch.as_tensor(total, device=dev).reshape(1).to(torch.int64)
+    # bytes 0 and 1 of each little-endian int32: the value and the start
+    b = packed.reshape(-1).contiguous().view(torch.uint8).view(m, 4)
+    s8 = b[:, 1]
+    counts = torch.empty(m, dtype=torch.uint8, device=dev)
+    torch.sub(s8[1:], s8[:-1], out=counts[:-1])     # wraps mod 256
+    counts[-1:] = 0
+    last = (total - 1).clamp_(min=0)
+    counts.scatter_(0, last, (n & 0xFF) - s8.gather(0, last))
+    counts.masked_fill_(
+        torch.arange(m, dtype=torch.int32, device=dev) >= total, 0)
+    return counts, b[:, 0].contiguous()
 
 
 def decode_starts(packed: torch.Tensor, total, n: int) -> torch.Tensor:
     """The n bytes u8[n] of the starts stream ``packed`` with ``total``
-    pieces (see :func:`starts_counts`): the counts by a tensor expression,
+    pieces (see :func:`starts_counts`): the counts by a few tensor passes,
     then ``flrl_rl_run_offsets`` and ``flrl_rl_expand`` over every entry
     (those at and past ``total`` expand to nothing).  The counterpart of
     ``rl_decode_packed_v2`` of ``experiments/exp30_rl_starts.py``."""
