@@ -220,19 +220,26 @@ Phases, each printing a line and failing the run on any error:
               packed round trip, exp30's encode and decode, exp33's rounds
               and exp6's copy, each once, the counts set to 0 just before
               and read just after (each call exactly its launches), every
-              output against its plain version or its input; then the
-              tile-packed codec at R in {8, 64, 1024, 2048} on tiles of
-              widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile (every depth),
-              both layouts, and twenty round trips on reused memory; the
+              output against its plain version or its input (exp21 and
+              exp22 at R = 1024 on the encode's cluster route); then the
+              tile-packed codec at R in {8, 64, 1024, 2048, 6144, 6152}
+              (6144 the cluster route's last R, 6152 the first past it) on
+              tiles of widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile (every
+              depth),
+              both layouts, the encode on the route R takes (each call
+              counting one launch of its route's key), 3,077 tiles of 8
+              rows (the cursor's look-back past many tickets, and the
+              two-pass route's offsets scan past 1024 tiles), and twenty
+              round trips on reused memory; the
               starts encode on exp30's five kinds at 4 MiB + 13 bytes and on
               small streams; the rounds at 8 and 512 rows; the copy on word
               counts 1, 3, 4, 5 and 2048·128, at an unaligned start and on
               64 MiB, each against its plain version, from a generator of
               their own (SEED + 11); then each timed at its script's size
               both ways beside its bound: the codec (R = 1024) on 256 MiB of
-              width-4 words (and each layout at widths 1, 4 and 8 on
-              `[experiments]` lines), the starts encode on 64 MiB of exp30's
-              `long`, the rounds on 32 MiB (64 rounds; bound by operations,
+              width-4 words (its encode also at widths 1 and 8 on
+              `[experiments]` lines), the starts encode on 64 MiB of
+              exp30's `long`, the rounds on 32 MiB (64 rounds; bound by operations,
               int32 multiply-adds at 64 a clock an SM), the copy on 256 MiB
               beside `clone` (its library row) and `copy_`.
 
@@ -354,6 +361,7 @@ ALL_REPLACES = {**REPLACES, **FIELDS_REPLACES, **RL_REPLACES,
                 **CONST_REPLACES, **COPY_REPLACES, **LANES_REPLACES,
                 **EXP_REPLACES}
 MAX_ERR = {name: 0 for name in ALL_REPLACES}
+MAX_ERR["tile_packed_encode_2pass"] = 0   # the encode's route past R = 6,144
 # Bytes each timed kernel call must move (every input read once, every
 # output written once), and the time of one PyTorch call that computes the
 # same function on the same inputs, where there is one.
@@ -3512,7 +3520,9 @@ def phase_lanes() -> tuple:
 # starts mode, the flat-tile kernel's rounds op and the copy
 # ---------------------------------------------------------------------------
 
-EXP_R = (8, 64, 1024, 2048)
+# 6144 the cluster route's last R (csrc/tile_packed.cuh's cluster_fits),
+# 6152 the first past it
+EXP_R = (8, 64, 1024, 2048, 6144, 6152)
 # a tile's widths (tile_words): 0 all zero bytes, b random bytes of width b,
 # "mix" a width-1 tile with one frame of width 3
 EXP_TILE_KINDS = ("0", "1", "2", "3", "4", "5", "8", "mix")
@@ -3563,16 +3573,27 @@ def many_tiles(gen, R: int, tiles: int) -> torch.Tensor:
     return t.to(torch.uint8).view(torch.int32).view(-1, 128)
 
 
-def check_tile_packed(words: torch.Tensor, R: int, layout: str) -> None:
-    """Encode and decode against their plain versions: widths, offsets,
-    the packed rows the layout defines, and the round trip."""
-    bits, packed, offs = tpk.encode(words, R, layout)
+def check_tile_packed(words: torch.Tensor, R: int, layout: str,
+                      two_pass: bool = False) -> None:
+    """Encode (on the route R takes, or with ``two_pass`` on the two-pass
+    route at any R) and decode against their plain versions: widths,
+    offsets, the packed rows the layout defines, and the round trip; the
+    encode counts one launch of its route's key and nothing else."""
+    name = tpk.ROUTE_KEYS["2pass" if two_pass else tpk.route_of(R)]
+    before = all_launches()
+    bits, packed, offs = (tpk._encode_2pass if two_pass else tpk.encode)(
+        words, R, layout)
+    got = {key: v - before[key] for key, v in all_launches().items()
+           if v != before[key]}
+    if got != {name: 1}:
+        raise AssertionError(f"tile_packed: R={R} launched {got}, not "
+                             f"{name}")
     want_b, want_p, want_o = tpk.encode_ref(words, R, layout)
-    compare("tile_packed_encode", bits, want_b)
+    compare(name, bits, want_b)
     if layout == "cursor":
-        compare("tile_packed_encode", offs, want_o)
+        compare(name, offs, want_o)
     rows = tpk.defined_rows(want_b, R, want_o)
-    compare("tile_packed_encode", packed[rows], want_p[rows])
+    compare(name, packed[rows], want_p[rows])
     out = tpk.decode(bits, packed, R, offs)
     compare("tile_packed_decode", out, tpk.decode_ref(bits, packed, R, offs))
     compare("tile_packed_decode", out, words)
@@ -3597,7 +3618,8 @@ def experiments_path(gen) -> dict:
     exp30's ``long`` kind, exp33's rounds on 32 MiB, exp6's copy on
     256 MiB), every output held against its plain version or the input.
     The counts are set to 0 just before and read just after; each call
-    must count exactly its own launches.  Returns the counts."""
+    must count exactly its own launches (exp21 and exp22: the encode's
+    cluster route, ``tile_packed_encode``).  Returns the counts."""
     words = torch.randint(0, 16, (EXP_PACKED_MIB * MIB,), generator=gen,
                           device=DEVICE, dtype=torch.uint8).view(torch.int32)
     nrows = words.numel() // 128
@@ -3651,9 +3673,12 @@ def experiments_path(gen) -> dict:
 def phase_experiments_classes(gen, rng) -> int:
     """Each new kernel against its plain version: the tile-packed codec at
     R in EXP_R on tiles of widths 0, 1, 2, 3, 4, 5 and 8 and a mixed tile
-    (every depth), both layouts, then EXP_SCAN_TILES tiles of 8 rows and
-    random widths (the cursor layout's offsets scan carries its sum past
-    1024 tiles), then EXP_CALLS round trips on reused memory; the starts encode on exp30's five kinds at 4 MiB + 13 bytes
+    (every depth), both layouts, the encode on the route R takes (6152 the
+    two-pass one), then EXP_SCAN_TILES tiles of 8 rows and random widths
+    (the cursor layout's look-back carries its sum past many tickets; the
+    two-pass route, reached through ``tpk._encode_2pass``, carries its
+    offsets scan past 1024 tiles), then EXP_CALLS round trips on
+    reused memory; the starts encode on exp30's five kinds at 4 MiB + 13 bytes
     and on small streams; the rounds at 8 and 512 rows (0, 1 and 64
     rounds); the copy on word counts 1, 3, 4, 5 and 2048·128, at an
     unaligned start, and on 64 MiB."""
@@ -3665,10 +3690,15 @@ def phase_experiments_classes(gen, rng) -> int:
             cases += 1
         if tpk.depths(tpk.encode(words, R)[0], R).tolist() != EXP_DEPTHS:
             raise AssertionError(f"tile_packed: R={R} missed a depth")
+    if tpk.route_of(EXP_R[-2]) != "cluster" or tpk.route_of(EXP_R[-1]) != \
+            "2pass":
+        raise AssertionError("tile_packed: EXP_R no longer straddles the "
+                             "cluster route's limit")
     words = many_tiles(gen, 8, EXP_SCAN_TILES)
     for layout in tpk.LAYOUTS:
-        check_tile_packed(words, 8, layout)
-        cases += 1
+        for two_pass in (False, True):
+            check_tile_packed(words, 8, layout, two_pass)
+            cases += 1
     words = tile_words(gen, 64, EXP_TILE_KINDS * 4)
     for c in range(EXP_CALLS):
         # another order of the tiles each call, each result freed first
@@ -3712,6 +3742,38 @@ def time_pair(name: str, kernel, plain, nbytes: int, check) -> tuple:
     return kernel_ms(name, kernel), cuda_ms(plain)
 
 
+def time_tile_packed_widths(gen, R: int, layout: str) -> None:
+    """The tile-packed encode at widths 1 and 8 (the kernels line holds
+    width 4) on 256 MiB of words, a launch over a run of RUN and a single
+    call beside its bound, its output first held against the plain
+    version's."""
+    name = tpk.ROUTE_KEYS[tpk.route_of(R)]
+    for b in (1, 8):
+        words = torch.randint(0, 1 << b, (EXP_PACKED_MIB * MIB,),
+                              generator=gen, device=DEVICE,
+                              dtype=torch.uint8).view(torch.int32).view(-1,
+                                                                        128)
+        want_b, want_p, want_o = tpk.encode_ref(words, R, layout)
+        rows = tpk.defined_rows(want_b, R, want_o)
+        nbytes = (words.numel() * 4 + want_b.numel() + rows.numel() * 512
+                  + want_o.numel() * 4)
+        got = tpk.encode(words, R, layout)
+        compare(name, got[0], want_b)
+        compare(name, got[2], want_o)
+        compare(name, got[1][rows], want_p[rows])
+        del got, want_b, want_p, want_o, rows
+        fn = lambda: tpk.encode(words, R, layout)  # noqa: E731
+        a, c = launch_ms(fn), cuda_ms(fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"[experiments] tile_packed_encode width {b} ({layout}, R = {R}, "
+            f"256 MiB, {tpk.route_of(R)} route; bound {bound:.4f} ms, "
+            f"{nbytes} bytes): {a:.4f} ms a launch over a run of {RUN}, "
+            f"{c:.4f} single, {bound / a:.3f} of the bound a launch; output "
+            f"equals the plain version's")
+        del words
+        torch.cuda.empty_cache()
+
+
 def time_experiments(gen) -> dict:
     """Each new kernel at its script's size, both ways, beside its bound
     and its plain version, whose output it must equal there: the
@@ -3719,8 +3781,9 @@ def time_experiments(gen) -> dict:
     width-4 words (exp21's first chain; the bound counts this run's packed
     rows), the starts encode on 64 MiB of exp30's ``long``, the rounds on
     32 MiB (64 rounds), the copy on 256 MiB beside ``clone`` (its library
-    row) and ``copy_``.  The exp21 and exp22 mains time the other widths
-    and the sparse layout."""
+    row) and ``copy_``; the encode also at widths 1 and 8
+    (``time_tile_packed_widths``).  The exp21 and exp22 mains time the
+    round trips at each width and the sparse layout."""
     timings = {}
     N = EXP_PACKED_MIB * MIB
     R = EXP_PACKED_R
@@ -3750,6 +3813,7 @@ def time_experiments(gen) -> dict:
         lambda: tpk.decode_ref(bits, packed, R, offs), nbytes, check_decode)
     del words, bits, packed, offs
     torch.cuda.empty_cache()
+    time_tile_packed_widths(gen, R, layout)
     host = exp30.gen(10, EXP_RL_MIB * MIB, "long")
     x = torch.from_numpy(host).to(DEVICE)
     _, total = rk.encode_starts(x)

@@ -57,8 +57,11 @@ _SIGNATURES = {
     "flrl_copy_probe": (_INT, [_P, _P, _I64, _INT, _INT, _P]),
     "flrl_tile_op": (_INT, [_INT, _P, _I64, _INT, _P, _P, _INT, _I64, _INT,
                             _P]),
+    "flrl_tile_packed_route": (_INT, [_INT]),
     "flrl_tile_packed_encode": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _INT,
                                        _P]),
+    "flrl_tile_packed_encode_2pass": (_INT, [_P, _I64, _INT, _P, _P, _P, _P,
+                                             _INT, _P]),
     "flrl_tile_packed_decode": (_INT, [_P, _P, _P, _I64, _INT, _P, _P, _INT,
                                        _P]),
     "flrl_cuda_error_string": (ctypes.c_char_p, [_INT]),

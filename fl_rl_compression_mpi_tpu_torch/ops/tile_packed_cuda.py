@@ -25,10 +25,21 @@ outside the tiles' rows are unspecified (the kernel leaves them unwritten;
 the plain version zeroes them).
 
 A wrapper given CPU tensors returns its plain version (``*_ref``); given
-CUDA tensors it launches on the current stream or raises.  Each call of
-``encode`` adds one to ``LAUNCHES["tile_packed_encode"]`` (its entry point
-runs two kernels, or three in the cursor layout), each call of ``decode``
-one to ``LAUNCHES["tile_packed_decode"]`` (two kernels).
+CUDA tensors it launches on the current stream or raises.  ``encode`` takes
+one of two routes, which the launcher picks by R alone
+(``csrc/tile_packed.cuh``'s ``tile_packed_route``, asked through
+:func:`route_of`), and each call adds one to its route's count:
+
+- ``"cluster"`` (R up to 6,144): one kernel that reads each tile's words
+  from device memory once, a thread-block cluster holding the tile in
+  shared memory (a look-back scan places the cursor layout's tiles);
+  ``LAUNCHES["tile_packed_encode"]``;
+- ``"2pass"`` (past it): the widths pass, the offsets scan (cursor layout)
+  and the pack, which reads the words again;
+  ``LAUNCHES["tile_packed_encode_2pass"]``.
+
+Each call of ``decode`` adds one to ``LAUNCHES["tile_packed_decode"]`` (two
+kernels).
 """
 
 from __future__ import annotations
@@ -44,7 +55,12 @@ WPF = LANES // FRAMES           # words a frame
 LAYOUTS = ("cursor", "sparse")
 _MASKS = {0: 0xFFFF, 1: 0x00FF00FF, 2: 0x0F0F0F0F}
 
-LAUNCHES = {"tile_packed_encode": 0, "tile_packed_decode": 0}
+# route -> launch count key
+ROUTE_KEYS = {"cluster": "tile_packed_encode",
+              "2pass": "tile_packed_encode_2pass"}
+
+LAUNCHES = {"tile_packed_encode": 0, "tile_packed_encode_2pass": 0,
+            "tile_packed_decode": 0}
 
 
 def reset_launches() -> None:
@@ -64,6 +80,15 @@ def _rows(words: torch.Tensor, R: int, name: str = "words") -> int:
         raise ValueError(f"R must be a positive multiple of 8 dividing the "
                          f"{nrows} rows, got {R!r}")
     return nrows
+
+
+def route_of(R: int) -> str:
+    """The route ``encode`` takes on the card for tiles of R rows
+    (``"cluster"`` or ``"2pass"``), as the kernel library picks it."""
+    if not isinstance(R, int) or R <= 0 or R % 8:
+        raise ValueError(f"R must be a positive multiple of 8, got {R!r}")
+    from . import _build
+    return "cluster" if _build.lib().flrl_tile_packed_route(R) else "2pass"
 
 
 def _check_bits(bits: torch.Tensor, nrows: int) -> None:
@@ -218,28 +243,42 @@ def encode(words: torch.Tensor, R: int, layout: str = "cursor"):
     """``(bits u8 (nrows, 4), packed int32 (nrows, 128), offs int32
     (tiles + 1,) or None)`` of ``words``; see :func:`encode_ref`.  Rows of
     ``packed`` outside the tiles' rows are unspecified."""
-    nrows = _rows(words, R)
+    _rows(words, R)
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     if not _on_cuda(words):
         return encode_ref(words, R, layout)
+    return _encode_on_card(words, R, layout, "flrl_tile_packed_encode",
+                           ROUTE_KEYS[route_of(R)])
+
+
+def _encode_2pass(words: torch.Tensor, R: int, layout: str = "cursor"):
+    """``encode`` on the card by the two-pass route at any R, for checks
+    that reach that route where ``encode`` takes the cluster one."""
+    _rows(words, R)
+    return _encode_on_card(words, R, layout, "flrl_tile_packed_encode_2pass",
+                           ROUTE_KEYS["2pass"])
+
+
+def _encode_on_card(words: torch.Tensor, R: int, layout: str, fn: str,
+                    key: str):
     _aligned(words, "words")
     dev = words.device
+    nrows = words.numel() // LANES
     tiles = nrows // R
     bits = torch.empty(nrows, FRAMES, dtype=torch.uint8, device=dev)
     packed = torch.empty(nrows, LANES, dtype=torch.int32, device=dev)
     cursor = layout == "cursor"
-    # the offsets (cursor layout), then the tiles' keys (scratch the
-    # launcher clears on the stream)
-    buf = torch.empty((tiles + 1 if cursor else 0) + tiles, dtype=torch.int32,
-                      device=dev)
-    offs = buf[:tiles + 1] if cursor else None
-    key = buf[tiles + 1:] if cursor else buf
-    _launch("flrl_tile_packed_encode", words.data_ptr(), nrows, R,
-            bits.data_ptr(), packed.data_ptr(),
-            None if offs is None else offs.data_ptr(), key.data_ptr(),
-            dev.index, _stream(words))
-    count_launch(LAUNCHES, "tile_packed_encode", dev)
+    # the launcher's scratch (a status word a unit and the ticket, or the
+    # tiles' keys), which it clears on the stream, then the offsets
+    buf = torch.empty(2 * (tiles + 1) + (tiles + 1 if cursor else 0),
+                      dtype=torch.int32, device=dev)
+    scratch = buf[:2 * (tiles + 1)]
+    offs = buf[2 * (tiles + 1):] if cursor else None
+    _launch(fn, words.data_ptr(), nrows, R, bits.data_ptr(),
+            packed.data_ptr(), None if offs is None else offs.data_ptr(),
+            scratch.data_ptr(), dev.index, _stream(words))
+    count_launch(LAUNCHES, key, dev)
     return bits, packed, offs
 
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_exp_scripts
+from torch_tile_packed_header import header
 from fl_rl_compression_mpi_tpu_torch.ops import _build
 from fl_rl_compression_mpi_tpu_torch.ops import fl_fields_cuda
 from fl_rl_compression_mpi_tpu_torch.ops import tile_packed_cuda as tp
@@ -169,7 +170,9 @@ def test_on_cpu_no_launch(layout):
     words = _t(tile_words(np.random.default_rng(8), 8))
     bits, packed, offs = tp.encode(words, 8, layout)
     tp.decode(bits, packed, 8, offs)
-    assert tp.LAUNCHES == {"tile_packed_encode": 0, "tile_packed_decode": 0}
+    assert tp.LAUNCHES == {"tile_packed_encode": 0,
+                           "tile_packed_encode_2pass": 0,
+                           "tile_packed_decode": 0}
 
 
 def test_empty_stream():
@@ -201,10 +204,63 @@ def test_refusals(call):
         call(torch.zeros((64, 128), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("name", ["flrl_tile_packed_encode",
+@pytest.mark.parametrize("name", ["flrl_tile_packed_route",
+                                  "flrl_tile_packed_encode",
+                                  "flrl_tile_packed_encode_2pass",
                                   "flrl_tile_packed_decode"])
 def test_launcher_signatures_match_the_header(name):
     with open(os.path.join(_build.CSRC_DIR, "tile_packed.cuh")) as f:
         proto = re.search(name + r"\(([^)]*)\)", f.read()).group(1)
     _, argtypes = _build._SIGNATURES[name]
     assert len(argtypes) == len(proto.split(","))
+
+
+@pytest.fixture
+def header_lib(monkeypatch):
+    """The header's route rule, compiled on the host, as the kernel
+    library the wrapper asks."""
+    h = header()
+    monkeypatch.setattr(_build, "lib", lambda: h)
+    return h
+
+
+@pytest.mark.parametrize("R,C,T", [
+    (8, 1, 16), (16, 1, 8), (24, 1, 5), (64, 1, 2), (72, 1, 1),
+    (128, 1, 1), (136, 2, 1), (256, 2, 1), (512, 4, 1), (1024, 8, 1),
+    (2048, 16, 1), (4096, 16, 1), (6144, 16, 1)])
+def test_cluster_shape_by_R(header_lib, R, C, T):
+    """Blocks a tile and tiles a cluster: a tile over 64 KiB is split over
+    the fewest blocks, a smaller one taken whole with as many as fit."""
+    assert (header_lib.cluster_blocks(R), header_lib.cluster_tiles(R)) == (C, T)
+    assert tp.route_of(R) == "cluster"
+
+
+@pytest.mark.parametrize("R", [6152, 8192, 12288])
+def test_two_pass_route_past_the_cluster(header_lib, R):
+    """Past 16 blocks of 384 rows (R = 6,144) no cluster holds a tile."""
+    assert not header_lib.cluster_fits(R) and tp.route_of(R) == "2pass"
+
+
+@pytest.mark.parametrize("R", [0, -8, 12, 8.0, "8"])
+def test_route_of_refuses_a_bad_R(header_lib, R):
+    with pytest.raises(ValueError):
+        tp.route_of(R)
+
+
+def _no_library():
+    raise AssertionError("the kernel library was asked for")
+
+
+@pytest.mark.parametrize("R", [16, 6152])
+@pytest.mark.parametrize("layout", tp.LAYOUTS)
+def test_cpu_encode_asks_no_route(monkeypatch, R, layout):
+    """On CPU tensors ``encode`` is the plain version at any R: it asks
+    the kernel library nothing and counts nowhere."""
+    monkeypatch.setattr(_build, "lib", _no_library)
+    tp.reset_launches()
+    words = _t(tile_words(np.random.default_rng(9), R, ("1", "8")))
+    got = tp.encode(words, R, layout)
+    want = tp.encode_ref(words, R, layout)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert not any(tp.LAUNCHES.values())
