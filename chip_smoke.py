@@ -2255,7 +2255,7 @@ def stream_sync_free(data: np.ndarray, whole: str) -> None:
     frames = n // 128
     want_bits = comp.bits[:frames]
     want_values = comp.values[:fl_torch.payload_size(want_bits, n, 128)]
-    set_stage_timers(False)     # a stage timer synchronises the device
+    set_stage_timers(False)     # no [TIMER] lines in this check
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2628,7 +2628,7 @@ SHARDED_KERNELS = sorted({key for per in PROGRAM_LAUNCHES.values()
 def sync_error():
     """Every call that waits for the device raises inside (sync-debug
     "error"; it does not watch ``Event.synchronize()``)."""
-    set_stage_timers(False)     # a stage timer synchronises the device
+    set_stage_timers(False)     # no [TIMER] lines in this check
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

@@ -66,7 +66,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="FL frame length in bytes (default 128; a positive "
                         "multiple of 8; ignored by RL)")
     p.add_argument("--timers", action="store_true",
-                   help="print [TIMER] phase lines")
+                   help="print [TIMER] phase lines, and one a stage of the "
+                        "codec's walk; a device stage is timed by CUDA "
+                        "events on its stream, so the lines do not "
+                        "serialise the walk")
     p.add_argument("--verify", action="store_true",
                    help="after compressing, decompress the output and "
                         "byte-compare against the input")
@@ -76,7 +79,8 @@ def _parser() -> argparse.ArgumentParser:
                         "with --coordinator)")
     p.add_argument("--profile", metavar="LOGDIR", default=None,
                    help="write a torch.profiler trace of the codec phase to "
-                        "LOGDIR (TensorBoard format)")
+                        "LOGDIR (TensorBoard format), with a span (flrl.*) "
+                        "a stage of the walk, the mesh's card threads' too")
     p.add_argument("--coordinator", metavar="env://|HOST:PORT",
                    default=None,
                    help="multi-process mode, one process a card: env:// "

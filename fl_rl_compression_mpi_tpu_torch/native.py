@@ -251,40 +251,55 @@ class Native:
         return out[:n]
 
 
-def _build() -> bool:
-    os.makedirs(os.path.dirname(_SO_PATH), exist_ok=True)
+def build_cxx(src: str, out: str, flags=(), libs=()) -> bool:
+    """Build the shared library ``out`` from the C++ source ``src`` with
+    g++ (``flags`` before the source, ``libs`` after it) where it is
+    missing or older than ``src``; False where that build failed.  A
+    missing source builds nothing (an installed package may ship only the
+    library)."""
+    if not os.path.exists(src) or (
+            os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(src)):
+        return True
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     # built under a private name, then renamed: a process building at the
     # same time never loads a half-written library
-    tmp = f"{_SO_PATH}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
-           "-fopenmp", "-o", tmp, _SRC_PATH]
+    tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(tmp, _SO_PATH)
+        subprocess.run(["g++", "-std=c++17", "-fPIC", "-shared", *flags,
+                        "-o", tmp, src, *libs],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, out)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
 
 
+_LOADED: dict = {}
+
+
+def load_cxx(src: str, out: str, flags=(), libs=()) -> ctypes.CDLL | None:
+    """The shared library ``out``, built first by :func:`build_cxx`; None
+    where it can be neither built nor loaded.  Tried once a process."""
+    with _LOCK:
+        if out not in _LOADED:
+            handle = None
+            if build_cxx(src, out, flags, libs):
+                try:
+                    handle = ctypes.CDLL(out)
+                except OSError:
+                    pass
+            _LOADED[out] = handle
+        return _LOADED[out]
+
+
 def get_native() -> Native | None:
     """Load (building on first use) the native library, or None."""
     global _NATIVE, _TRIED
-    if _NATIVE is not None or _TRIED:
-        return _NATIVE
-    with _LOCK:
-        if _NATIVE is not None or _TRIED:
-            return _NATIVE
+    if not _TRIED:
+        handle = (None if os.environ.get("FLRL_NO_NATIVE") else
+                  load_cxx(_SRC_PATH, _SO_PATH,
+                           ["-O3", "-march=native", "-fopenmp"]))
+        _NATIVE = None if handle is None else Native(handle)
         _TRIED = True
-        if os.environ.get("FLRL_NO_NATIVE"):
-            return None
-        if os.path.exists(_SRC_PATH):
-            stale = (not os.path.exists(_SO_PATH)
-                     or os.path.getmtime(_SO_PATH)
-                     < os.path.getmtime(_SRC_PATH))
-            if stale and not _build():
-                return None
-        try:
-            _NATIVE = Native(ctypes.CDLL(_SO_PATH))
-        except OSError:
-            _NATIVE = None
     return _NATIVE

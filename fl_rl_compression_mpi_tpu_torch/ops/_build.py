@@ -8,9 +8,11 @@ together, and links the objects into one shared library that ``ctypes``
 loads.  No PyTorch headers are involved.  The library lands in
 ``_build/libflrl_cuda_<srchash>.so`` beside the package, keyed by a hash of
 every ``*.cu`` and ``*.cuh`` file in ``csrc/``, at first use.  A failed
-build raises with ``nvcc``'s output: there is no fallback.  The host
-library's C++ source there (``csrc/flrlio.cpp``, built with g++ by
-``native.py``) is neither hashed nor given to ``nvcc``.
+build raises with ``nvcc``'s output: there is no fallback.  The C++
+sources there (``csrc/flrlio.cpp`` and ``csrc/thread_state.cpp``, built
+with g++ through ``native.py``) are neither hashed nor given to ``nvcc``;
+the second is built here too, beside ``nvcc`` (``utils/thread_state.py``),
+so that no traced call builds it.
 """
 
 from __future__ import annotations
@@ -115,6 +117,9 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [p for p in _sources() if p.endswith(".cu")]
     nvcc = _nvcc()
+    from ..utils import thread_state
+    beside = threading.Thread(target=thread_state.build, daemon=True)
+    beside.start()
     # objects and the library go to private names, then the library is
     # renamed: a concurrent build never loads a half-written one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -125,6 +130,7 @@ def build() -> str:
         log += _run([[nvcc, "-shared", "-o", lib_tmp, *objs]])
         build_log = log
         os.replace(lib_tmp, out)
+    beside.join()
     return out
 
 

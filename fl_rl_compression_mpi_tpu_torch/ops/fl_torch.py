@@ -248,6 +248,8 @@ class _Lanes:
         self.turn = 0               # the chunk being submitted, modulo depth
         self._up = {}               # (turn, slot) -> (pinned u8, event)
         self._down = None           # pinned u8
+        # the kernels' stream and the copy streams (None on the CPU)
+        self.compute = self.up_stream = self.down_stream = None
         if self.cuda:
             self.compute = torch.cuda.current_stream(device)
             self.up_stream = torch.cuda.Stream(device)
@@ -259,7 +261,8 @@ class _Lanes:
     def _pinned(self, key, nbytes: int) -> torch.Tensor:
         buf, ev = self._up.get(key, (None, None))
         if ev is not None:
-            ev.synchronize()        # the copy that last read it is done
+            with stage(span="flrl.wait"):
+                ev.synchronize()    # the copy that last read it is done
         if buf is None or buf.numel() < nbytes:
             buf = None
             buf = _pinned_bytes(nbytes)
@@ -281,7 +284,8 @@ class _Lanes:
             t[:a.size] = _host_tensor(a)
             return t
         host = self._pinned((self.turn, slot), max(a.size, reserve))
-        with stage("Host copy to pinned memory", a.size):
+        with stage("Host copy to pinned memory", a.size,
+                   span="flrl.host.stage_in"):
             host.numpy()[:a.size] = a
         with torch.cuda.stream(self.up_stream):
             t = torch.empty(size, dtype=torch.uint8, device=self.device)
@@ -301,7 +305,8 @@ class _Lanes:
         if not self.cuda:
             return a.copy()
         host = self._pinned((self.turn, 0), a.size).numpy()[:a.size]
-        host[...] = a
+        with stage(span="flrl.host.stage_in"):
+            host[...] = a
         return host
 
     def fill(self, n: int, c: int, dest: np.ndarray | None) -> np.ndarray:
@@ -314,7 +319,8 @@ class _Lanes:
                 self._down = None
                 self._down = _pinned_bytes(n)
             dest = self._down[:n].numpy()
-        dest[...] = c
+        with stage(span="flrl.host.out"):
+            dest[...] = c
         return dest
 
     def to_host_async(self, t: torch.Tensor) -> torch.Tensor:
@@ -322,8 +328,9 @@ class _Lanes:
         next :meth:`fence` has passed."""
         if not self.cuda:
             return t
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
+        with stage(span="flrl.d2h.pinned"):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
         return h
 
     def fence(self):
@@ -337,7 +344,8 @@ class _Lanes:
     @staticmethod
     def wait(ev) -> None:
         if ev is not None:
-            ev.synchronize()
+            with stage(span="flrl.wait"):
+                ev.synchronize()
 
     def download(self, t: torch.Tensor, after, dest: np.ndarray | None = None,
                  reserve: int = 0) -> np.ndarray:
@@ -365,7 +373,7 @@ class _Lanes:
             host.copy_(t, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.down_stream)
-        ev.synchronize()
+        self.wait(ev)
         return host.numpy() if dest is None else dest
 
 
@@ -418,12 +426,16 @@ def encode_walk(data: np.ndarray, frame_length: int,
         return torch.cat(bits), torch.cat(values)
     if n <= _device_cap(frame_length):
         return next(parts)          # one chunk: its arrays as they are
-    bits, values, pos = [], np.empty(n, np.uint8), 0
+    with stage(span="flrl.host.out"):
+        values = np.empty(n, np.uint8)
+    bits, pos = [], 0
     for b, v in parts:              # v is valid until the walk advances
         bits.append(b)
-        values[pos:pos + v.size] = v
+        with stage(span="flrl.host.join"):
+            values[pos:pos + v.size] = v
         pos += v.size
-    return np.concatenate(bits), values[:pos]
+    with stage(span="flrl.host.join"):
+        return np.concatenate(bits), values[:pos]
 
 
 def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
@@ -455,9 +467,10 @@ def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
         if n == 0:
             return _Chunk(0, ready=(np.zeros(0, np.uint8),
                                     np.zeros(0, np.uint8)))
-        c = constant_byte_probe(data)
+        with stage(span="flrl.host.probe"):
+            c = constant_byte_probe(data)
         if c is not None:
-            with stage("Compression", n):
+            with stage("Compression", n, span="flrl.host.out"):
                 return _Chunk(n, ready=_constant_container(c, n, L))
         chunk = (_submit_dense if dense else _submit_fields)(lanes, data, L)
         lanes.next_chunk()
@@ -499,20 +512,18 @@ def _submit_dense(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
     host probe sees a uniform first tile) and the pack, the uniform one
     speculatively, the input kept for a miss."""
     n = data.size
-    fb = kern.host_probe_uniform_b(data, L) or 0
-    h2d = []
-    with stage("Copy input data to device", n, result=h2d):
+    with stage(span="flrl.host.probe"):
+        fb = kern.host_probe_uniform_b(data, L) or 0
+    with stage("Copy input data to device", n, span="flrl.h2d.pinned",
+               on=lanes.up_stream):
         x = lanes.upload(data)
-        h2d.append(x)
-    krn = []
-    with stage("Compression", n, result=krn):
+    with stage("Compression", n, span="flrl.kernels", on=lanes.compute):
         bits_d, flag = kern.frame_widths(x, L, fb_expect=fb)
         if fb:
             values_d = kern.pack(x, L, fb=fb)
         else:
             offs = kern.frame_offsets(bits_d, n, L)
             values_d = kern.pack(x, L, bits=bits_d, offs=offs, size=n)
-        krn += [bits_d, values_d]
     return _Chunk(n, x=x if fb else None, bits_d=bits_d, values_d=values_d,
                   bits_h=lanes.to_host_async(bits_d),
                   flag_h=lanes.to_host_async(flag) if fb else None,
@@ -525,18 +536,18 @@ def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
     values_d, done = chunk.values_d, chunk.done
     if chunk.flag_h is not None and int(chunk.flag_h.numpy()[0]) != 0:
         # the uniform speculation missed: the general pack of the kept input
-        krn = []
-        with stage("Compression", n, result=krn):
+        with stage("Compression", n, span="flrl.kernels", on=lanes.compute):
             offs = kern.frame_offsets(chunk.bits_d, n, L)
             values_d = kern.pack(chunk.x, L, bits=chunk.bits_d, offs=offs,
                                  size=n)
-            krn.append(values_d)
         done = lanes.fence()
-    bits = chunk.bits_h.numpy().copy()
-    values_d = values_d[:payload_size(bits, n, L)]
+    with stage(span="flrl.host.layout"):
+        bits = chunk.bits_h.numpy().copy()
+        values_d = values_d[:payload_size(bits, n, L)]
     if not to_host:
         return chunk.bits_d, values_d
-    with stage("Copy results to CPU", values_d.numel()):
+    with stage("Copy results to CPU", values_d.numel(),
+               span="flrl.d2h.pinned"):
         return bits, lanes.download(values_d, done, reserve=n)
 
 
@@ -549,18 +560,15 @@ def _submit_fields(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
     pack = _use_pack2(L)
     # the field encoders carry no tail mask: the pad must be zero
     unit = PACK_TILE_R * fkern.LANES * 4 if pack else L
-    h2d = []
-    with stage("Copy input data to device", n, result=h2d):
+    with stage("Copy input data to device", n, span="flrl.h2d.pinned",
+               on=lanes.up_stream):
         buf = lanes.upload(data, -(-n // unit) * unit)
-        h2d.append(buf)
     words = buf.view(torch.int32)
-    krn = []
-    with stage("Compression", n, result=krn):
+    with stage("Compression", n, span="flrl.kernels", on=lanes.compute):
         if pack:
             bits_d, fields_d = encode_fields_device(words, L, pack=True)
         else:
             bits_d, fields_d = encode_fields_device(words[:frames * wpf], L)
-        krn += [bits_d, fields_d]
     return _Chunk(n, pack=pack, words=words if pack else None,
                   fields_d=fields_d, bits_h=lanes.to_host_async(
                       bits_d[:frames]), done=lanes.fence())
@@ -571,28 +579,30 @@ def _drain_fields(lanes: _Lanes, chunk: _Chunk, L: int):
     wpf = L // 4
     frames = -(-n // L)
     lanes.wait(chunk.done)
-    bits = chunk.bits_h.numpy().copy()
+    with stage(span="flrl.host.layout"):
+        bits = chunk.bits_h.numpy().copy()
     if chunk.pack:
         if int(bits.max()) <= 4:
             need = fkern.packed_words(frames * wpf, PACK_TILE_R)
-            with stage("Copy results to CPU", need * 4):
+            with stage("Copy results to CPU", need * 4,
+                       span="flrl.d2h.pinned"):
                 packed = lanes.download(chunk.fields_d[:need], chunk.done,
                                         reserve=frames * L)
-            with stage("Host fold (ragged placement)", n):
+            with stage("Host fold (ragged placement)", n,
+                       span="flrl.host.fold"):
                 return bits, fold_p2(packed.view(np.uint32), bits, n, L,
                                      PACK_TILE_R)
         # the pack-2 speculation missed (a width > 4): the base encode of
         # the words kept on the device
-        krn = []
-        with stage("Compression", n, result=krn):
+        with stage("Compression", n, span="flrl.kernels", on=lanes.compute):
             _, fields_d = encode_fields_device(chunk.words[:frames * wpf], L)
-            krn.append(fields_d)
         done = lanes.fence()
     else:
         fields_d, done = chunk.fields_d, chunk.done
-    with stage("Copy results to CPU", frames * wpf * 4):
+    with stage("Copy results to CPU", frames * wpf * 4,
+               span="flrl.d2h.pinned"):
         fields_h = lanes.download(fields_d, done, reserve=frames * L)
-    with stage("Host fold (ragged placement)", n):
+    with stage("Host fold (ragged placement)", n, span="flrl.host.fold"):
         return bits, fold(fields_h.view(np.uint32), bits, n, L)
 
 
@@ -626,12 +636,13 @@ def _closed_form(n: int, bits: np.ndarray, values: np.ndarray,
         raise ValueError(
             "fl decode: corrupt container (bits array shorter than "
             f"frame count: {bits.size} < {frames})")
-    c = host_constant_decode_probe(bits, values, n, frame_length)
-    if c is not None:
-        return "constant", c
-    if _all_eight(bits, values, n, frame_length):
-        return "identity", None
-    return None
+    with stage(span="flrl.host.probe"):
+        c = host_constant_decode_probe(bits, values, n, frame_length)
+        if c is not None:
+            return "constant", c
+        if _all_eight(bits, values, n, frame_length):
+            return "identity", None
+        return None
 
 
 def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
@@ -643,7 +654,7 @@ def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
     closed = _closed_form(n, bits, values, frame_length)
     if closed is None:
         return None
-    with stage("Decompression", n):
+    with stage("Decompression", n, span="flrl.host.out"):
         if closed[0] == "constant":
             return np.full(n, closed[1], np.uint8)
         return values[:n].copy()
@@ -674,13 +685,15 @@ def container_layout(n: int, bits: np.ndarray, values_size: int,
     """``(widths u8[F], voffs i64[F+1])``: the checked widths
     (:func:`check_widths`) and the exclusive scan of their payload
     bytes."""
-    widths = check_widths(n, bits, values_size, frame_length)
-    counts = np.minimum(
-        n - np.arange(widths.size, dtype=np.int64) * frame_length,
-        frame_length)
-    voffs = np.zeros(widths.size + 1, np.int64)
-    np.cumsum((widths.astype(np.int64) * counts + 7) // 8, out=voffs[1:])
-    return widths, voffs
+    with stage(span="flrl.host.layout"):
+        widths = check_widths(n, bits, values_size, frame_length)
+        counts = np.minimum(
+            n - np.arange(widths.size, dtype=np.int64) * frame_length,
+            frame_length)
+        voffs = np.zeros(widths.size + 1, np.int64)
+        np.cumsum((widths.astype(np.int64) * counts + 7) // 8,
+                  out=voffs[1:])
+        return widths, voffs
 
 
 def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
@@ -692,7 +705,8 @@ def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
     at most ``_device_cap(L)`` bytes, each copied straight into the
     output: ``out`` (u8[n]) where it is given, else a new array."""
     if out is None:
-        out = np.empty(n, np.uint8)
+        with stage(span="flrl.host.out"):
+            out = np.empty(n, np.uint8)
     elif out.shape != (n,) or out.dtype != np.uint8:
         raise ValueError(f"decode_walk: out must be u8[{n}], got "
                          f"{out.dtype}{list(out.shape)}")
@@ -744,7 +758,7 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
             chunk = _Chunk(n, fill=closed[1])   # filled at drain
         else:
             # ``values`` may be the caller's reused buffer: keep its bytes
-            with stage("Decompression", n):
+            with stage("Decompression", n, span="flrl.host.out"):
                 chunk = _Chunk(n, ready=lanes.keep(values[:n]))
         lanes.next_chunk()
         return chunk
@@ -754,14 +768,17 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
         dest = None if out is None else out[pos:pos + chunk.n]
         pos += chunk.n
         if chunk.fill is not None:
-            with stage("Decompression", chunk.n):
+            with stage("Decompression", chunk.n, span="flrl.host.out"):
                 return lanes.fill(chunk.n, chunk.fill, dest)
         if chunk.ready is not None:
             if dest is None:
                 return chunk.ready
-            dest[...] = chunk.ready
+            with stage(span="flrl.host.out"):
+                dest[...] = chunk.ready
             return dest
-        with stage("Copy results to CPU", chunk.n):
+        with stage("Copy results to CPU", chunk.n,
+                   span="flrl.d2h.pinned" if dest is None
+                   else "flrl.d2h.pageable"):
             return lanes.download(chunk.out_d, chunk.done, dest)
 
     yield from _pipeline(_capped_parts(parts, L), submit, drain, depth)
@@ -793,8 +810,10 @@ def _check_part(n: int, bits: np.ndarray, values: np.ndarray,
     """The part's least and greatest width; raises where a width lies
     outside 1..8 or the payload is not the size the widths imply, which
     the kernels would read past."""
-    lo, hi = int(bits.min()), int(bits.max())
-    if lo < 1 or hi > 8 or values.size != payload_size(bits, n, L):
+    with stage(span="flrl.host.layout"):
+        lo, hi = int(bits.min()), int(bits.max())
+        size = payload_size(bits, n, L)
+    if lo < 1 or hi > 8 or values.size != size:
         raise ValueError("fl decode: corrupt part (widths outside 1..8 or "
                          "a payload of another size than they imply)")
     return lo, hi
@@ -806,20 +825,17 @@ def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
     part is one, else the offsets scan and the general unpack."""
     lo, hi = _check_part(n, bits, values, L)
     fb = lo if lo == hi else 0
-    h2d = []
-    with stage("Copy input to device", values.size + bits.size, result=h2d):
+    with stage("Copy input to device", values.size + bits.size,
+               span="flrl.h2d.pinned", on=lanes.up_stream):
         # a part's payload is at most its n bytes
         v = lanes.upload(values, reserve=n)
         b = None if fb else lanes.upload(bits, slot=1)
-        h2d.append(v)
-    krn = []
-    with stage("Decompression", n, result=krn):
+    with stage("Decompression", n, span="flrl.kernels", on=lanes.compute):
         if fb:
             out_d = kern.unpack(v, n, L, fb=fb)
         else:
             offs = kern.frame_offsets(b, n, L)
             out_d = kern.unpack(v, n, L, bits=b, offs=offs)
-        krn.append(out_d)
     return _Chunk(n, out_d=out_d, done=lanes.fence())
 
 
@@ -832,20 +848,16 @@ def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
     _, hi = _check_part(n, bits, values, L)
     nw = bits.size * (L // 4)
     pack = _use_pack2(L) and hi <= 4
-    with stage("Host unfold (ragged placement)", n):
+    with stage("Host unfold (ragged placement)", n, span="flrl.host.unfold"):
         if pack:
             fields_h = unfold_p2(values, bits, n, L, PACK_TILE_R,
                                  fkern.packed_words(nw, PACK_TILE_R))
         else:
             fields_h = unfold(values, bits, n, L)
-    h2d = []
     with stage("Copy input to device", fields_h.nbytes + bits.size,
-               result=h2d):
+               span="flrl.h2d.pinned", on=lanes.up_stream):
         f = lanes.upload(fields_h, reserve=bits.size * L).view(torch.int32)
         b = lanes.upload(bits, slot=1)
-        h2d += [f, b]
-    krn = []
-    with stage("Decompression", n, result=krn):
+    with stage("Decompression", n, span="flrl.kernels", on=lanes.compute):
         out_d = decode_fields_device(f, b, L, pack=pack)
-        krn.append(out_d)
     return _Chunk(n, out_d=out_d.view(torch.uint8)[:n], done=lanes.fence())

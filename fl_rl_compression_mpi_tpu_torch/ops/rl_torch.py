@@ -73,9 +73,10 @@ def encode(data, *, device: str | torch.device):
     n = data.size
     if n == 0:
         return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
-    c = constant_byte_probe(data)
+    with stage(span="flrl.host.probe"):
+        c = constant_byte_probe(data)
     if c is not None:
-        with stage("Compression", n):
+        with stage("Compression", n, span="flrl.host.out"):
             return _constant_container(c, n)
     return encode_walk(data, device)
 
@@ -89,13 +90,12 @@ def encode_walk(data: np.ndarray, device: str | torch.device):
     device = torch.device(device)
 
     def up(off: int, chunk: np.ndarray) -> torch.Tensor:
-        h2d = []
-        with stage("Copy input data to device", chunk.size, result=h2d):
-            h2d.append(_to_device(chunk, device))
-        return h2d[0]
+        with stage("Copy input data to device", chunk.size,
+                   span="flrl.h2d.pageable", on=device):
+            return _to_device(chunk, device)
 
     def down(counts_d: torch.Tensor, values_d: torch.Tensor):
-        with stage("Copy results to CPU") as t:
+        with stage("Copy results to CPU", span="flrl.d2h.pageable") as t:
             counts = counts_d.cpu().numpy()
             values = values_d.cpu().numpy()
             if t:
@@ -105,8 +105,9 @@ def encode_walk(data: np.ndarray, device: str | torch.device):
     parts = encode_parts(data, up, down)
     if len(parts) == 1:
         return parts[0]
-    return (np.concatenate([c for c, _ in parts]),
-            np.concatenate([v for _, v in parts]))
+    with stage(span="flrl.host.join"):
+        return (np.concatenate([c for c, _ in parts]),
+                np.concatenate([v for _, v in parts]))
 
 
 def encode_parts(data: np.ndarray, chunk_on_device, keep) -> list:
@@ -127,10 +128,9 @@ def encode_parts(data: np.ndarray, chunk_on_device, keep) -> list:
         chunk = data[off:off + cap]
         open_len += min(_piece_head(chunk, prev, d0), chunk.size)
         x = chunk_on_device(off, chunk)
-        krn = []
-        with stage("Compression", chunk.size, result=krn):
+        with stage("Compression", chunk.size, span="flrl.kernels",
+                   on=x.device):
             values, counts, run_start = kern.encode_chunk(x, prev, d0)
-            krn += [counts, values]
         if len(counts):
             if parts:
                 parts[-1][0][-1] = open_len
@@ -200,10 +200,11 @@ def _block_ends(counts: np.ndarray) -> np.ndarray:
     output size): 8 bytes per 4096 runs, not per run."""
     B = kern.TILE
     full = counts.size // B * B
-    sums = counts[:full].reshape(-1, B).sum(1, dtype=np.int64)
-    if full < counts.size:
-        sums = np.append(sums, counts[full:].sum(dtype=np.int64))
-    return np.cumsum(sums)
+    with stage(span="flrl.host.split"):
+        sums = counts[:full].reshape(-1, B).sum(1, dtype=np.int64)
+        if full < counts.size:
+            sums = np.append(sums, counts[full:].sum(dtype=np.int64))
+        return np.cumsum(sums)
 
 
 def _run_chunks(counts: np.ndarray, block_end: np.ndarray, cap: int):
@@ -212,24 +213,33 @@ def _run_chunks(counts: np.ndarray, block_end: np.ndarray, cap: int):
     block ends find each split; only the block it falls in is summed run
     by run."""
     r = counts.size
-    B = kern.TILE
     r0 = o0 = 0
     while r0 < r:
-        limit = o0 + cap
-        b = int(np.searchsorted(block_end, limit, side="right"))
-        if b == block_end.size:
-            yield r0, r, o0, int(block_end[-1])
-            return
-        lo, base = b * B, int(block_end[b - 1]) if b else 0
-        if lo < r0:
-            lo, base = r0, o0
-        ends = base + np.cumsum(counts[lo:min(lo + B, r)], dtype=np.int64)
-        k = int(np.searchsorted(ends, limit, side="right"))
-        r1, o1 = lo + k, int(ends[k - 1]) if k else base
-        if r1 == r0:                       # one run longer than cap
-            r1, o1 = r0 + 1, o0 + int(counts[r0])
+        with stage(span="flrl.host.split"):
+            r1, o1 = _run_split(counts, block_end, r0, o0, o0 + cap)
         yield r0, r1, o0, o1
         r0, o0 = r1, o1
+
+
+def _run_split(counts: np.ndarray, block_end: np.ndarray, r0: int, o0: int,
+               limit: int) -> tuple[int, int]:
+    """The next split of :func:`_run_chunks` after run r0 (output byte o0):
+    the last run r1 and output byte o1 with o1 ≤ ``limit``, at least one
+    run past r0."""
+    r = counts.size
+    B = kern.TILE
+    b = int(np.searchsorted(block_end, limit, side="right"))
+    if b == block_end.size:
+        return r, int(block_end[-1])
+    lo, base = b * B, int(block_end[b - 1]) if b else 0
+    if lo < r0:
+        lo, base = r0, o0
+    ends = base + np.cumsum(counts[lo:min(lo + B, r)], dtype=np.int64)
+    k = int(np.searchsorted(ends, limit, side="right"))
+    r1, o1 = lo + k, int(ends[k - 1]) if k else base
+    if r1 == r0:                       # one run longer than cap
+        r1, o1 = r0 + 1, o0 + int(counts[r0])
+    return r1, o1
 
 
 def decode(counts, values, *, device: str | torch.device) -> np.ndarray:
@@ -244,9 +254,11 @@ def decode(counts, values, *, device: str | torch.device) -> np.ndarray:
         return np.zeros(0, np.uint8)
     block_end = _block_ends(counts)
     n = int(block_end[-1])
-    c = constant_byte_probe(values)
-    if c is not None and bool((counts[:-1] == RUN_CAP).all()):
-        with stage("Decompression", n):
+    with stage(span="flrl.host.probe"):
+        c = constant_byte_probe(values)
+        constant = c is not None and bool((counts[:-1] == RUN_CAP).all())
+    if constant:
+        with stage("Decompression", n, span="flrl.host.out"):
             return np.full(n, c, np.uint8)
     return decode_walk(counts, values, device, block_end)
 
@@ -266,21 +278,22 @@ def decode_walk(counts: np.ndarray, values: np.ndarray,
         block_end = _block_ends(counts)
     n = int(block_end[-1])
     if out is None:
-        out = np.empty(n, np.uint8)
+        with stage(span="flrl.host.out"):
+            out = np.empty(n, np.uint8)
     elif out.shape != (n,) or out.dtype != np.uint8:
         raise ValueError(f"decode_walk: out must be u8[{n}], got "
                          f"{out.dtype}{list(out.shape)}")
     device = torch.device(device)
 
     def up(r0: int, r1: int):
-        h2d = []
-        with stage("Copy input to device", 2 * (r1 - r0), result=h2d):
-            h2d += [_to_device(counts[r0:r1], device),
-                    _to_device(values[r0:r1], device)]
-        return h2d
+        with stage("Copy input to device", 2 * (r1 - r0),
+                   span="flrl.h2d.pageable", on=device):
+            return (_to_device(counts[r0:r1], device),
+                    _to_device(values[r0:r1], device))
 
     for o0, o1, out_d in decode_parts(counts, block_end, up):
-        with stage("Copy results to CPU", o1 - o0):
+        with stage("Copy results to CPU", o1 - o0,
+                   span="flrl.d2h.pageable"):
             torch.from_numpy(out[o0:o1]).copy_(out_d)
     return out
 
@@ -294,7 +307,7 @@ def decode_parts(counts: np.ndarray, block_end: np.ndarray, runs_on_device):
     for r0, r1, o0, o1 in _run_chunks(counts, block_end,
                                       fl_torch.MAX_DEVICE_CHUNK):
         c, v = runs_on_device(r0, r1)
-        krn = []
-        with stage("Decompression", o1 - o0, result=krn):
-            krn.append(kern.expand(c, v, kern.run_offsets(c), o1 - o0))
-        yield o0, o1, krn[0]
+        with stage("Decompression", o1 - o0, span="flrl.kernels",
+                   on=c.device):
+            out = kern.expand(c, v, kern.run_offsets(c), o1 - o0)
+        yield o0, o1, out

@@ -81,6 +81,7 @@ from ..ops import fl_constant_cuda as ckern
 from ..ops import fl_dense_cuda, fl_torch, rl_cuda, rl_torch
 from ..ops.bitpack import FRAME_LENGTH
 from ..utils import constant_byte_probe
+from ..utils import thread_state
 from ..utils.timers import card_scope, stage
 
 
@@ -158,12 +159,14 @@ def make_mesh(num_devices: int | None = None,
     return tuple(torch.device("cuda", i) for i in range(world))
 
 
-def _shard_main(index: int, device: torch.device, work: Callable):
+def _shard_main(index: int, device: torch.device, work: Callable, state):
     """``work(index, device)`` in a per-card thread: tagged as shard
-    ``index`` (stage lines, launch counts), on ``device`` as the thread's
-    current device and on a stream of its own there.  Returns the result
-    and an event after the stream's work (None on the CPU)."""
-    with card_scope(index):
+    ``index`` (stage lines, launch counts), holding the starting thread's
+    profiler state (``state``, :func:`thread_state.capture`), on ``device``
+    as the thread's current device and on a stream of its own there.
+    Returns the result and an event after the stream's work (None on the
+    CPU)."""
+    with card_scope(index, state):
         if device.type != "cuda":
             return work(index, device), None
         with torch.cuda.device(device), \
@@ -190,10 +193,14 @@ def on_mesh(mesh: Mesh, work: Callable) -> list:
             with torch.cuda.device(dev):
                 return [work(0, dev)]
         return [work(0, dev)]
-    with concurrent.futures.ThreadPoolExecutor(
-            len(mesh), thread_name_prefix="flrl-card") as pool:
-        futures = [pool.submit(_shard_main, i, dev, work)
-                   for i, dev in enumerate(mesh)]
+    state = thread_state.capture()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(
+                len(mesh), thread_name_prefix="flrl-card") as pool:
+            futures = [pool.submit(_shard_main, i, dev, work, state)
+                       for i, dev in enumerate(mesh)]
+    finally:
+        thread_state.release(state)
     # the pool has joined every thread; result() raises a shard's error
     results = [f.result() for f in futures]
     for dev, (_, done) in zip(mesh, results):
@@ -226,17 +233,16 @@ def _gather_on_card(dev: torch.device, parts: list) -> list:
     sizes = [t.numel() for t in parts]
     total = sum(sizes)
     if all(t.device == dev for t in parts):
-        with stage("Copy results to CPU", total):
+        with stage("Copy results to CPU", total, span="flrl.gather.d2h"):
             return [t.cpu().numpy() for t in parts]
-    moved = []
-    with stage("Gather payloads on card 0", total, result=moved):
+    with stage("Gather payloads on card 0", total, span="flrl.gather.p2p",
+               on=dev):
         buf = torch.empty(total, dtype=torch.uint8, device=dev)
         pos = 0
         for t in parts:
             buf[pos:pos + t.numel()].copy_(t)
             pos += t.numel()
-        moved.append(buf)
-    with stage("Copy results to CPU", total):
+    with stage("Copy results to CPU", total, span="flrl.gather.d2h"):
         host = buf.cpu().numpy()
     bounds = np.cumsum([0] + sizes)
     return [host[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
@@ -298,7 +304,8 @@ def _gather_to_rank0(arrays: list[np.ndarray], group):
         return [list(arrays)]
     sizes = _all_gather_ints([a.size for a in arrays], group)
     comm = comm_device(group)
-    with stage("Gather to rank 0", int(sizes[1:].sum())):
+    with stage("Gather to rank 0", int(sizes[1:].sum()),
+               span="flrl.gather.p2p"):
         if rank == 0:
             got = [[torch.empty(int(n), dtype=torch.uint8, device=comm)
                     for n in sizes[r]] for r in range(1, world)]
@@ -318,7 +325,10 @@ def _gather_to_rank0(arrays: list[np.ndarray], group):
 
 
 def _cat(parts: list[np.ndarray]) -> np.ndarray:
-    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    if len(parts) == 1:
+        return parts[0]
+    with stage(span="flrl.host.join"):
+        return np.concatenate(parts)
 
 
 def _all_gather_payloads(bits_d: torch.Tensor, values_d: torch.Tensor,
@@ -332,18 +342,19 @@ def _all_gather_payloads(bits_d: torch.Tensor, values_d: torch.Tensor,
     sizes = _all_gather_ints([bits_d.numel(), values_d.numel()], group)
     width = int(sizes.sum(1).max())
     comm = comm_device(group)
-    moved = []
-    with stage("All-gather payloads", width * world, result=moved):
+    with stage("All-gather payloads", width * world, span="flrl.gather.p2p",
+               on=comm):
         buf = torch.empty(width, dtype=torch.uint8, device=comm)
         nb, nv = (int(x) for x in sizes[rank])
         buf[:nb].copy_(bits_d)
         buf[nb:nb + nv].copy_(values_d)
         gathered = [torch.empty_like(buf) for _ in range(world)]
         dist.all_gather(gathered, buf, group=group)
-        moved += gathered
-    bits = np.empty(int(sizes[:, 0].sum()), np.uint8)
-    values = np.empty(int(sizes[:, 1].sum()), np.uint8)
-    with stage("Copy results to CPU", bits.size + values.size):
+    with stage(span="flrl.host.out"):
+        bits = np.empty(int(sizes[:, 0].sum()), np.uint8)
+        values = np.empty(int(sizes[:, 1].sum()), np.uint8)
+    with stage("Copy results to CPU", bits.size + values.size,
+               span="flrl.gather.d2h"):
         ob = ov = 0
         for g, (nb, nv) in zip(gathered, sizes.tolist()):
             torch.from_numpy(bits[ob:ob + nb]).copy_(g[:nb])
@@ -365,10 +376,11 @@ def _fl_closed_form(data: np.ndarray, frame_length: int):
     n = data.size
     if n == 0:
         return FLCompressed(np.zeros(0, np.uint8), np.zeros(0, np.uint8), 0)
-    c = constant_byte_probe(data)
+    with stage(span="flrl.host.probe"):
+        c = constant_byte_probe(data)
     if c is None:
         return None
-    with stage("Compression", n):
+    with stage("Compression", n, span="flrl.host.out"):
         return FLCompressed(*fl_torch._constant_container(c, n, frame_length),
                             n)
 
@@ -455,7 +467,8 @@ def decompress_fl(comp, frame_length: int = FRAME_LENGTH, *, group=None,
                 voffs[f0:f1 + 1] - voffs[f0], frame_length, dev, out=dest)
 
         if mesh:
-            out = np.empty(n, np.uint8)
+            with stage(span="flrl.host.out"):
+                out = np.empty(n, np.uint8)
             on_mesh(mesh, lambda i, dev: decode(i, dev, plan.shard(out, i)))
         else:
             parts = _gather_to_rank0([decode(rank, device)], group)
@@ -520,9 +533,11 @@ def decompress_rl(comp, *, group=None, device=None,
                                     out=dest)
 
     if mesh:
-        starts = np.cumsum([0] + [int(counts[lo:hi].sum(dtype=np.int64))
-                                  for lo, hi in runs])
-        out = np.empty(int(starts[-1]), np.uint8)
+        with stage(span="flrl.host.split"):
+            starts = np.cumsum([0] + [int(counts[lo:hi].sum(dtype=np.int64))
+                                      for lo, hi in runs])
+        with stage(span="flrl.host.out"):
+            out = np.empty(int(starts[-1]), np.uint8)
         on_mesh(mesh, lambda i, dev: decode(
             i, dev, out[starts[i]:starts[i + 1]]))
         return out

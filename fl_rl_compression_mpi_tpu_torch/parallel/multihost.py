@@ -65,7 +65,7 @@ def _load_shard_timed(input_path: str, pid: int, nproc: int,
     """Rank-tagged sharded load (the reference prints a per-rank loader
     line and a 'Load data from file' timer from ``loadFileMpi``,
     ``file_io.cu:28-71``)."""
-    with stage("Load data from file") as t:
+    with stage("Load data from file", span="flrl.host.file") as t:
         data, off = fileio.load_file_sharded(input_path, pid, nproc,
                                              frame_length)
         if t:
@@ -127,18 +127,19 @@ def _direct_write_pieces(path: str, total_size: int, header: bytes | None,
                 _pwrite(fd, 0, np.frombuffer(header, np.uint8))
         finally:
             os.close(fd)
-    with stage("Write: publish barrier"):
+    with stage("Write: publish barrier", span="flrl.wait"):
         _barrier(group)             # the file exists before anyone writes
     fd = os.open(path, os.O_WRONLY)
     try:
         with stage("Write: pwrite own ranges",
-                   sum(len(d) for _, d in pieces)):
+                   sum(len(d) for _, d in pieces),
+                   span="flrl.host.file"):
             for off, data in pieces:
                 if len(data):
                     _pwrite(fd, int(off), data)
     finally:
         os.close(fd)
-    with stage("Write: completion barrier"):
+    with stage("Write: completion barrier", span="flrl.wait"):
         _barrier(group)             # writes complete before any read-back
 
 
@@ -357,7 +358,8 @@ def _merge_to_rank0(path: str, size: int, header: bytes | None,
     fd = _open_for_rank0(pid, path, size, header)
     try:
         with stage(f"Stream {what} data to node 0",
-                   sum(len(payload) for payload, _, _ in streams)):
+                   sum(len(payload) for payload, _, _ in streams),
+                   span="flrl.gather.p2p"):
             for payload, sizes, offs in streams:
                 _stream_to_host0(
                     payload, sizes,
@@ -394,13 +396,15 @@ def compress_fl_file(input_path: str, output_path: str,
         bits, values = fl_torch.encode(data, frame_length, device=device)
 
     if nproc == 1:
-        with stage("Save data to file", bits.size + values.size):
+        with stage("Save data to file", bits.size + values.size,
+                   span="flrl.host.file"):
             container.save_fl(output_path, container.FLCompressed(
                 bits, values, data.size))
         return
 
     # sizes-only exchange (MPI_Allgather analog, fl_gpu.cu:101-106)
-    with stage("Gather metadata from all nodes", 24 * nproc):
+    with stage("Gather metadata from all nodes", 24 * nproc,
+               span="flrl.gather.p2p"):
         sizes = _process_allgather([bits.size, values.size, data.size],
                                    group)
     bsizes, vsizes = sizes[:, 0], sizes[:, 1]
@@ -413,7 +417,8 @@ def compress_fl_file(input_path: str, output_path: str,
     header = _HEADER.pack(total_size, int(bsizes.sum()), int(vsizes.sum()))
     if _shared_fs():
         with stage("Write own byte range (shared fs)",
-                   bits.size + values.size):
+                   bits.size + values.size,
+                   span="flrl.host.file"):
             _direct_write_pieces(output_path, total, header,
                                  [(boffs[pid], bits), (voffs[pid], values)],
                                  group=group)
@@ -434,12 +439,14 @@ def compress_rl_file(input_path: str, output_path: str, chunk: int = 0, *,
     counts, values = rl_torch.encode(data, device=device)
 
     if nproc == 1:
-        with stage("Save data to file", 2 * counts.size):
+        with stage("Save data to file", 2 * counts.size,
+                   span="flrl.host.file"):
             container.save_rl(output_path, container.RLCompressed(
                 counts, values, data.size))
         return
 
-    with stage("Gather metadata from all nodes", 16 * nproc):
+    with stage("Gather metadata from all nodes", 16 * nproc,
+               span="flrl.gather.p2p"):
         sizes = _process_allgather([counts.size, data.size], group)
     rsizes = sizes[:, 0]
     r_total = int(rsizes.sum())
@@ -448,7 +455,8 @@ def compress_rl_file(input_path: str, output_path: str, chunk: int = 0, *,
     total = _HEADER.size + 2 * r_total
     header = _HEADER.pack(int(sizes[:, 1].sum()), r_total, r_total)
     if _shared_fs():
-        with stage("Write own byte range (shared fs)", 2 * counts.size):
+        with stage("Write own byte range (shared fs)", 2 * counts.size,
+                   span="flrl.host.file"):
             _direct_write_pieces(output_path, total, header,
                                  [(coffs[pid], counts), (voffs[pid], values)],
                                  group=group)
@@ -481,11 +489,11 @@ def decompress_fl_file(input_path: str, output_path: str,
     then sends or writes its bytes."""
     pid, nproc = _rank_world(group)
     if nproc == 1:
-        with stage("Load data from file"):
+        with stage("Load data from file", span="flrl.host.file"):
             comp = container.load_fl(input_path)
         out = fl_torch.decode(comp.input_size, comp.bits, comp.values,
                               frame_length, device=device)
-        with stage("Save data to file", out.size):
+        with stage("Save data to file", out.size, span="flrl.host.file"):
             fileio.save_file(output_path, out)
         return
 
@@ -530,13 +538,14 @@ def decompress_fl_file(input_path: str, output_path: str,
     my_vbytes = int(((widths[f0:f1].astype(np.int64) * lengths + 7)
                      // 8).sum())
 
-    with stage("Load data from file", my_vbytes):
+    with stage("Load data from file", my_vbytes, span="flrl.host.file"):
         values = fileio.load_range(input_path, _HEADER.size + bits_size + v0,
                                    my_vbytes)
     out = fl_torch.decode(my_n, widths[f0:f1], values, frame_length,
                           device=device)
     if _shared_fs():
-        with stage("Write own byte range (shared fs)", out.size):
+        with stage("Write own byte range (shared fs)", out.size,
+                   span="flrl.host.file"):
             _direct_write_pieces(output_path, n, None, [(my_off, out)],
                                  group=group)
         return
@@ -553,10 +562,10 @@ def decompress_rl_file(input_path: str, output_path: str, chunk: int = 0,
     total checked against the header), and sends or writes its bytes."""
     pid, nproc = _rank_world(group)
     if nproc == 1:
-        with stage("Load data from file"):
+        with stage("Load data from file", span="flrl.host.file"):
             comp = container.load_rl(input_path)
         out = rl_torch.decode(comp.counts, comp.values, device=device)
-        with stage("Save data to file", out.size):
+        with stage("Save data to file", out.size, span="flrl.host.file"):
             fileio.save_file(output_path, out)
         return
 
@@ -570,7 +579,7 @@ def decompress_rl_file(input_path: str, output_path: str, chunk: int = 0,
     per = -(-counts_size // nproc)
     lo = min(pid * per, counts_size)
     hi = min(lo + per, counts_size)
-    with stage("Load data from file", 2 * (hi - lo)):
+    with stage("Load data from file", 2 * (hi - lo), span="flrl.host.file"):
         counts = fileio.load_range(input_path, _HEADER.size + lo, hi - lo)
         values = fileio.load_range(
             input_path, _HEADER.size + counts_size + lo, hi - lo)
@@ -583,7 +592,8 @@ def decompress_rl_file(input_path: str, output_path: str, chunk: int = 0,
         raise IOError("[FileIO] corrupt RL container: counts sum to "
                       f"{total}, header claims {n}")
     if _shared_fs():
-        with stage("Write own byte range (shared fs)", out.size):
+        with stage("Write own byte range (shared fs)", out.size,
+                   span="flrl.host.file"):
             _direct_write_pieces(output_path, n, None, [(offs[pid], out)],
                                  group=group)
         return

@@ -229,3 +229,38 @@ def test_cpu_run_launches_no_kernel():
     data = np.random.default_rng(1).integers(0, 64, 50_000, np.uint8)
     np.testing.assert_array_equal(_dec(data.size, *_enc(data)), data)
     assert fl_dense_cuda.LAUNCHES == before
+
+
+# the spans an FL round trip on the CPU leaves under a profiler, by route;
+# "chunked" cuts the walk at 1024 frames, so that the encode joins chunks
+_FL_SPANS = {
+    "dense": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
+              "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.out",
+              "flrl.d2h.pageable"},
+    "fields": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
+               "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.fold",
+               "flrl.host.unfold", "flrl.host.out", "flrl.d2h.pageable"},
+    "chunked": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
+                "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.out",
+                "flrl.host.join", "flrl.d2h.pageable"},
+}
+
+
+@pytest.mark.parametrize("route", sorted(_FL_SPANS))
+def test_round_trip_spans_under_a_profiler(route, monkeypatch):
+    """Under a CPU profiler, an ``fl`` compress and decompress through the
+    library API leave each stage's span (``utils/timers.py``'s families),
+    nested inside the caller's range, and the same containers."""
+    import fl_rl_compression_mpi_tpu_torch as flrl
+    import torch_spans
+    if route == "fields":
+        monkeypatch.setenv("FLRL_NO_DENSE", "1")
+    if route == "chunked":
+        monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", 1024 * 128)
+    data = torch_spans.stream()
+    with torch_spans.spans() as got:
+        comp = flrl.compress(data, method="fl", device="cpu")
+        out = flrl.decompress(comp, method="fl", device="cpu")
+    np.testing.assert_array_equal(out, data)
+    np.testing.assert_array_equal(comp.values, fl_numpy.encode(data)[1])
+    assert torch_spans.check(got) == _FL_SPANS[route]

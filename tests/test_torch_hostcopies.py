@@ -239,6 +239,50 @@ def test_native_library_is_the_packages_own():
         assert _code_lines(a.read()) == _code_lines(b.read())
 
 
+def test_every_native_source_is_packaged():
+    """``pyproject.toml``'s package data holds every source the package
+    builds at run time (the CUDA kernels, the host library, the
+    thread-state library), so that an installed package can build them."""
+    import fnmatch
+    import tomllib
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "fl_rl_compression_mpi_tpu_torch"]
+    pkg = os.path.dirname(native.__file__)
+    sources = [os.path.relpath(p, pkg)
+               for p in glob.glob(os.path.join(pkg, "csrc", "*"))]
+    assert os.path.relpath(native._SRC_PATH, pkg) in sources
+    assert not [s for s in sources
+                if not any(fnmatch.fnmatch(s, p) for p in patterns)]
+
+
+def test_build_cxx_builds_once_and_loads(tmp_path):
+    """``native.build_cxx`` / ``load_cxx``, shared by the host library and
+    the thread-state library: built where missing or older than its
+    source, loaded once a process, False / None where g++ fails."""
+    src, out = tmp_path / "one.cpp", str(tmp_path / "b" / "libone.so")
+    src.write_text('extern "C" int flrl_one() { return 1; }\n')
+    assert native.build_cxx(str(src), out)
+    built = os.path.getmtime(out)
+    assert native.build_cxx(str(src), out)
+    assert os.path.getmtime(out) == built            # up to date: kept
+    try:
+        lib = native.load_cxx(str(src), out)
+        assert lib.flrl_one() == 1
+        assert native.load_cxx(str(src), out) is lib
+    finally:
+        native._LOADED.pop(out, None)
+    os.utime(src, (built + 10, built + 10))
+    src.write_text("not C++\n")
+    os.utime(src, (built + 10, built + 10))
+    assert not native.build_cxx(str(src), out)       # stale, and fails
+    try:
+        assert native.load_cxx(str(src), str(tmp_path / "none.so")) is None
+    finally:
+        native._LOADED.pop(str(tmp_path / "none.so"), None)
+
+
 def _code_lines(source: str) -> list:
     return [line for line in source.splitlines()
             if not line.lstrip().startswith("//")]

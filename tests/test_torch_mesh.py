@@ -372,3 +372,71 @@ def test_decode_walks_write_into_out():
     _eq(out, RL["runs"])
     with pytest.raises(ValueError, match="out must be"):
         rl_torch.decode_walk(counts, rvalues, CPU, out=out[1:])
+
+
+@pytest.mark.parametrize("method", ["fl-ici", "fl-dist", "rl-dist"])
+def test_card_threads_spans_reach_the_trace(method, monkeypatch):
+    """Under a CPU profiler, a mesh's per-card threads hold the calling
+    thread's profiler state, so that their stages' spans reach the trace
+    beside the calling thread's (fl-ici's gather among them), all inside
+    the caller's range; the containers are unchanged."""
+    import torch_spans
+    monkeypatch.setattr(registry, "default_device", lambda: CPU)
+    data, _ = FL["mixed"]
+    with torch_spans.spans() as got:
+        comp = flrl.compress(data, method=method, devices=3)
+        out = flrl.decompress(comp, method=method, devices=3)
+    _eq(out, data)
+    names = torch_spans.check(got)
+    caller = next(r.thread for r in got if r.name == "outer")
+    cards = {r.thread for r in got if r.thread != caller}
+    # three card threads at once (the profiler may give a later call's
+    # threads the ids of an earlier call's, which have ended)
+    assert len(cards) >= 3
+    assert {r.name for r in got if r.thread in cards} >= {
+        "flrl.h2d.pinned" if method != "rl-dist" else "flrl.h2d.pageable",
+        "flrl.kernels"}
+    if method == "fl-ici":
+        assert {"flrl.gather.d2h", "flrl.host.join"} <= names
+
+
+def _round_trip_without_card_spans(monkeypatch):
+    """A profiled fl-ici round trip on a three-card CPU mesh: unchanged,
+    with only the calling thread's spans in the trace."""
+    import torch_spans
+    monkeypatch.setattr(registry, "default_device", lambda: CPU)
+    data, _ = FL["mixed"]
+    with torch_spans.spans() as got:
+        comp = flrl.compress(data, method="fl-ici", devices=3)
+    _eq(flrl.decompress(comp, method="fl-ici", devices=3), data)
+    caller = next(r.thread for r in got if r.name == "outer")
+    assert {r.thread for r in got} == {caller}
+    assert "flrl.gather.d2h" in torch_spans.check(got)
+
+
+def test_card_threads_without_the_state_library(monkeypatch):
+    """Where the thread-state library cannot be had, the card threads'
+    spans stay out of the trace and nothing else changes."""
+    from fl_rl_compression_mpi_tpu_torch.utils import thread_state
+    monkeypatch.setattr(thread_state, "_lib", lambda: None)
+    _round_trip_without_card_spans(monkeypatch)
+
+
+def test_card_threads_without_the_state_source(tmp_path, monkeypatch):
+    """An installed package without ``csrc/thread_state.cpp`` and without
+    its built library: a profiled mesh round trip still succeeds, with a
+    warning and without the card threads' spans."""
+    import functools
+    from fl_rl_compression_mpi_tpu_torch import native
+    from fl_rl_compression_mpi_tpu_torch.utils import thread_state
+    monkeypatch.setattr(thread_state, "_SRC_PATH",
+                        str(tmp_path / "csrc" / "thread_state.cpp"))
+    monkeypatch.setattr(thread_state, "_SO_PATH",
+                        str(tmp_path / "_build" / "libstate.so"))
+    monkeypatch.setattr(thread_state, "_lib",
+                        functools.cache(thread_state._lib.__wrapped__))
+    assert thread_state.build()               # nothing to build from
+    assert not (tmp_path / "_build").exists()
+    with pytest.warns(UserWarning, match="stay out of the profiler"):
+        _round_trip_without_card_spans(monkeypatch)
+    assert native._LOADED.pop(thread_state._SO_PATH) is None

@@ -533,3 +533,25 @@ def test_expand_classes(name, counts, tile, stage_max):
             [[0], np.cumsum(np.add.reduceat(
                 counts.astype(np.int64),
                 np.arange(0, counts.size, rl_cuda.TILE)))]))
+
+
+@pytest.mark.parametrize("cap", [None, 1 << 16])
+def test_round_trip_spans_under_a_profiler(cap, monkeypatch):
+    """Under a CPU profiler, an ``rl`` compress and decompress through the
+    library API leave each stage's span, nested inside the caller's range:
+    the host split of the runs among them; with the walk cut in chunks,
+    the join of the chunks' runs too."""
+    import fl_rl_compression_mpi_tpu_torch as flrl
+    import torch_spans
+    if cap:
+        monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", cap)
+    data = torch_spans.stream()
+    with torch_spans.spans() as got:
+        comp = flrl.compress(data, method="rl", device="cpu")
+        out = flrl.decompress(comp, method="rl", device="cpu")
+    np.testing.assert_array_equal(out, data)
+    np.testing.assert_array_equal(comp.counts, rl_numpy.encode(data)[0])
+    want = {"flrl.host.probe", "flrl.h2d.pageable", "flrl.kernels",
+            "flrl.d2h.pageable", "flrl.host.split", "flrl.host.out"}
+    assert torch_spans.check(got) == want | ({"flrl.host.join"} if cap
+                                             else set())
