@@ -25,7 +25,8 @@ that group's split instead (``group``, ``device``):
   frame-aligned, so the concatenation is the single-device container;
 * ``fl-ici`` (:func:`compress_fl_ici`): each card's widths and payload stay
   on it and are copied card to card into one buffer on ``mesh[0]``, then
-  copied down once (the JAX package's on-device ``all_gather``; on a group,
+  copied down once into pinned memory, whose two halves are the container
+  (the JAX package's on-device ``all_gather``; on a group,
   an all-gather padded to the largest rank's, and every rank builds the
   container);
 * :func:`decompress_fl`: the host closed forms first (constant container,
@@ -225,27 +226,44 @@ def _local_mesh(group, device, mesh) -> tuple[torch.device, ...] | None:
     return None
 
 
-def _gather_on_card(dev: torch.device, parts: list) -> list:
-    """The host bytes of the u8 device tensors ``parts``, in order.  Where
-    some lie on other cards than ``dev``, all are first copied card to card
-    into one buffer on ``dev`` (over NVLink where the cards have it), which
-    is then copied down once."""
-    sizes = [t.numel() for t in parts]
-    total = sum(sizes)
-    if all(t.device == dev for t in parts):
-        with stage("Copy results to CPU", total, span="flrl.gather.d2h"):
-            return [t.cpu().numpy() for t in parts]
-    with stage("Gather payloads on card 0", total, span="flrl.gather.p2p",
-               on=dev):
-        buf = torch.empty(total, dtype=torch.uint8, device=dev)
-        pos = 0
-        for t in parts:
-            buf[pos:pos + t.numel()].copy_(t)
-            pos += t.numel()
+def _fill(dst: torch.Tensor, parts: list,
+          non_blocking: bool = False) -> torch.Tensor:
+    """``dst`` holding the tensors ``parts`` one after another."""
+    pos = 0
+    for t in parts:
+        dst[pos:pos + t.numel()].copy_(t, non_blocking=non_blocking)
+        pos += t.numel()
+    return dst
+
+
+def _gather_on_card(dev: torch.device, parts: list) -> np.ndarray:
+    """The bytes of the u8 device tensors ``parts``, in order, in one host
+    array.  Where some lie on other cards than ``dev``, all are first
+    copied card to card into one buffer on ``dev`` (over NVLink where the
+    cards have it), which is then copied down once; where all lie on
+    ``dev``, each is copied down into its slice.
+
+    From a CUDA device the array is a view of a block of PyTorch's
+    pinned-memory cache, as the one-card walk's container is: each call
+    takes a block of its own, which returns to the cache once every view
+    of it is dropped (and its copy's event has passed), so a later call
+    never writes into an array that a caller still holds.  From the CPU it
+    is plain host memory."""
+    total = sum(t.numel() for t in parts)
+    if any(t.device != dev for t in parts):
+        with stage("Gather payloads on card 0", total,
+                   span="flrl.gather.p2p", on=dev):
+            parts = [_fill(torch.empty(total, dtype=torch.uint8, device=dev),
+                           parts)]
     with stage("Copy results to CPU", total, span="flrl.gather.d2h"):
-        host = buf.cpu().numpy()
-    bounds = np.cumsum([0] + sizes)
-    return [host[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+        cuda = dev.type == "cuda"
+        host = _fill(fl_torch._pinned_bytes(total)[:total] if cuda
+                     else torch.empty(total, dtype=torch.uint8), parts, cuda)
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            done.synchronize()
+    return host.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +433,10 @@ def compress_fl_ici(data, frame_length: int = FRAME_LENGTH, *, group=None,
     """``fl-ici``: as :func:`compress_fl`, but the shards' outputs stay on
     their devices and are gathered there: card to card onto ``mesh[0]``,
     or all-gathered over the group, where every rank returns the
-    container."""
+    container.  On a mesh the container's widths and payload are the two
+    halves of the one host array that :func:`_gather_on_card` lands (in
+    pinned memory from a card), with no copy between them; the block is
+    the container's until both are dropped."""
     data = np.asarray(data, np.uint8).reshape(-1)
     mesh = _local_mesh(group, device, mesh)
     rank, world = (0, len(mesh)) if mesh else _rank_world(group)
@@ -429,10 +450,10 @@ def compress_fl_ici(data, frame_length: int = FRAME_LENGTH, *, group=None,
 
         if mesh:
             outs = on_mesh(mesh, encode)
-            bits_values = _gather_on_card(
+            nb = sum(b.numel() for b, _ in outs)
+            host = _gather_on_card(
                 mesh[0], [b for b, _ in outs] + [v for _, v in outs])
-            comp = FLCompressed(_cat(bits_values[:world]),
-                                _cat(bits_values[world:]), data.size)
+            comp = FLCompressed(host[:nb], host[nb:], data.size)
         else:
             comp = FLCompressed(
                 *_all_gather_payloads(*encode(rank, device), group),

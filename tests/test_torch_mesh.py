@@ -334,6 +334,56 @@ def test_launch_counts_from_many_threads(monkeypatch):
         "shard").values())
 
 
+def _one_landing(comp) -> None:
+    """``comp``'s widths and payload are the two halves of one host array,
+    the widths right before the payload."""
+    assert comp.bits.base is not None and comp.bits.base is comp.values.base
+    assert np.shares_memory(comp.bits.base, comp.values)
+    assert comp.bits.ctypes.data + comp.bits.size == comp.values.ctypes.data
+
+
+def _fl_ici_lands_once(mesh) -> None:
+    """fl-ici on ``mesh``: the container is one landing array, equal to
+    fl_numpy's (the one-device container), and a second call on other data
+    leaves it as it was, byte for byte."""
+    data, L = FL["mixed"]
+    comp = dist.compress_fl_ici(data, L, mesh=mesh)
+    _one_landing(comp)
+    want_b, want_v = fl_numpy.encode(data, L)
+    _eq(comp.bits, want_b)
+    _eq(comp.values, want_v)
+    other = data[::-1] ^ np.uint8(0x5A)
+    second = dist.compress_fl_ici(other, L, mesh=mesh)
+    assert not np.shares_memory(second.values, comp.values)
+    _eq(comp.bits, want_b)
+    _eq(comp.values, want_v)
+    _one_landing(second)
+    _eq(dist.decompress_fl(second, L, mesh=mesh), other)
+    _eq(dist.decompress_fl(comp, L, mesh=mesh), data)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_fl_ici_container_is_one_landing_array(shards, one_process):
+    """On a CPU mesh of N shards, fl-ici's container is one host array,
+    with no join."""
+    _fl_ici_lands_once(dist.make_mesh(shards, CPU))
+
+
+def test_fl_ici_container_lands_in_pinned_memory():
+    """On two cards, the gathered container is one array of pinned host
+    memory, byte-identical to the one-device container, and a later call
+    takes a block of its own.  Skips unless two CUDA devices are present."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the card-to-card gather onto "
+                    "the first card")
+    mesh = dist.make_mesh(2)
+    data, L = FL["mixed"]
+    comp = dist.compress_fl_ici(data, L, mesh=mesh)
+    assert torch.from_numpy(comp.values).is_pinned()
+    assert torch.from_numpy(comp.bits).is_pinned()
+    _fl_ici_lands_once(mesh)
+
+
 def test_make_mesh(monkeypatch):
     assert dist.make_mesh(3, "cpu") == (CPU,) * 3
     assert dist.make_mesh(device="cpu") == (CPU,)
@@ -397,7 +447,9 @@ def test_card_threads_spans_reach_the_trace(method, monkeypatch):
         "flrl.h2d.pinned" if method != "rl-dist" else "flrl.h2d.pageable",
         "flrl.kernels"}
     if method == "fl-ici":
-        assert {"flrl.gather.d2h", "flrl.host.join"} <= names
+        # the gathered container lands as it is: no join of its parts
+        assert "flrl.gather.d2h" in names
+        assert "flrl.host.join" not in names
 
 
 def _round_trip_without_card_spans(monkeypatch):
