@@ -389,16 +389,25 @@ class _Chunk:
 
 def _pipeline(items, submit, drain, depth: int):
     """Submit each item, and drain each entry ``depth`` - 1 submits later
-    (at once at depth 1), in order."""
+    (at once at depth 1), in order.  Each submit and each drain is a span
+    of its own (``flrl.walk.submit``, ``flrl.walk.drain``; one of each a
+    chunk), the drain's closed before its result is handed on, so that
+    what the caller does with it is not counted in the drain."""
     if depth < 1:
         raise ValueError(f"depth must be at least 1, got {depth}")
+
+    def drained(entry):
+        with stage(span="flrl.walk.drain"):
+            return drain(entry)
+
     pending = deque()
     for item in items:
-        pending.append(submit(item))
+        with stage(span="flrl.walk.submit"):
+            pending.append(submit(item))
         if len(pending) >= depth:
-            yield drain(pending.popleft())
+            yield drained(pending.popleft())
     while pending:
-        yield drain(pending.popleft())
+        yield drained(pending.popleft())
 
 
 def encode(data, frame_length: int = FRAME_LENGTH, *,

@@ -11,9 +11,11 @@ a piece of host work) and is in one of three states:
   ``torch.autograd._profiler_enabled()``, and does nothing else;
 * **under a profiler**: it enters ``torch.profiler.record_function`` with
   the stage's span name (``flrl.host.<what>``, ``flrl.h2d.pinned``,
-  ``flrl.kernels``, ``flrl.wait``, ``flrl.gather.<what>``...), a range on
-  the profiler's clock, the one the device's events use; ``--profile``'s
-  TensorBoard trace and the benchmark's traced runs carry these spans;
+  ``flrl.kernels``, ``flrl.wait``, ``flrl.gather.<what>``, and around
+  each chunk's submit and drain ``flrl.walk.submit`` / ``.drain``...), a
+  range on the profiler's clock, the one the device's events use;
+  ``--profile``'s TensorBoard trace and the benchmark's traced runs carry
+  these spans;
 * **under** ``--timers`` (:func:`set_stage_timers`): it prints the stage's
   ``[TIMER]`` line.  A host stage is timed by ``time.perf_counter``; a
   device stage (``on=`` the stream its work is enqueued on, or the device

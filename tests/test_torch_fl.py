@@ -232,17 +232,20 @@ def test_cpu_run_launches_no_kernel():
 
 
 # the spans an FL round trip on the CPU leaves under a profiler, by route;
-# "chunked" cuts the walk at 1024 frames, so that the encode joins chunks
+# "chunked" cuts the walk at 1024 frames, so that the encode joins chunks;
+# every route's walk marks each chunk's submit and drain
+_WALK = {"flrl.walk.submit", "flrl.walk.drain"}
 _FL_SPANS = {
     "dense": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
               "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.out",
-              "flrl.d2h.pageable"},
+              "flrl.d2h.pageable"} | _WALK,
     "fields": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
                "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.fold",
-               "flrl.host.unfold", "flrl.host.out", "flrl.d2h.pageable"},
+               "flrl.host.unfold", "flrl.host.out",
+               "flrl.d2h.pageable"} | _WALK,
     "chunked": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
                 "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.out",
-                "flrl.host.join", "flrl.d2h.pageable"},
+                "flrl.host.join", "flrl.d2h.pageable"} | _WALK,
 }
 
 
@@ -264,3 +267,122 @@ def test_round_trip_spans_under_a_profiler(route, monkeypatch):
     np.testing.assert_array_equal(out, data)
     np.testing.assert_array_equal(comp.values, fl_numpy.encode(data)[1])
     assert torch_spans.check(got) == _FL_SPANS[route]
+
+
+# ---------------------------------------------------------------------------
+# the walk's spans a chunk, on a file cut as the walk cuts a 3124 MiB file
+# (three full 1 GiB chunks and a short tail): here chunks of 64 frames
+# ---------------------------------------------------------------------------
+
+_PIPELINE = ["submit", "submit", "drain", "submit", "drain", "submit",
+             "drain", "drain"]
+
+
+def _four_chunk_file(L, aligned, monkeypatch):
+    """A stream of three full chunks and a tail of 20 frames (the tail's
+    last frame short where not ``aligned``), the chunk cap patched to 64
+    frames; each chunk's frames of mixed widths, so no closed form takes
+    one."""
+    monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", 64 * L)
+    n = 3 * 64 * L + 20 * L - (0 if aligned else L // 2 + 3)
+    g = np.random.default_rng(L + aligned)
+    shift = g.integers(0, 8, -(-n // L), dtype=np.uint8).repeat(L)[:n]
+    return g.integers(0, 256, n, dtype=np.uint8) >> shift
+
+
+def _walk(got, thread=None):
+    """The walk's ranges of ``got`` (of one thread where given), by
+    start: their kinds, and the ranges themselves."""
+    ranges = sorted((r for r in got if r.name.startswith("flrl.walk.")
+                     and thread in (None, r.thread)), key=lambda r: r.start)
+    return [r.name[len("flrl.walk."):] for r in ranges], ranges
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "ragged"])
+@pytest.mark.parametrize("L", [128, 24])
+def test_four_chunk_walk_spans_each_chunk(L, aligned, monkeypatch):
+    """Under a CPU profiler, a four-chunk encode and decode through the
+    library API each open one ``flrl.walk.submit`` and one
+    ``flrl.walk.drain`` range a chunk, in the pipeline's order and one
+    after another; no drain holds the encode's joins, which run on what a
+    drain handed on; the container is ``fl_numpy``'s and the round trip
+    exact.  With the profiler off a walk span is the shared null
+    context, and a walk enters no range."""
+    import fl_rl_compression_mpi_tpu_torch as flrl
+    import torch
+    import torch_spans
+    from fl_rl_compression_mpi_tpu_torch.utils import timers
+    data = _four_chunk_file(L, aligned, monkeypatch)
+    assert -(-data.size // fl_torch._device_cap(L)) == 4
+    opts = dict(method="fl", frame_length=L, device="cpu")
+    with torch_spans.spans() as enc:
+        comp = flrl.compress(data, **opts)
+    with torch_spans.spans() as dec:
+        out = flrl.decompress(comp, **opts)
+    bits, values = fl_numpy.encode(data, L)
+    np.testing.assert_array_equal(comp.bits, bits)
+    np.testing.assert_array_equal(comp.values, values)
+    np.testing.assert_array_equal(out, data)
+    for got in (enc, dec):
+        torch_spans.check(got)
+        kinds, ranges = _walk(got)
+        assert kinds == _PIPELINE
+        assert all(a.end <= b.start for a, b in zip(ranges, ranges[1:]))
+    joins = [r for r in enc if r.name == "flrl.host.join"]
+    assert len(joins) == 5          # a chunk's payload each, then the last
+    drains = [r for r in _walk(enc)[1] if r.name == "flrl.walk.drain"]
+    assert not any(d.start < j.end and j.start < d.end
+                   for d in drains for j in joins)
+
+    def boom(*_, **__):
+        raise AssertionError("a range entered with the profiler off")
+    assert timers.stage(span="flrl.walk.submit") is timers._OFF
+    assert timers.stage(span="flrl.walk.drain") is timers._OFF
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    again = flrl.compress(data, **opts)
+    np.testing.assert_array_equal(again.values, values)
+    np.testing.assert_array_equal(flrl.decompress(again, **opts), data)
+
+
+@pytest.mark.parametrize("caller", ["stream", "fl-dist"])
+def test_every_walk_caller_spans_each_chunk(caller, tmp_path, monkeypatch):
+    """The stream's walks and each shard's walk of a mesh open one submit
+    and one drain range a chunk, in the pipeline's order, on the thread
+    that runs the walk."""
+    import fl_rl_compression_mpi_tpu_torch as flrl
+    import torch
+    import torch_spans
+    from fl_rl_compression_mpi_tpu_torch import stream
+    from fl_rl_compression_mpi_tpu_torch.models import registry
+    data = _four_chunk_file(128, False, monkeypatch)
+    with torch_spans.spans() as got:
+        if caller == "stream":
+            src, comp = str(tmp_path / "in"), str(tmp_path / "c.fl")
+            back = str(tmp_path / "back")
+            data.tofile(src)
+            # chunks of 64 frames of the input, in the encode and the decode
+            monkeypatch.setattr(stream, "DEFAULT_CHUNK", 64 * 128)
+            stream.compress_fl_stream(src, comp, device="cpu")
+            stream.decompress_fl_stream(comp, back, device="cpu")
+            out = np.fromfile(back, np.uint8)
+        else:
+            monkeypatch.setattr(registry, "default_device",
+                                lambda: torch.device("cpu"))
+            c = flrl.compress(data, method="fl-dist", devices=2)
+            out = flrl.decompress(c, method="fl-dist", devices=2)
+    np.testing.assert_array_equal(out, data)
+    torch_spans.check(got)
+    threads = {r.thread for r in got if r.name.startswith("flrl.walk.")}
+    if caller == "stream":
+        # one thread: the encode's four chunks, then the decode's
+        assert _walk(got)[0] == _PIPELINE + _PIPELINE
+    else:
+        # each shard's walk in its card thread, both ways: two chunks each
+        assert len(threads) >= 2
+        assert sum(k == "submit" for k in _walk(got)[0]) == 8
+        for t in threads:
+            kinds = _walk(got, t)[0]
+            assert len(kinds) % 4 == 0
+            for i in range(0, len(kinds), 4):
+                assert kinds[i:i + 4] == ["submit", "submit", "drain",
+                                          "drain"]

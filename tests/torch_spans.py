@@ -11,7 +11,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 # every span name a walk may use (utils/timers.py's families)
 FAMILIES = re.compile(r"^flrl\.(host\.[a-z_]+|[hd]2[hd]\.(pinned|pageable)"
-                      r"|kernels|wait|gather\.[a-z0-9_]+)$")
+                      r"|kernels|wait|gather\.[a-z0-9_]+"
+                      r"|walk\.(submit|drain))$")
 
 
 @dataclass(frozen=True)
