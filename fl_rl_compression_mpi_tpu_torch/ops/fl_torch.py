@@ -231,6 +231,24 @@ def _pinned_bytes(nbytes: int) -> torch.Tensor:
                        dtype=torch.uint8, pin_memory=True)
 
 
+def _host_block(nbytes: int, device) -> torch.Tensor:
+    """u8[nbytes] of host memory for results that leave ``device``: from a
+    card, a block of PyTorch's pinned-memory cache (:func:`_pinned_bytes`),
+    held until every view of it is dropped, so that a later call never
+    writes into memory that a caller still holds; plain memory from the
+    CPU."""
+    if torch.device(device).type == "cuda":
+        return _pinned_bytes(nbytes)[:nbytes]
+    return torch.empty(nbytes, dtype=torch.uint8)
+
+
+def _d2h_span(dest: torch.Tensor | None) -> str:
+    """The span of a copy down into ``dest``, by its kind of host memory
+    (None: the walk's pinned download buffer)."""
+    pinned = dest is None or dest.is_pinned()
+    return "flrl.d2h.pinned" if pinned else "flrl.d2h.pageable"
+
+
 class _Lanes:
     """Where a walk's chunks move.  On a CUDA device: an upload stream, the
     caller's current stream for the kernels, and a download stream, with
@@ -309,19 +327,21 @@ class _Lanes:
             host[...] = a
         return host
 
-    def fill(self, n: int, c: int, dest: np.ndarray | None) -> np.ndarray:
-        """n bytes of ``c``: in ``dest`` where it is given, else in the
-        download buffer (valid until the next download or fill)."""
+    def fill(self, n: int, c: int, dest: torch.Tensor | None) -> np.ndarray:
+        """n bytes of ``c``: in the host tensor ``dest`` where it is given,
+        else in the download buffer (valid until the next download or
+        fill)."""
         if dest is None:
             if not self.cuda:
                 return np.full(n, c, np.uint8)
             if self._down is None or self._down.numel() < n:
                 self._down = None
                 self._down = _pinned_bytes(n)
-            dest = self._down[:n].numpy()
+            dest = self._down[:n]
+        host = dest.numpy()
         with stage(span="flrl.host.out"):
-            dest[...] = c
-        return dest
+            host[...] = c
+        return host
 
     def to_host_async(self, t: torch.Tensor) -> torch.Tensor:
         """A pinned host copy of the small tensor ``t``, complete once the
@@ -347,34 +367,34 @@ class _Lanes:
             with stage(span="flrl.wait"):
                 ev.synchronize()
 
-    def download(self, t: torch.Tensor, after, dest: np.ndarray | None = None,
+    def download(self, t: torch.Tensor, after,
+                 dest: torch.Tensor | None = None,
                  reserve: int = 0) -> np.ndarray:
         """``t``'s bytes on the host, once the event ``after`` (the
-        chunk's :meth:`fence`) has passed: copied into ``dest`` where it is
-        given, else into a pinned buffer (of at least ``reserve`` bytes,
-        as :meth:`upload`'s) whose view is valid until the next download.
-        It waits for that chunk's kernels alone, not for the next chunk's,
-        already queued behind its own copy up."""
+        chunk's :meth:`fence`) has passed: copied into the host tensor
+        ``dest`` where it is given (the copy's event recorded against its
+        block where that is pinned), else into a pinned buffer (of at least
+        ``reserve`` bytes, as :meth:`upload`'s) whose view is valid until
+        the next download.  It waits for that chunk's kernels alone, not
+        for the next chunk's, already queued behind its own copy up."""
         t = t.reshape(-1).view(torch.uint8)
         if not self.cuda:
             if dest is None:
                 return t.numpy()
-            dest[...] = t.numpy()
-            return dest
+            dest.copy_(t)
+            return dest.numpy()
         if dest is None:
             if self._down is None or self._down.numel() < t.numel():
                 self._down = None
                 self._down = _pinned_bytes(max(t.numel(), reserve))
-            host = self._down[:t.numel()]
-        else:
-            host = _host_tensor(dest)
+            dest = self._down[:t.numel()]
         self.down_stream.wait_event(after)
         with torch.cuda.stream(self.down_stream):
-            host.copy_(t, non_blocking=True)
+            dest.copy_(t, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.down_stream)
         self.wait(ev)
-        return host.numpy() if dest is None else dest
+        return dest.numpy()
 
 
 class _Chunk:
@@ -413,7 +433,8 @@ def _pipeline(items, submit, drain, depth: int):
 def encode(data, frame_length: int = FRAME_LENGTH, *,
            device: str | torch.device):
     """u8 bytes → ``(bits u8[F], values u8[V])``, byte-identical to
-    ``fl_numpy.encode`` and to the reference binary's containers."""
+    ``fl_numpy.encode`` and to the reference binary's containers; from a
+    card the payload is pinned host memory (:func:`encode_walk`)."""
     kern.check_frame_length(frame_length)
     data = np.asarray(data, np.uint8).reshape(-1)
     return encode_walk(data, frame_length, device)
@@ -424,38 +445,48 @@ def encode_walk(data: np.ndarray, frame_length: int,
     """:func:`encode_chunks` over ``data``, which it splits in
     frame-aligned chunks of at most ``_device_cap(L)`` bytes.  Returns
     ``(bits, values)`` as NumPy arrays, or with ``to_host=False`` as u8
-    tensors on ``device``."""
+    tensors on ``device``.
+
+    From a card the payload is pinned host memory from PyTorch's cache,
+    held (rounded up to a power of two) until the caller drops it: one
+    chunk's is the walk's download buffer; over several chunks, each
+    chunk's widths and payload land in one block of F + n bytes (a payload
+    is never longer than its input), whose two views, ``bits`` first, are
+    the container, with no join.  From the CPU the block is plain
+    memory."""
     n = data.size
-    parts = encode_chunks([data], frame_length, device=device,
-                          to_host=to_host)
     if not to_host:
-        bits, values = zip(*parts)
+        bits, values = zip(*encode_chunks([data], frame_length,
+                                          device=device, to_host=False))
         if len(bits) == 1:
             return bits[0], values[0]
         return torch.cat(bits), torch.cat(values)
     if n <= _device_cap(frame_length):
-        return next(parts)          # one chunk: its arrays as they are
+        # one chunk: its arrays as they are
+        return next(encode_chunks([data], frame_length, device=device))
+    frames = -(-n // frame_length)
     with stage(span="flrl.host.out"):
-        values = np.empty(n, np.uint8)
-    bits, pos = [], 0
-    for b, v in parts:              # v is valid until the walk advances
-        bits.append(b)
-        with stage(span="flrl.host.join"):
-            values[pos:pos + v.size] = v
-        pos += v.size
-    with stage(span="flrl.host.join"):
-        return np.concatenate(bits), values[:pos]
+        block = _host_block(frames + n, device)
+    size = 0
+    for _, v in encode_chunks([data], frame_length, device=device,
+                              out=(block[:frames], block[frames:])):
+        size += v.size
+    host = block.numpy()
+    return host[:frames], host[frames:frames + size]
 
 
 def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
                   device: str | torch.device, depth: int = 2,
-                  to_host: bool = True):
+                  to_host: bool = True, out=None):
     """The FL encode walk, pipelined: yields ``(bits, values)`` for each u8
     chunk of ``chunks``, in order, byte-identical to :func:`encode` of
     their concatenation (every chunk but the last must be frame-aligned;
     one above ``_device_cap(L)`` is split, with a pair for each piece).
     ``values`` is valid until the generator advances; ``bits`` is the
-    caller's.  With ``to_host=False`` both are u8 tensors on ``device``.
+    caller's.  With ``out``, a pair of u8 host tensors, each chunk's widths
+    and payload are copied into them instead, one chunk after another
+    (the payload straight from the device), and the pair yielded is those
+    slices.  With ``to_host=False`` both are u8 tensors on ``device``.
 
     Each chunk is *submitted* (the host closed form of a constant chunk,
     else copied up through a pinned buffer and its kernels launched on the
@@ -470,6 +501,20 @@ def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
     L = frame_length
     lanes = _Lanes(torch.device(device), depth)
     dense = _use_dense()
+    landed = [0, 0]         # widths and payload bytes put in ``out``
+
+    def land(bits: np.ndarray, size: int):
+        """A chunk's widths, and the host tensor its ``size`` payload bytes
+        go to: ``out``'s next slices, the widths copied in, where ``out``
+        is given; else a copy of ``bits`` and None (the download
+        buffer)."""
+        if out is None:
+            return bits.copy(), None
+        f, v = landed
+        landed[:] = f + bits.size, v + size
+        b = out[0][f:f + bits.size].numpy()
+        b[...] = bits
+        return b, out[1][v:v + size]
 
     def submit(data):
         n = data.size
@@ -489,13 +534,19 @@ def encode_chunks(chunks, frame_length: int = FRAME_LENGTH, *,
         if chunk.ready is not None:
             bits, values = chunk.ready
         elif dense:
-            return _drain_dense(lanes, chunk, L, to_host)
+            return _drain_dense(lanes, chunk, L, to_host, land)
         else:
             bits, values = _drain_fields(lanes, chunk, L)
-        if to_host:
+        if not to_host:
+            return _to_device(bits, lanes.device), _to_device(values,
+                                                              lanes.device)
+        if out is None:
             return bits, values
-        return _to_device(bits, lanes.device), _to_device(values,
-                                                          lanes.device)
+        with stage(span="flrl.host.out"):
+            bits, dest = land(bits, values.size)
+            host = dest.numpy()
+            host[...] = values
+        return bits, host
 
     yield from _pipeline(_aligned_chunks(chunks, L), submit, drain, depth)
 
@@ -539,7 +590,8 @@ def _submit_dense(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
                   done=lanes.fence())
 
 
-def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
+def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool,
+                 land):
     n = chunk.n
     lanes.wait(chunk.done)
     values_d, done = chunk.values_d, chunk.done
@@ -551,13 +603,14 @@ def _drain_dense(lanes: _Lanes, chunk: _Chunk, L: int, to_host: bool):
                                  size=n)
         done = lanes.fence()
     with stage(span="flrl.host.layout"):
-        bits = chunk.bits_h.numpy().copy()
+        bits = chunk.bits_h.numpy()
         values_d = values_d[:payload_size(bits, n, L)]
-    if not to_host:
-        return chunk.bits_d, values_d
+        if not to_host:
+            return chunk.bits_d, values_d
+        bits, dest = land(bits, values_d.numel())
     with stage("Copy results to CPU", values_d.numel(),
-               span="flrl.d2h.pinned"):
-        return bits, lanes.download(values_d, done, reserve=n)
+               span=_d2h_span(dest)):
+        return bits, lanes.download(values_d, done, dest, reserve=n)
 
 
 def _submit_fields(lanes: _Lanes, data: np.ndarray, L: int) -> _Chunk:
@@ -620,7 +673,10 @@ def decode(output_size: int, bits, values,
            device: str | torch.device) -> np.ndarray:
     """Container → u8[output_size].  Rejects, before any device work, a
     widths array shorter than the frame count, a width byte outside 1..8
-    and a payload shorter than the widths imply."""
+    and a payload shorter than the widths imply.  Where the walk runs
+    (:func:`decode_walk`), the output from a card is pinned host memory
+    from PyTorch's cache, held, rounded up to a power of two, until the
+    caller drops the array."""
     kern.check_frame_length(frame_length)
     bits = np.asarray(bits, np.uint8).reshape(-1)
     values = np.asarray(values, np.uint8).reshape(-1)
@@ -712,13 +768,19 @@ def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
     """:func:`decode_chunks` over the n bytes of the frames ``widths``
     (each 1..8) whose payload starts at ``values[voffs[f]]``, in chunks of
     at most ``_device_cap(L)`` bytes, each copied straight into the
-    output: ``out`` (u8[n]) where it is given, else a new array."""
+    output: ``out`` (u8[n]) where it is given, else a new block of host
+    memory, returned as an array: from a card, pinned memory from
+    PyTorch's cache, held (rounded up to a power of two) until the caller
+    drops the array, so that every part's copy down lands in pinned
+    memory; from the CPU, plain memory."""
     if out is None:
         with stage(span="flrl.host.out"):
-            out = np.empty(n, np.uint8)
+            block = _host_block(n, device)
     elif out.shape != (n,) or out.dtype != np.uint8:
         raise ValueError(f"decode_walk: out must be u8[{n}], got "
                          f"{out.dtype}{list(out.shape)}")
+    else:
+        block = torch.from_numpy(out)
     cap = _device_cap(frame_length)
     fpc = cap // frame_length
 
@@ -729,9 +791,10 @@ def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
             yield (min(cap, n - off), widths[f0:f1],
                    values[voffs[f0]:voffs[f1]])
 
-    for _ in decode_chunks(parts(), frame_length, device=device, out=out):
+    for _ in decode_chunks(parts(), frame_length, device=device,
+                           out=block):
         pass
-    return out
+    return block.numpy() if out is None else out
 
 
 def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
@@ -740,9 +803,10 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
     """The FL decode walk, pipelined: for each ``(n, widths, values)`` of
     ``parts`` (an n-byte frame-aligned piece of the stream, its widths,
     each 1..8, and exactly its payload; one above ``_device_cap(L)`` is
-    split), yields its n decoded bytes, in order.  With ``out`` they are
-    copied into ``out`` one part after another and the yielded array is
-    that slice of it; else it is valid until the generator advances.
+    split), yields its n decoded bytes, in order.  With ``out`` (a u8 host
+    array or tensor) they are copied into ``out`` one part after another
+    and the yielded array is that slice of it; else it is valid until the
+    generator advances.
 
     Each part is *submitted* (the host closed forms of a constant or
     all-8 part, else its payload, and on the general path its widths,
@@ -753,6 +817,7 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
     L = frame_length
     lanes = _Lanes(torch.device(device), depth)
     dense = _use_dense()
+    out = None if out is None else torch.as_tensor(out)
     pos = 0
 
     def submit(part):
@@ -782,12 +847,11 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
         if chunk.ready is not None:
             if dest is None:
                 return chunk.ready
+            host = dest.numpy()
             with stage(span="flrl.host.out"):
-                dest[...] = chunk.ready
-            return dest
-        with stage("Copy results to CPU", chunk.n,
-                   span="flrl.d2h.pinned" if dest is None
-                   else "flrl.d2h.pageable"):
+                host[...] = chunk.ready
+            return host
+        with stage("Copy results to CPU", chunk.n, span=_d2h_span(dest)):
             return lanes.download(chunk.out_d, chunk.done, dest)
 
     yield from _pipeline(_capped_parts(parts, L), submit, drain, depth)

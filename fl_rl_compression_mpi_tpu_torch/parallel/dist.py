@@ -257,8 +257,7 @@ def _gather_on_card(dev: torch.device, parts: list) -> np.ndarray:
                            parts)]
     with stage("Copy results to CPU", total, span="flrl.gather.d2h"):
         cuda = dev.type == "cuda"
-        host = _fill(fl_torch._pinned_bytes(total)[:total] if cuda
-                     else torch.empty(total, dtype=torch.uint8), parts, cuda)
+        host = _fill(fl_torch._host_block(total, dev), parts, cuda)
         if cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(dev))

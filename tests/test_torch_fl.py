@@ -232,8 +232,10 @@ def test_cpu_run_launches_no_kernel():
 
 
 # the spans an FL round trip on the CPU leaves under a profiler, by route;
-# "chunked" cuts the walk at 1024 frames, so that the encode joins chunks;
-# every route's walk marks each chunk's submit and drain
+# "chunked" cuts the walk at 1024 frames, so that each chunk's widths and
+# payload land in their slices of one block (plain memory on the CPU, so its
+# copies down are pageable) and nothing is joined; every route's walk marks
+# each chunk's submit and drain
 _WALK = {"flrl.walk.submit", "flrl.walk.drain"}
 _FL_SPANS = {
     "dense": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
@@ -244,8 +246,8 @@ _FL_SPANS = {
                "flrl.host.unfold", "flrl.host.out",
                "flrl.d2h.pageable"} | _WALK,
     "chunked": {"flrl.host.probe", "flrl.h2d.pinned", "flrl.kernels",
-                "flrl.host.layout", "flrl.d2h.pinned", "flrl.host.out",
-                "flrl.host.join", "flrl.d2h.pageable"} | _WALK,
+                "flrl.host.layout", "flrl.host.out",
+                "flrl.d2h.pageable"} | _WALK,
 }
 
 
@@ -304,10 +306,10 @@ def test_four_chunk_walk_spans_each_chunk(L, aligned, monkeypatch):
     """Under a CPU profiler, a four-chunk encode and decode through the
     library API each open one ``flrl.walk.submit`` and one
     ``flrl.walk.drain`` range a chunk, in the pipeline's order and one
-    after another; no drain holds the encode's joins, which run on what a
-    drain handed on; the container is ``fl_numpy``'s and the round trip
-    exact.  With the profiler off a walk span is the shared null
-    context, and a walk enters no range."""
+    after another; the encode opens no ``flrl.host.join`` (each chunk
+    lands in its slices of one block); the container is ``fl_numpy``'s and
+    the round trip exact.  With the profiler off a walk span is the shared
+    null context, and a walk enters no range."""
     import fl_rl_compression_mpi_tpu_torch as flrl
     import torch
     import torch_spans
@@ -328,11 +330,8 @@ def test_four_chunk_walk_spans_each_chunk(L, aligned, monkeypatch):
         kinds, ranges = _walk(got)
         assert kinds == _PIPELINE
         assert all(a.end <= b.start for a, b in zip(ranges, ranges[1:]))
-    joins = [r for r in enc if r.name == "flrl.host.join"]
-    assert len(joins) == 5          # a chunk's payload each, then the last
-    drains = [r for r in _walk(enc)[1] if r.name == "flrl.walk.drain"]
-    assert not any(d.start < j.end and j.start < d.end
-                   for d in drains for j in joins)
+    assert not [r for r in enc if r.name == "flrl.host.join"]
+    _one_block(comp.bits, comp.values)
 
     def boom(*_, **__):
         raise AssertionError("a range entered with the profiler off")
@@ -386,3 +385,106 @@ def test_every_walk_caller_spans_each_chunk(caller, tmp_path, monkeypatch):
             for i in range(0, len(kinds), 4):
                 assert kinds[i:i + 4] == ["submit", "submit", "drain",
                                           "drain"]
+
+
+# ---------------------------------------------------------------------------
+# where the walk's results land: one block a call, which the caller holds
+# ---------------------------------------------------------------------------
+
+def _one_block(bits, values):
+    """``bits`` and ``values`` are two views of one array, the widths right
+    before the payload."""
+    assert bits.base is not None and bits.base is values.base
+    assert np.shares_memory(bits.base, values)
+    assert bits.ctypes.data + bits.size == values.ctypes.data
+
+
+def _four_chunks_of_every_kind(L, seed, monkeypatch):
+    """A stream cut as :func:`_four_chunk_file` cuts it, whose chunks take
+    each of the walk's paths: mixed widths (the kernels both ways), zeros
+    (the encode's and the decode's closed forms), width 8 (the decode's
+    identity) and a ragged tail of mixed widths."""
+    monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", 64 * L)
+    g = np.random.default_rng(seed)
+    ck = 64 * L
+
+    def mixed(n):
+        shift = g.integers(0, 8, -(-n // L), dtype=np.uint8).repeat(L)[:n]
+        return g.integers(0, 256, n, dtype=np.uint8) >> shift
+    return np.concatenate([mixed(ck), np.zeros(ck, np.uint8),
+                           g.integers(0, 256, ck, np.uint8) | 128,
+                           mixed(20 * L - L // 2 - 3)])
+
+
+@pytest.mark.parametrize("route", ["dense", "fields"])
+@pytest.mark.parametrize("L", [128, 24, 8])
+def test_multi_chunk_results_land_in_one_block(L, route, monkeypatch):
+    """A four-chunk encode's widths and payload are two views of one
+    array, equal to ``fl_numpy``'s; the decode returns one new array; a
+    second encode and decode take blocks of their own and leave the first
+    call's results as they were while the caller holds them; and
+    ``decode_walk(out=)`` writes into the caller's array."""
+    if route == "fields":
+        monkeypatch.setenv("FLRL_NO_DENSE", "1")
+    data = _four_chunks_of_every_kind(L, L, monkeypatch)
+    assert -(-data.size // fl_torch._device_cap(L)) == 4
+    want_b, want_v = fl_numpy.encode(data, L)
+    bits, values = _enc(data, L)
+    _one_block(bits, values)
+    np.testing.assert_array_equal(bits, want_b)
+    np.testing.assert_array_equal(values, want_v)
+    out = _dec(data.size, bits, values, L)
+    np.testing.assert_array_equal(out, data)
+
+    other = data[::-1] ^ np.uint8(0x5A)
+    other_b, other_v = _enc(other, L)
+    _one_block(other_b, other_v)
+    assert not np.shares_memory(other_v, values)
+    np.testing.assert_array_equal(bits, want_b)
+    np.testing.assert_array_equal(values, want_v)
+    again = _dec(other.size, other_b, other_v, L)
+    assert not np.shares_memory(again, out)
+    np.testing.assert_array_equal(again, other)
+    np.testing.assert_array_equal(out, data)
+
+    widths, voffs = fl_torch.container_layout(data.size, bits, values.size,
+                                              L)
+    mine = np.full(data.size, 0xA5, np.uint8)
+    got = fl_torch.decode_walk(data.size, widths, values, voffs, L, "cpu",
+                               out=mine)
+    assert got is mine
+    np.testing.assert_array_equal(mine, data)
+
+
+def test_fl_walk_results_land_in_pinned_memory():
+    """On a card, the decode's output (one part and four) and the
+    four-chunk encode's container are pinned host memory, byte-exact, and
+    the decode's copies down open ``flrl.d2h.pinned`` and no
+    ``flrl.d2h.pageable``, the encode no ``flrl.host.join``.  Skips unless
+    a CUDA device is present."""
+    import torch
+    import torch_spans
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pinned-memory cache")
+    L = 128
+    data = torch_spans.stream()
+    bits, values = fl_torch.encode(data, L, device="cuda")
+    out = fl_torch.decode(data.size, bits, values, L, device="cuda")
+    assert torch.from_numpy(out).is_pinned()
+    np.testing.assert_array_equal(out, data)
+    with pytest.MonkeyPatch.context() as mp:
+        data = _four_chunks_of_every_kind(L, 23, mp)
+        with torch_spans.spans() as enc:
+            bits, values = fl_torch.encode(data, L, device="cuda")
+        with torch_spans.spans() as dec:
+            out = fl_torch.decode(data.size, bits, values, L, device="cuda")
+    for a in (bits, values, out):
+        assert torch.from_numpy(a).is_pinned()
+    _one_block(bits, values)
+    want_b, want_v = fl_numpy.encode(data, L)
+    np.testing.assert_array_equal(bits, want_b)
+    np.testing.assert_array_equal(values, want_v)
+    np.testing.assert_array_equal(out, data)
+    assert "flrl.host.join" not in torch_spans.check(enc)
+    got = torch_spans.check(dec)
+    assert "flrl.d2h.pinned" in got and "flrl.d2h.pageable" not in got
