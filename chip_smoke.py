@@ -164,19 +164,13 @@ Phases, each printing a line and failing the run on any error:
               resident memory of a streaming CLI process (a fresh process
               for each chunk size and file): its base, and its peak during
               c and during d, on 384 MiB + 77 bytes and on the whole file.
-   bench    — the copy-ceiling probe (csrc/copy_probe.cu) against x + 1 on
+   copy     — the copy-ceiling probe (csrc/copy_probe.cu) against x + 1 on
               int32 bit-views, byte for byte: word counts 1, 3, 4, 5,
               2048·128 and 512 MiB, words at 0xFFFFFFFF, starts 4 to 12
               bytes into a larger buffer (its word path), from a generator
               of its own (SEED + 9); timed at 512 MiB beside its bound,
-              x + 1 (its library row) and copy_; then `python -m
-              fl_rl_compression_mpi_tpu_torch.bench --size-mb 256
-              --json-only` in a process of its own with a
-              100 s arm budget: it must exit 0 having run every arm but
-              the --full ones, with host_roundtrip_ok, dense_ok* and rl_ok
-              true and no key ending in _error or _flag; its last line is
-              printed on a [bench] line, and the copy probe's launches are
-              the ones that run reports.
+              x + 1 (its library row) and copy_; the copy probe's launches
+              are this phase's own.
 9. classes  — after every timed phase, since their large buffers, freed
               with empty_cache(), slowed the timed phases that came after
               them: the run offsets on run counts around a tile, a group of
@@ -3158,17 +3152,10 @@ def phase_multihost(tmp: str, walls: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The benchmark entry point (fl_rl_compression_mpi_tpu_torch/bench.py) and
-# its copy-ceiling probe
+# The copy-ceiling probe (csrc/copy_probe.cu)
 # ---------------------------------------------------------------------------
 
 COPY_WORDS = (1, 3, 4, 5, 2048 * 128)
-BENCH_MIB = 256
-BENCH_BUDGET_S = 100               # the bench's arm budget in this phase
-# the arms a run without --full skips, and none besides them
-BENCH_FULL_ONLY = {"dense_w3", "dense_mixed", "dense_bmp", "rl_half", "e2e"}
-BENCH_OKS = ("host_roundtrip_ok", "dense_ok", "dense_ok_zeros", "dense_ok_w8",
-             "rl_ok")
 
 
 def check_copy_probe(x: torch.Tensor) -> None:
@@ -3180,7 +3167,8 @@ def phase_copy_probe(rng) -> tuple:
     word counts 1, 3, 4, 5, 2048·128 and 512 MiB, words at 0xFFFFFFFF (the
     wrap), and a start 4 bytes into a larger buffer (the word path); then
     its times at 512 MiB beside its bound, x + 1 and ``copy_``.  Returns
-    ``(kernel ms, plain ms)``."""
+    the phase's launches of the probe and ``(kernel ms, plain ms)``."""
+    reset_all_launches()
     cases = 0
     for nw in COPY_WORDS:
         words = rng.integers(-(1 << 31), 1 << 31, nw, dtype=np.int64)
@@ -3199,7 +3187,7 @@ def phase_copy_probe(rng) -> tuple:
                       device=DEVICE).to(torch.int32)
     check_copy_probe(x)
     cases += 2
-    say(f"[bench] {cases} copy-probe inputs equal x + 1 byte for byte")
+    say(f"[copy] {cases} copy-probe inputs equal x + 1 byte for byte")
     y = torch.empty_like(x)
     timing = (kernel_ms("copy_probe", lambda: cpk.add_one(x)),
               cuda_ms(lambda: cpk.add_one_ref(x)))
@@ -3218,44 +3206,7 @@ def phase_copy_probe(rng) -> tuple:
         f"{copy_ms[1]:.4f} ms copy_")
     del x, y, big
     torch.cuda.empty_cache()
-    return timing
-
-
-def phase_bench() -> dict:
-    """``python -m fl_rl_compression_mpi_tpu_torch.bench --size-mb 256
-    --json-only`` as a user runs it, within a budget: it must exit 0 with a
-    last line that parses, every default arm run (``skipped_arms`` exactly
-    the ``--full`` ones), ``host_roundtrip_ok``, ``dense_ok*`` and
-    ``rl_ok`` true and no key that ends in ``_error`` or ``_flag`` (a run
-    cut by a signal or the watchdog exits 1 with ``interrupted_error``).
-    Returns the launch counts it reports (the copy probe's main path)."""
-    t0 = time.perf_counter()
-    env = dict(os.environ, FLRL_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
-    proc = subprocess.run(
-        [sys.executable, "-m", "fl_rl_compression_mpi_tpu_torch.bench",
-         "--size-mb", str(BENCH_MIB), "--json-only"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=BENCH_BUDGET_S + 300)
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise AssertionError(f"bench exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
-    rec = json.loads(lines[-1])
-    bad = [key for key in rec if key.endswith(("_error", "_flag"))]
-    bad += [key for key in BENCH_OKS if rec.get(key) is not True]
-    if set(rec.get("skipped_arms", [])) != BENCH_FULL_ONLY:
-        bad.append(f"skipped_arms {rec.get('skipped_arms')}")
-    if bad:
-        raise AssertionError(f"bench: {bad}: {lines[-1]}")
-    say(f"[bench] {lines[-1]}")
-    tag = "kernel launches "
-    counts = [json.loads(line.split(tag, 1)[1])
-              for line in proc.stderr.splitlines() if tag in line]
-    if not counts or not counts[-1].get("copy_probe"):
-        raise AssertionError(f"bench: the copy probe was not launched "
-                             f"({counts})")
-    say(f"[bench] kernel launches {json.dumps(counts[-1])}; phase "
-        f"{time.perf_counter() - t0:.1f} s")
-    return counts[-1]
+    return all_launches()["copy_probe"], timing
 
 
 # ---------------------------------------------------------------------------
@@ -4026,9 +3977,9 @@ def main() -> int:
         phase_stream(tmp, np.random.default_rng(SEED + 8))
     say(f"[stream] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    timings["copy_probe"] = phase_copy_probe(np.random.default_rng(SEED + 9))
-    launches["copy_probe"] = phase_bench()["copy_probe"]
-    say(f"[bench] phase took {time.perf_counter() - t0:.1f} s")
+    launches["copy_probe"], timings["copy_probe"] = phase_copy_probe(
+        np.random.default_rng(SEED + 9))
+    say(f"[copy] phase took {time.perf_counter() - t0:.1f} s")
     # after every timed phase: ahead of them, the 1 GiB field encodes and
     # the plain run offsets' 16 GiB buffer (2^31 counts in int64) slowed
     # the first Compression stages of the main and field phases

@@ -5,11 +5,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
+import time
 
 import numpy as np
 import torch
 
-from ..bench import Clock, device_info, resolve_device
+from ..models import registry
 
 
 def parser(doc: str) -> argparse.ArgumentParser:
@@ -21,6 +23,56 @@ def parser(doc: str) -> argparse.ArgumentParser:
                    help="a small size, one cycle and short chains, each "
                         "timed once (the JAX script's SMOKE setting)")
     return p
+
+
+def device_info(dev: torch.device) -> dict:
+    """The card's name and its power limit as nvidia-smi reads it."""
+    if dev.type != "cuda":
+        return {"device": "cpu", "power_limit": None}
+    try:
+        limit = subprocess.run(
+            ["nvidia-smi", f"--id={dev.index}", "--query-gpu=power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        limit = None
+    return {"device": torch.cuda.get_device_name(dev), "power_limit": limit}
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cpu`` runs the plain versions; anything else must be a card."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if name == "cuda":
+        return registry.default_device()
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    return torch.device(name)
+
+
+class Clock:
+    """Seconds of device work: CUDA events on a card, the host clock on
+    the CPU (where the plain versions run synchronously)."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def seconds(self, fn) -> float:
+        if not self.cuda:
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / 1e3
+
+    def sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
 
 
 def setup(args) -> tuple:

@@ -83,62 +83,46 @@ def encode(data, *, device: str | torch.device):
 
 def encode_walk(data: np.ndarray, device: str | torch.device):
     """The chunk walk of :func:`encode`, with no host closed form:
-    ``(counts, values)`` of ``data`` through the kernels, chunk by chunk."""
+    ``(counts, values)`` of ``data`` through the kernels, in chunks of at
+    most ``fl_torch.MAX_DEVICE_CHUNK`` bytes, each copied to the device,
+    encoded with the carry of the chunk before it and, if it starts a
+    run, its counts and values copied back.  Each part's last count is
+    closed with the next piece start, in whichever later chunk it falls,
+    or with the stream's end."""
     n = data.size
     if n == 0:
         return np.zeros(0, np.uint8), np.zeros(0, np.uint8)
     device = torch.device(device)
-
-    def up(off: int, chunk: np.ndarray) -> torch.Tensor:
+    cap = fl_torch.MAX_DEVICE_CHUNK
+    parts = []
+    prev, d0 = -1, 0
+    open_len = 0          # bytes so far of the last piece of parts[-1]
+    for off in range(0, n, cap):
+        chunk = data[off:off + cap]
+        open_len += min(_piece_head(chunk, prev, d0), chunk.size)
         with stage("Copy input data to device", chunk.size,
                    span="flrl.h2d.pageable", on=device):
-            return _to_device(chunk, device)
-
-    def down(counts_d: torch.Tensor, values_d: torch.Tensor):
-        with stage("Copy results to CPU", span="flrl.d2h.pageable") as t:
-            counts = counts_d.cpu().numpy()
-            values = values_d.cpu().numpy()
-            if t:
-                t.add_transfer_size(counts.size + values.size)
-        return counts, values
-
-    parts = encode_parts(data, up, down)
+            x = _to_device(chunk, device)
+        with stage("Compression", chunk.size, span="flrl.kernels",
+                   on=x.device):
+            values_d, counts_d, run_start = kern.encode_chunk(x, prev, d0)
+        if len(counts_d):
+            if parts:
+                parts[-1][0][-1] = open_len
+            with stage("Copy results to CPU", span="flrl.d2h.pageable") as t:
+                counts = counts_d.cpu().numpy()
+                values = values_d.cpu().numpy()
+                if t:
+                    t.add_transfer_size(counts.size + values.size)
+            parts.append((counts, values))
+            open_len = int(counts[-1])
+        prev, d0 = int(chunk[-1]), chunk.size - run_start
+    parts[-1][0][-1] = open_len
     if len(parts) == 1:
         return parts[0]
     with stage(span="flrl.host.join"):
         return (np.concatenate([c for c, _ in parts]),
                 np.concatenate([v for _, v in parts]))
-
-
-def encode_parts(data: np.ndarray, chunk_on_device, keep) -> list:
-    """The walk itself: ``data`` in chunks of at most
-    ``fl_torch.MAX_DEVICE_CHUNK`` bytes, each encoded by the kernels with
-    the carry of the chunk before it.  ``chunk_on_device(off, chunk)``
-    gives ``chunk`` (``data[off:off + chunk.size]``) on the device, and
-    ``keep(counts, values)`` the form a chunk's device output is kept in
-    (host arrays, or the tensors themselves).  Returns the kept parts of
-    the chunks that start a run, each part's last count closed with the
-    next piece start, in whichever later chunk it falls, or with the
-    stream's end."""
-    cap = fl_torch.MAX_DEVICE_CHUNK
-    parts = []
-    prev, d0 = -1, 0
-    open_len = 0          # bytes so far of the last piece of parts[-1]
-    for off in range(0, data.size, cap):
-        chunk = data[off:off + cap]
-        open_len += min(_piece_head(chunk, prev, d0), chunk.size)
-        x = chunk_on_device(off, chunk)
-        with stage("Compression", chunk.size, span="flrl.kernels",
-                   on=x.device):
-            values, counts, run_start = kern.encode_chunk(x, prev, d0)
-        if len(counts):
-            if parts:
-                parts[-1][0][-1] = open_len
-            parts.append(keep(counts, values))
-            open_len = int(parts[-1][0][-1])
-        prev, d0 = int(chunk[-1]), chunk.size - run_start
-    parts[-1][0][-1] = open_len
-    return parts
 
 
 # The device-level encode is the kernel's own wrapper: one
@@ -268,8 +252,10 @@ def decode_walk(counts: np.ndarray, values: np.ndarray,
                 block_end: np.ndarray | None = None,
                 out: np.ndarray | None = None) -> np.ndarray:
     """The chunk walk of :func:`decode`, with no host closed form: the
-    Σ counts bytes of the runs, chunk by chunk, each chunk's output copied
-    from the device straight into its slice of ``out`` (u8[Σ counts])
+    Σ counts bytes of the runs, in the chunks of :func:`_run_chunks` (at
+    most ``fl_torch.MAX_DEVICE_CHUNK`` bytes of output, at least one run),
+    each chunk's runs copied to the device, expanded by the kernels and
+    its output copied straight into its slice of ``out`` (u8[Σ counts])
     where it is given, else of a new array.  ``block_end`` is
     :func:`_block_ends` of ``counts`` where the caller has it."""
     if counts.size == 0:
@@ -284,30 +270,16 @@ def decode_walk(counts: np.ndarray, values: np.ndarray,
         raise ValueError(f"decode_walk: out must be u8[{n}], got "
                          f"{out.dtype}{list(out.shape)}")
     device = torch.device(device)
-
-    def up(r0: int, r1: int):
+    for r0, r1, o0, o1 in _run_chunks(counts, block_end,
+                                      fl_torch.MAX_DEVICE_CHUNK):
         with stage("Copy input to device", 2 * (r1 - r0),
                    span="flrl.h2d.pageable", on=device):
-            return (_to_device(counts[r0:r1], device),
-                    _to_device(values[r0:r1], device))
-
-    for o0, o1, out_d in decode_parts(counts, block_end, up):
+            c = _to_device(counts[r0:r1], device)
+            v = _to_device(values[r0:r1], device)
+        with stage("Decompression", o1 - o0, span="flrl.kernels",
+                   on=c.device):
+            out_d = kern.expand(c, v, kern.run_offsets(c), o1 - o0)
         with stage("Copy results to CPU", o1 - o0,
                    span="flrl.d2h.pageable"):
             torch.from_numpy(out[o0:o1]).copy_(out_d)
     return out
-
-
-def decode_parts(counts: np.ndarray, block_end: np.ndarray, runs_on_device):
-    """The walk itself: yields ``(o0, o1, out)``, the output bytes o0..o1
-    on the device, for each chunk of :func:`_run_chunks` (at most
-    ``fl_torch.MAX_DEVICE_CHUNK`` bytes of output, at least one run).
-    ``runs_on_device(r0, r1)`` gives runs r0..r1's ``(counts, values)`` on
-    the device, each 16-byte aligned."""
-    for r0, r1, o0, o1 in _run_chunks(counts, block_end,
-                                      fl_torch.MAX_DEVICE_CHUNK):
-        c, v = runs_on_device(r0, r1)
-        with stage("Decompression", o1 - o0, span="flrl.kernels",
-                   on=c.device):
-            out = kern.expand(c, v, kern.run_offsets(c), o1 - o0)
-        yield o0, o1, out

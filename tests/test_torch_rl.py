@@ -109,21 +109,36 @@ def _walk_stream():
                            g.integers(0, 3, 5000, np.uint8)])
 
 
+def _long_walk_stream():
+    """300,000 bytes of runs of 1 to 599 over four values: several 64 KiB
+    chunks, or one whole one."""
+    g = np.random.default_rng(5)
+    return np.repeat(g.integers(0, 4, 9000, np.uint8),
+                     g.integers(1, 600, 9000))[:300_000].copy()
+
+
 CAPS = [100, 255, 256, 510, 700, 701, 4096, 5000]
+STREAMS = {"walk": _walk_stream, "long": _long_walk_stream}
 
 
-@pytest.mark.parametrize("cap", CAPS)
-def test_chunk_walk_equals_one_pass(cap, monkeypatch):
-    data = _walk_stream()
+@pytest.mark.parametrize("stream", list(STREAMS))
+@pytest.mark.parametrize("cap", CAPS + [1 << 16, 1 << 30])
+def test_chunk_walk_equals_one_pass(stream, cap, monkeypatch):
+    data = STREAMS[stream]()
     one_c, one_v = _enc(data)
     monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", cap)
     counts, values = _enc(data)
     np.testing.assert_array_equal(counts, one_c)
     np.testing.assert_array_equal(values, one_v)
+    want_c, want_v = rl_numpy.encode(data)
+    np.testing.assert_array_equal(counts, want_c)
+    np.testing.assert_array_equal(values, want_v)
     out = _dec(counts, values)
     np.testing.assert_array_equal(out, data)
     block_end = rl_torch._block_ends(counts)
-    for r0, r1, o0, o1 in rl_torch._run_chunks(counts, block_end, cap):
+    chunks = list(rl_torch._run_chunks(counts, block_end, cap))
+    assert (len(chunks) > 1) == (cap < data.size)
+    for r0, r1, o0, o1 in chunks:
         assert r1 > r0 and (o1 - o0 <= cap or r1 == r0 + 1)
 
 
