@@ -56,6 +56,7 @@ import os
 import threading
 import warnings
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -686,8 +687,10 @@ def decode(output_size: int, bits, values,
     out = decode_closed_form(n, bits, values, frame_length)
     if out is not None:
         return out
-    widths, voffs = container_layout(n, bits, values.size, frame_length)
-    return decode_walk(n, widths, values, voffs, frame_length, device)
+    widths = bits[:-(-n // frame_length)]
+    return decode_walk(n, widths, values,
+                       walk_layout(n, widths, frame_length), frame_length,
+                       device)
 
 
 def _closed_form(n: int, bits: np.ndarray, values: np.ndarray,
@@ -725,6 +728,20 @@ def decode_closed_form(n: int, bits: np.ndarray, values: np.ndarray,
         return values[:n].copy()
 
 
+def _refuse(lo: int, hi: int, need: int, values_size: int) -> None:
+    """Raises where the least width ``lo`` or the greatest ``hi`` lies
+    outside 1..8, or where a payload of ``values_size`` bytes is shorter
+    than the ``need`` bytes that the widths imply."""
+    if lo < 1 or hi > 8:
+        raise ValueError(
+            "fl decode: corrupt container (width byte outside 1..8: "
+            f"{lo if lo < 1 else hi})")
+    if values_size < need:
+        raise ValueError(
+            "fl decode: corrupt container (payload shorter than the "
+            f"widths imply: {values_size} < {need})")
+
+
 def check_widths(n: int, bits: np.ndarray, values_size: int,
                  frame_length: int) -> np.ndarray:
     """The widths u8[F] of the frames of an n-byte stream (n > 0), with no
@@ -732,47 +749,73 @@ def check_widths(n: int, bits: np.ndarray, values_size: int,
     or a payload of ``values_size`` bytes, shorter than the widths imply
     (the caller has checked that ``bits`` holds F widths)."""
     widths = bits[:-(-n // frame_length)]
-    lo, hi = int(widths.min()), int(widths.max())
-    if lo < 1 or hi > 8:
-        raise ValueError(
-            "fl decode: corrupt container (width byte outside 1..8: "
-            f"{lo if lo < 1 else hi})")
-    need = payload_size(widths, n, frame_length)
-    if values_size < need:
-        raise ValueError(
-            "fl decode: corrupt container (payload shorter than the "
-            f"widths imply: {values_size} < {need})")
+    _refuse(int(widths.min()), int(widths.max()),
+            payload_size(widths, n, frame_length), values_size)
     return widths
 
 
-def container_layout(n: int, bits: np.ndarray, values_size: int,
-                     frame_length: int):
-    """``(widths u8[F], voffs i64[F+1])``: the checked widths
-    (:func:`check_widths`) and the exclusive scan of their payload
-    bytes."""
+class Part(NamedTuple):
+    """One part of a decode walk: its ``n`` bytes, its frames ``f0:f1`` of
+    the walk's widths, its payload ``v0:v1`` of the walk's payload, and its
+    least and greatest width."""
+    n: int
+    f0: int
+    f1: int
+    v0: int
+    v1: int
+    lo: int
+    hi: int
+
+
+def walk_layout(n: int, widths: np.ndarray,
+                frame_length: int) -> list[Part]:
+    """The parts of the decode walk over the n bytes whose frames have the
+    widths ``widths`` (u8[F]): frame-aligned, of at most
+    ``_device_cap(L)`` bytes.  Each part's widths are read once, by one
+    set of reductions (least, greatest, and the payload bytes that
+    :func:`payload_size` sums); a part's payload starts where the last
+    one's ended, since every part but the last holds whole frames.  Checks
+    nothing: see :func:`check_layouts`."""
+    cap = _device_cap(frame_length)
+    parts, v0 = [], 0
     with stage(span="flrl.host.layout"):
-        widths = check_widths(n, bits, values_size, frame_length)
-        counts = np.minimum(
-            n - np.arange(widths.size, dtype=np.int64) * frame_length,
-            frame_length)
-        voffs = np.zeros(widths.size + 1, np.int64)
-        np.cumsum((widths.astype(np.int64) * counts + 7) // 8,
-                  out=voffs[1:])
-        return widths, voffs
+        for off in range(0, n, cap):
+            k = min(cap, n - off)
+            f0 = off // frame_length
+            w = widths[f0:f0 + -(-k // frame_length)]
+            v1 = v0 + payload_size(w, k, frame_length)
+            parts.append(Part(k, f0, f0 + w.size, v0, v1, int(w.min()),
+                              int(w.max())))
+            v0 = v1
+    return parts
+
+
+def check_layouts(layouts, values_size: int) -> None:
+    """Raises, as :func:`check_widths` does, where a width of any part of
+    ``layouts`` (each a :func:`walk_layout`, of consecutive pieces of one
+    stream) lies outside 1..8, or where a payload of ``values_size`` bytes
+    is shorter than the pieces' payloads, one after another."""
+    parts = [p for lay in layouts for p in lay]
+    if parts:
+        _refuse(min(p.lo for p in parts), max(p.hi for p in parts),
+                sum(lay[-1].v1 for lay in layouts if lay), values_size)
 
 
 def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
-                voffs: np.ndarray, frame_length: int,
+                parts: list[Part], frame_length: int,
                 device: str | torch.device,
                 out: np.ndarray | None = None) -> np.ndarray:
     """:func:`decode_chunks` over the n bytes of the frames ``widths``
-    (each 1..8) whose payload starts at ``values[voffs[f]]``, in chunks of
-    at most ``_device_cap(L)`` bytes, each copied straight into the
-    output: ``out`` (u8[n]) where it is given, else a new block of host
-    memory, returned as an array: from a card, pinned memory from
-    PyTorch's cache, held (rounded up to a power of two) until the caller
-    drops the array, so that every part's copy down lands in pinned
-    memory; from the CPU, plain memory."""
+    (u8[F]) and the payload ``values``, cut into the ``parts`` of their
+    :func:`walk_layout`, each copied straight into the output: ``out``
+    (u8[n]) where it is given, else a new block of host memory, returned
+    as an array: from a card, pinned memory from PyTorch's cache, held
+    (rounded up to a power of two) until the caller drops the array, so
+    that every part's copy down lands in pinned memory; from the CPU,
+    plain memory.  The parts are checked (:func:`check_layouts`) before
+    anything is written or launched; each part's submit takes its least
+    and greatest width as they are, with no second read of its widths."""
+    check_layouts([parts], values.size)
     if out is None:
         with stage(span="flrl.host.out"):
             block = _host_block(n, device)
@@ -781,18 +824,9 @@ def decode_walk(n: int, widths: np.ndarray, values: np.ndarray,
                          f"{out.dtype}{list(out.shape)}")
     else:
         block = torch.from_numpy(out)
-    cap = _device_cap(frame_length)
-    fpc = cap // frame_length
-
-    def parts():
-        for off in range(0, n, cap):
-            f0 = off // frame_length
-            f1 = min(f0 + fpc, widths.size)
-            yield (min(cap, n - off), widths[f0:f1],
-                   values[voffs[f0]:voffs[f1]])
-
-    for _ in decode_chunks(parts(), frame_length, device=device,
-                           out=block):
+    checked = ((p.n, widths[p.f0:p.f1], values[p.v0:p.v1], (p.lo, p.hi))
+               for p in parts)
+    for _ in _decode_parts(checked, frame_length, device, 2, block):
         pass
     return block.numpy() if out is None else out
 
@@ -812,7 +846,17 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
     all-8 part, else its payload, and on the general path its widths,
     copied up through pinned buffers and its kernels launched on the route
     ``FLRL_NO_DENSE`` selects, the field route's host unfold first) and
-    *drained* ``depth`` - 1 parts later (its bytes copied down)."""
+    *drained* ``depth`` - 1 parts later (its bytes copied down).  A part's
+    widths and payload size are checked at its submit; one above the cap
+    is checked whole before its first piece."""
+    yield from _decode_parts(_capped_parts(parts, frame_length),
+                             frame_length, device, depth, out)
+
+
+def _decode_parts(parts, frame_length: int, device, depth: int, out):
+    """:func:`decode_chunks` over ``(n, widths, values, lohi)`` parts of
+    at most the device cap, ``lohi`` their least and greatest width where
+    the caller has checked them, else None (checked at submit)."""
     kern.check_frame_length(frame_length)
     L = frame_length
     lanes = _Lanes(torch.device(device), depth)
@@ -821,13 +865,15 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
     pos = 0
 
     def submit(part):
-        n, bits, values = part
+        n, bits, values, lohi = part
         if n == 0:
             return _Chunk(0, ready=np.zeros(0, np.uint8))
         closed = _closed_form(n, bits, values, L)
         if closed is None:
+            bits = bits[:-(-n // L)]
+            lo, hi = lohi or _check_part(n, bits, values, L)
             chunk = (_submit_decode if dense else _submit_decode_fields)(
-                lanes, n, bits[:-(-n // L)], values, L)
+                lanes, n, bits, values, L, lo, hi)
         elif closed[0] == "constant":
             chunk = _Chunk(n, fill=closed[1])   # filled at drain
         else:
@@ -854,28 +900,27 @@ def decode_chunks(parts, frame_length: int = FRAME_LENGTH, *,
         with stage("Copy results to CPU", chunk.n, span=_d2h_span(dest)):
             return lanes.download(chunk.out_d, chunk.done, dest)
 
-    yield from _pipeline(_capped_parts(parts, L), submit, drain, depth)
+    yield from _pipeline(parts, submit, drain, depth)
 
 
 def _capped_parts(parts, frame_length: int):
-    """``parts`` with those above the device cap split frame-aligned by
-    their widths."""
+    """``parts`` as :func:`_decode_parts` takes them: those up to the
+    device cap unchecked, those above it checked whole and split by their
+    :func:`walk_layout`."""
     cap = _device_cap(frame_length)
-    fpc = cap // frame_length
     for n, bits, values in parts:
         n = int(n)
         bits = np.asarray(bits, np.uint8).reshape(-1)
         values = np.asarray(values, np.uint8).reshape(-1)
         if n <= cap:
-            yield n, bits, values
+            yield n, bits, values, None
             continue
-        frames = -(-n // frame_length)
-        _, voffs = container_layout(n, bits, values.size, frame_length)
-        for off in range(0, n, cap):
-            f0 = off // frame_length
-            f1 = min(f0 + fpc, frames)
-            yield (min(cap, n - off), bits[f0:f1],
-                   values[voffs[f0]:voffs[f1]])
+        widths = bits[:-(-n // frame_length)]
+        lay = walk_layout(n, widths, frame_length)
+        check_layouts([lay], values.size)
+        for p in lay:
+            yield (p.n, widths[p.f0:p.f1], values[p.v0:p.v1],
+                   (p.lo, p.hi))
 
 
 def _check_part(n: int, bits: np.ndarray, values: np.ndarray,
@@ -893,10 +938,10 @@ def _check_part(n: int, bits: np.ndarray, values: np.ndarray,
 
 
 def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
-                   values: np.ndarray, L: int) -> _Chunk:
+                   values: np.ndarray, L: int, lo: int, hi: int) -> _Chunk:
     """The dense route's submit: uniform mode where every width of the
-    part is one, else the offsets scan and the general unpack."""
-    lo, hi = _check_part(n, bits, values, L)
+    part is one (``lo`` == ``hi``, its checked least and greatest width),
+    else the offsets scan and the general unpack."""
     fb = lo if lo == hi else 0
     with stage("Copy input to device", values.size + bits.size,
                span="flrl.h2d.pinned", on=lanes.up_stream):
@@ -913,12 +958,12 @@ def _submit_decode(lanes: _Lanes, n: int, bits: np.ndarray,
 
 
 def _submit_decode_fields(lanes: _Lanes, n: int, bits: np.ndarray,
-                          values: np.ndarray, L: int) -> _Chunk:
+                          values: np.ndarray, L: int, lo: int,
+                          hi: int) -> _Chunk:
     """The field route's submit: the host unfolds the payload into fields
-    (the pack-2 layout where the layout allows and every width of the part
-    is ≤ 4), while the device still works on the part before; the device
-    decodes them."""
-    _, hi = _check_part(n, bits, values, L)
+    (the pack-2 layout where the layout allows and every width of the part,
+    at most ``hi``, is ≤ 4), while the device still works on the part
+    before; the device decodes them."""
     nw = bits.size * (L // 4)
     pack = _use_pack2(L) and hi <= 4
     with stage("Host unfold (ragged placement)", n, span="flrl.host.unfold"):

@@ -475,16 +475,23 @@ def decompress_fl(comp, frame_length: int = FRAME_LENGTH, *, group=None,
     out = (np.zeros(0, np.uint8) if n == 0 else
            fl_torch.decode_closed_form(n, bits, values, frame_length))
     if out is None:
-        widths, voffs = fl_torch.container_layout(n, bits, values.size,
-                                                  frame_length)
         plan = plan_shards(n, world, frame_length)
+        ns, L = plan.ns.tolist(), frame_length
+        # each shard's widths and the walk's parts over them, all checked
+        # before any shard starts; a shard's payload starts after the
+        # payloads of the shards before it
+        widths = [bits[s // L:s // L + -(-k // L)]
+                  for s, k in zip(plan.starts.tolist(), ns)]
+        layouts = [fl_torch.walk_layout(k, w, L)
+                   for k, w in zip(ns, widths)]
+        fl_torch.check_layouts(layouts, values.size)
+        vstarts = np.cumsum([0] + [lay[-1].v1 if lay else 0
+                                   for lay in layouts]).tolist()
 
         def decode(i, dev, dest=None):
-            f0 = int(plan.starts[i]) // frame_length
-            f1 = f0 + -(-int(plan.ns[i]) // frame_length)
             return fl_torch.decode_walk(
-                int(plan.ns[i]), widths[f0:f1], values[voffs[f0]:voffs[f1]],
-                voffs[f0:f1 + 1] - voffs[f0], frame_length, dev, out=dest)
+                ns[i], widths[i], values[vstarts[i]:vstarts[i + 1]],
+                layouts[i], L, dev, out=dest)
 
         if mesh:
             with stage(span="flrl.host.out"):

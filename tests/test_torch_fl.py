@@ -447,10 +447,10 @@ def test_multi_chunk_results_land_in_one_block(L, route, monkeypatch):
     np.testing.assert_array_equal(again, other)
     np.testing.assert_array_equal(out, data)
 
-    widths, voffs = fl_torch.container_layout(data.size, bits, values.size,
-                                              L)
+    widths = bits[:-(-data.size // L)]
+    parts = fl_torch.walk_layout(data.size, widths, L)
     mine = np.full(data.size, 0xA5, np.uint8)
-    got = fl_torch.decode_walk(data.size, widths, values, voffs, L, "cpu",
+    got = fl_torch.decode_walk(data.size, widths, values, parts, L, "cpu",
                                out=mine)
     assert got is mine
     np.testing.assert_array_equal(mine, data)
@@ -488,3 +488,158 @@ def test_fl_walk_results_land_in_pinned_memory():
     assert "flrl.host.join" not in torch_spans.check(enc)
     got = torch_spans.check(dec)
     assert "flrl.d2h.pinned" in got and "flrl.d2h.pageable" not in got
+
+
+# ---------------------------------------------------------------------------
+# the decode's layout: part and shard bounds from block sums, checked whole
+# ---------------------------------------------------------------------------
+
+FRAMES = 212        # three parts of 64 frames and a tail of 20, at a cap of 64
+
+
+def _scan(bits, n, L):
+    """The payload's offset at each frame boundary, i64[F+1], from the
+    definition: the exclusive scan of ceil(w·count/8), count being the
+    frame's bytes."""
+    F = -(-n // L)
+    counts = np.minimum(n - np.arange(F, dtype=np.int64) * L, L)
+    scan = np.zeros(F + 1, np.int64)
+    np.cumsum((bits[:F].astype(np.int64) * counts + 7) // 8, out=scan[1:])
+    return scan
+
+
+def _stream_of_widths(widths, n, L, seed):
+    """n bytes whose frames have exactly the widths ``widths``: random
+    bytes below 2^w, each frame's first byte 2^w - 1."""
+    g = np.random.default_rng(seed)
+    top = (1 << widths.astype(np.int64)) - 1
+    data = (g.integers(0, 256, widths.size * L) & top.repeat(L)).astype(
+        np.uint8)
+    data[::L] = top
+    return data[:n]
+
+
+def _widths(kind, seed):
+    g = np.random.default_rng(seed)
+    w = g.integers(1, 9, FRAMES).astype(np.uint8)
+    if kind == "uniform":
+        w[:] = 5
+    elif kind == "mixed8":
+        # the first and third part of 64 frames all at width 8
+        w[:64] = w[128:192] = 8
+    return w
+
+
+def _held_to_scan(call, bits, values, scan, L, cap):
+    """One walk's parts tile its n bytes from its first frame, each of at
+    most the cap, and their frames, payload bounds and width range equal
+    the scan's; the walk's payload is the scan's range of ``values``."""
+    n, widths, vals, parts = call
+    f = widths.ctypes.data - bits.ctypes.data     # the walk's first frame
+    assert vals.ctypes.data - values.ctypes.data == scan[f]
+    assert vals.size == scan[f + widths.size] - scan[f]
+    off = 0
+    for p in parts:
+        assert p.n == min(cap, n - off)
+        assert (p.f0, p.f1) == (off // L, off // L + -(-p.n // L))
+        assert (p.v0, p.v1) == (scan[f + p.f0] - scan[f],
+                                scan[f + p.f1] - scan[f])
+        w = bits[f + p.f0:f + p.f1]
+        assert (p.lo, p.hi) == (int(w.min()), int(w.max()))
+        off += p.n
+    assert off == n
+    return len(parts)
+
+
+@pytest.mark.parametrize("kind", ["random", "uniform", "mixed8"])
+@pytest.mark.parametrize("nparts", [1, 4])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "ragged"])
+@pytest.mark.parametrize("L", [8, 24, 128])
+def test_walk_bounds_equal_the_scan(L, aligned, nparts, kind, monkeypatch):
+    """The one-card decode's parts and each shard's walk on 3 and 4 CPU
+    cards take their frames, payload bounds and width ranges from block
+    sums; each equals an int64 exclusive scan of the frames' payload
+    bytes, and the decoded bytes are ``fl_numpy``'s."""
+    from fl_rl_compression_mpi_tpu_torch.container import FLCompressed
+    from fl_rl_compression_mpi_tpu_torch.parallel import dist
+    monkeypatch.delenv("FLRL_NO_DENSE", raising=False)
+    if nparts == 4:
+        monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", 64 * L)
+    cap = fl_torch._device_cap(L)
+    n = FRAMES * L - (0 if aligned else L // 2 + 3)
+    data = _stream_of_widths(_widths(kind, L), n, L, L + nparts)
+    bits, values = fl_numpy.encode(data, L)
+    scan = _scan(bits, n, L)
+    want = fl_numpy.decode(n, bits, values, L)
+    np.testing.assert_array_equal(want, data)
+
+    seen = []
+    walk = fl_torch.decode_walk
+
+    def spy(n, widths, values, parts, *args, **kwargs):
+        seen.append((n, widths, values, parts))
+        return walk(n, widths, values, parts, *args, **kwargs)
+    monkeypatch.setattr(fl_torch, "decode_walk", spy)
+
+    np.testing.assert_array_equal(_dec(n, bits, values, L), want)
+    assert [_held_to_scan(c, bits, values, scan, L, cap)
+            for c in seen] == [nparts]
+    for cards in (3, 4):
+        seen.clear()
+        got = dist.decompress_fl(FLCompressed(bits, values, n), L,
+                                 mesh=dist.make_mesh(cards, "cpu"))
+        np.testing.assert_array_equal(got, want)
+        assert len(seen) == cards
+        starts = sorted(c[1].ctypes.data - bits.ctypes.data for c in seen)
+        plan = dist.plan_shards(n, cards, L)
+        assert starts == (plan.starts // L).tolist()
+        for c in seen:
+            _held_to_scan(c, bits, values, scan, L, cap)
+
+
+@pytest.mark.parametrize("path", ["walk", "mesh"])
+@pytest.mark.parametrize("fault", ["width0", "width9", "short"])
+def test_fault_in_last_part_refused_before_any_launch(fault, path,
+                                                      monkeypatch):
+    """A container of four parts whose only fault lies in the last one (a
+    width 0 or 9, or a payload one byte short) is refused with the
+    container's message before any kernel runs: no kernel called, the
+    launch counters as they were, and a caller's ``out=`` still holding
+    its fill bytes; on 4 CPU cards the same, before any shard starts."""
+    from fl_rl_compression_mpi_tpu_torch.container import FLCompressed
+    from fl_rl_compression_mpi_tpu_torch.parallel import dist
+    L = 128
+    monkeypatch.delenv("FLRL_NO_DENSE", raising=False)
+    monkeypatch.setattr(fl_torch, "MAX_DEVICE_CHUNK", 64 * L)
+    n = FRAMES * L - 9
+    bits, values = fl_numpy.encode(
+        _stream_of_widths(_widths("random", 1), n, L, 2), L)
+    bits = bits.copy()
+    if fault == "short":
+        values = values[:-1]
+        msg = (f"payload shorter than the widths imply: {values.size} < "
+               f"{values.size + 1}")
+    else:
+        bits[200] = 0 if fault == "width0" else 9
+        msg = f"width byte outside 1..8: {int(bits[200])}"
+    assert -(-n // fl_torch._device_cap(L)) == 4 and 200 >= 3 * 64
+    launches = dict(fl_dense_cuda.LAUNCHES)
+    by_card = fl_dense_cuda.launches_by("device")
+    calls = _spy(monkeypatch)
+    with pytest.raises(ValueError, match=msg):
+        if path == "mesh":
+            dist.decompress_fl(FLCompressed(bits, values, n), L,
+                               mesh=dist.make_mesh(4, "cpu"))
+        else:
+            _dec(n, bits, values, L)
+    if path == "walk":
+        widths = bits[:-(-n // L)]
+        mine = np.full(n, 0xA5, np.uint8)
+        with pytest.raises(ValueError, match=msg):
+            fl_torch.decode_walk(n, widths, values,
+                                 fl_torch.walk_layout(n, widths, L), L,
+                                 "cpu", out=mine)
+        assert (mine == 0xA5).all()
+    assert calls == []
+    assert fl_dense_cuda.LAUNCHES == launches
+    assert fl_dense_cuda.launches_by("device") == by_card

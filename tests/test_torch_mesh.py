@@ -407,14 +407,14 @@ def test_decode_walks_write_into_out():
     caller's array, and an array of another size is refused."""
     data, L = FL["mixed"]
     bits, values = fl_numpy.encode(data, L)
-    widths, voffs = fl_torch.container_layout(data.size, bits, values.size,
-                                              L)
+    widths = bits[:-(-data.size // L)]
+    parts = fl_torch.walk_layout(data.size, widths, L)
     out = np.zeros(data.size, np.uint8)
-    assert fl_torch.decode_walk(data.size, widths, values, voffs, L, CPU,
+    assert fl_torch.decode_walk(data.size, widths, values, parts, L, CPU,
                                 out=out) is out
     _eq(out, data)
     with pytest.raises(ValueError, match="out must be"):
-        fl_torch.decode_walk(data.size, widths, values, voffs, L, CPU,
+        fl_torch.decode_walk(data.size, widths, values, parts, L, CPU,
                              out=out[1:])
     counts, rvalues = rl_numpy.encode(RL["runs"])
     out = np.zeros(RL["runs"].size, np.uint8)
